@@ -1,0 +1,462 @@
+"""Smoke run of the PyTorch port (paddle_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
+2. Builds the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc``
+   command) and prints the build seconds.
+3. Kernel phase: each kernel against its plain PyTorch version at the
+   serving path's shapes, with times from CUDA events (kernel, plain
+   version, and one PyTorch library call as a yardstick the port never
+   makes) beside the least time the card could take. Device times come
+   from a CUDA graph of 100-200 calls (host enqueue excluded; the eager
+   per-call wall time is printed beside as ``eager_ms``). Inputs rotate
+   over enough copies to overflow the 50 MB L2, as the decode step finds
+   them.
+   Tolerances, per element: f32 |err| <= 1e-4 (outputs are O(1)); bf16
+   |err| <= two bf16 spacings of the element's |ref|, floored at those of
+   1e-3 of its row's largest |ref|. Kernel and plain version each round
+   one f32 result of reassociated sums to bf16, so they differ by one
+   spacing at most.
+4. Serving phase: the GQA Llama of bench.py's decode-quant config (vocab
+   32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
+   bf16, random weights from a seeded generator) behind ``ServingEngine``
+   (8 slots, chunk 16, max_len 256) answering 16 mixed requests, once
+   unquantized and once with ``quant="int8wk"``. Checks every request's
+   length against its budget and eos, finite logits, the dispatch
+   identity, the kernel launch counts the path implies, and teacher-forced
+   top-1 agreement >= 0.99 between the served tokens and a plain re-score
+   wherever the re-score's top-1 leads by more than 2 bf16 spacings of
+   the logits (and every served token within 4 spacings of the
+   re-score's best elsewhere).
+   Each run then serves the same requests again under ``torch.profiler``
+   (the tokens must not change) and its line adds the device busy share
+   and the costliest kernels.
+5. Prints ``{"kernels": [...]}``, the card line, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, and the exit code is not 0. Without a card the
+script exits 2 before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+L2_BYTES = 50 * 2**20
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, sets, iters=200):
+    """Device ms per call of ``fn(*set)``: ``iters`` calls cycling through
+    ``sets`` captured into one CUDA graph, whose replay is timed with CUDA
+    events — the host's enqueue cost is out of the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for s in sets[:3]:
+            fn(*s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / iters
+
+
+def eager_ms(fn, sets, iters=200):
+    """Wall ms per eager call (CUDA events around a host loop): the cost
+    the serving path pays today, host enqueue included."""
+    for s in sets[:3]:
+        fn(*s)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def n_copies(set_bytes: int) -> int:
+    """Input copies whose total exceeds twice the L2."""
+    return max(2, min(256, math.ceil(2 * L2_BYTES / max(set_bytes, 1))))
+
+
+def bound(bytes_moved: float, flops: float, peak: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def err_and_tol(got, want, dtype):
+    """Max |err| and its largest ratio to the element's tolerance (the
+    module docstring states the tolerances); the check is ratio <= 1."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        tol = torch.full_like(want, 1e-4)
+    else:
+        a = want.abs()
+        a = torch.maximum(a, 1e-3 * a.amax(-1, keepdim=True))
+        a = a.clamp_min(torch.finfo(torch.float32).tiny)
+        tol = 2 * torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return diff.max().item(), (diff / tol).max().item()
+
+
+# -- kernel phase -------------------------------------------------------------
+
+def da_case(name, B, H, KV, L, D, lens, dtype, quant, g):
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.quantization.kv_cache import (dequantize_kv,
+                                                        quantize_kv_rows)
+    esz = 1 if quant else torch.tensor([], dtype=dtype).element_size()
+    qsz = torch.tensor([], dtype=dtype).element_size()
+    set_bytes = 2 * B * KV * L * (D * esz + (4 if quant else 0))
+    sets, lib_sets = [], []
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rep = H // KV
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lt[:, None].long())[:, None, None, :]
+    for _ in range(n_copies(set_bytes)):
+        q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+        kf = torch.randn(B, KV, L, D, generator=g, device="cuda")
+        vf = torch.randn(B, KV, L, D, generator=g, device="cuda")
+        if quant:
+            k, v = quantize_kv_rows(kf), quantize_kv_rows(vf)
+            sets.append((q, k["q"], v["q"], lt, k["s"], v["s"]))
+            kd, vd = dequantize_kv(k, dtype), dequantize_kv(v, dtype)
+        else:
+            kd, vd = kf.to(dtype), vf.to(dtype)
+            sets.append((q, kd, vd, lt, None, None))
+        lib_sets.append((q[:, :, None], kd.repeat_interleave(rep, 1),
+                             vd.repeat_interleave(rep, 1)))
+        del kf, vf
+
+    def kern(q, k, v, lt, ks, vs):
+        return da.decode_attention(q, k, v, lt, k_scale=ks, v_scale=vs)
+
+    def plain(q, k, v, lt, ks, vs):
+        return da.decode_attention_ref(q, k, v, lt, k_scale=ks, v_scale=vs)
+
+    def lib(q4, kr, vr):
+        return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask)
+
+    err, ratio = err_and_tol(kern(*sets[0]), plain(*sets[0]), dtype)
+    torch.cuda.synchronize()
+    check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
+    n = int(sum(min(x, L) for x in lens))
+    moved = (2 * n * KV * (D * esz + (4 if quant else 0))
+             + 2 * B * H * D * qsz + 4 * B)
+    b_ms, b_by = bound(moved, 4.0 * H * D * n, BF16_FLOPS
+                       if dtype == torch.bfloat16 else F32_FLOPS)
+    return dict(case=name, kernel="decode_attention", max_abs_err=err,
+                err_over_tol=ratio, ms=time_ms(kern, sets),
+                eager_ms=eager_ms(kern, sets),
+                plain_ms=time_ms(plain, sets, iters=100),
+                library_ms=time_ms(lib, lib_sets), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def i8_case(name, B, K, N, dtype, g):
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.quantization import weight_quantize
+    esz = torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(n_copies(K * N)):
+        x = torch.randn(B, K, generator=g, device="cuda").to(dtype)
+        w, s = weight_quantize(
+            torch.randn(K, N, generator=g, device="cuda") * 0.02)
+        sets.append((x, w, s))
+
+    def lib(x, w, s):
+        return torch.matmul(x, w.to(x.dtype)) * s
+
+    err, ratio = err_and_tol(i8.int8_matmul(*sets[0]),
+                             i8.int8_matmul_ref(*sets[0]), dtype)
+    torch.cuda.synchronize()
+    check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
+    moved = K * N + B * K * esz + 4 * N + B * N * esz
+    b_ms, b_by = bound(moved, 2.0 * B * K * N, BF16_FLOPS
+                       if dtype == torch.bfloat16 else F32_FLOPS)
+    return dict(case=name, kernel="int8_matmul", max_abs_err=err,
+                err_over_tol=ratio,
+                ms=time_ms(i8.int8_matmul, sets),
+                eager_ms=eager_ms(i8.int8_matmul, sets),
+                plain_ms=time_ms(i8.int8_matmul_ref, sets, iters=100),
+                library_ms=time_ms(lib, sets, iters=100), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def kernel_phase():
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    lens = [1, 37, 256, 100, 200, 129, 64, 255]
+    long_lens = [4096, 1, 3000, 2049, 4000, 17, 1024, 4095]
+    cases = [
+        da_case("decode_attention f32 B8 H12 KV4 D64 L256", 8, 12, 4, 256,
+                64, lens, f32, False, g),
+        da_case("decode_attention bf16 B8 H12 KV4 D64 L256", 8, 12, 4, 256,
+                64, lens, bf, False, g),
+        da_case("decode_attention bf16 int8-KV B8 H12 KV4 D64 L256", 8, 12,
+                4, 256, 64, lens, bf, True, g),
+        da_case("decode_attention f32 int8-KV B8 H12 KV4 D64 L256", 8, 12,
+                4, 256, 64, lens, f32, True, g),
+        da_case("decode_attention bf16 B8 H12 KV4 D64 L4096", 8, 12, 4,
+                4096, 64, long_lens, bf, False, g),
+        i8_case("int8_matmul f32 B8 qkv 768x1280", 8, 768, 1280, f32, g),
+    ]
+    # every row count the serving path gives the kernel: 8 slots decoding,
+    # and admission prefills of groups of 16-, 32- or 64-token buckets
+    # that stay within 64 rows
+    for B in (8, 16, 32, 48, 64):
+        for what, K, N in (("qkv", 768, 1280), ("o_proj", 768, 768),
+                           ("gate_up", 768, 4096), ("down", 2048, 768),
+                           ("head", 768, 32000)):
+            cases.append(i8_case(f"int8_matmul bf16 B{B} {what} {K}x{N}",
+                                 B, K, N, bf, g))
+    for c in cases:
+        c["bound_us"] = 1e3 * c["bound_ms"]
+        c["share_of_bound"] = c["bound_ms"] / c["ms"]
+        emit(c)
+    return cases
+
+
+# -- serving phase ------------------------------------------------------------
+
+def device_profile(prof, wall_s):
+    """Device busy share of a profiled window and its costliest kernels:
+    the summed device time of every CUDA kernel over the window's wall
+    time (one stream, so kernels do not overlap)."""
+    kern = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy_us = sum(t for t, _, _ in kern)
+    return dict(device_busy_share=busy_us / (wall_s * 1e6),
+                device_busy_ms=busy_us / 1e3,
+                top_kernels=[dict(name=k[:80], ms=t / 1e3, count=n)
+                             for t, k, n in kern[:8]])
+
+
+def serve(model, quant, reqs, V, card):
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.serving import ServingEngine, bucket_length
+
+    cfg = model.config
+    dec = LlamaDecoder(model, max_len=256, quant=quant)
+    eng = ServingEngine(dec, num_slots=8, chunk_size=16)
+    d0 = dec.dispatch_count
+    torch.cuda.synchronize()
+    da.launches = i8.launches = 0
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+    res = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_da, n_i8 = da.launches, i8.launches
+    m = eng.metrics()
+    tag = quant or "none"
+
+    gens = []
+    for (p, n, e), rid in zip(reqs, ids):
+        out = np.asarray(res[rid])[0]
+        check(np.array_equal(out[:len(p)], p), f"{tag}: prompt echoed")
+        gen = out[len(p):]
+        check(((gen >= 0) & (gen < V)).all(), f"{tag}: token ids in vocab")
+        hit = np.flatnonzero(gen == e) if e is not None else []
+        want = int(hit[0]) + 1 if len(hit) else n
+        check(len(gen) == want, f"{tag}: request {rid} produced "
+              f"{len(gen)} tokens, its budget {n} and eos {e} allow {want}")
+        gens.append(gen)
+    check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
+    check(m["prefill_dispatches"] == len(reqs), f"{tag}: one prefill each")
+    check(dec.dispatch_count - d0
+          == m["prefill_dispatches"] + m["chunk_dispatches"],
+          f"{tag}: dispatch identity")
+    steps = m["chunk_dispatches"] * eng.chunk_size
+    L = cfg.num_hidden_layers
+    check(n_da == L * steps,
+          f"{tag}: decode_attention launches {n_da} != {L} x {steps}")
+    small = sum(1 for p, _, _ in reqs if bucket_length(len(p)) <= 64)
+    want_i8 = (4 * L + 1) * (steps + small) if quant else 0
+    check(n_i8 == want_i8,
+          f"{tag}: int8_matmul launches {n_i8} != {want_i8}")
+
+    # teacher-forced re-score of the served sequences through the plain
+    # prefill path (S > 1: masked dense attention, > 64 rows: no int8
+    # kernel). The logits are bf16 products: where the re-score's top two
+    # sit within one bf16 spacing of each other, which of them wins is
+    # rounding, so agreement is required where the re-score is decisive
+    # (top-1 ahead by more than 2 bf16 spacings) and every served token
+    # must be within 4 spacings of the re-score's best.
+    seqs = [np.concatenate([p, g]) for (p, _, _), g in zip(reqs, gens)]
+    W = bucket_length(max(len(s) for s in seqs))
+    ids_np = np.zeros((len(seqs), W), np.int64)
+    for j, s in enumerate(seqs):
+        ids_np[j, :len(s)] = s
+    logits, _, _ = dec.admit_prefill(ids_np, [len(s) for s in seqs],
+                                     np.zeros(len(seqs), np.int64),
+                                     return_all=True)
+    rows = torch.cat([logits[j, len(p) - 1:len(p) - 1 + len(g)]
+                      for j, ((p, _, _), g) in enumerate(zip(reqs, gens))])
+    served = torch.as_tensor(np.concatenate(gens), device=rows.device)
+    top = rows.topk(2, dim=-1).values
+    spacing = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+    hit = rows.argmax(-1) == served
+    decisive = top[:, 0] - top[:, 1] > 2 * spacing
+    deficit = (top[:, 0] - rows.gather(1, served[:, None])[:, 0]) / spacing
+    rate = int(hit.sum()) / len(hit)
+    rate_decisive = int(hit[decisive].sum()) / int(decisive.sum())
+    check(rate_decisive >= 0.99, f"{tag}: teacher-forced top-1 agreement "
+          f"{rate_decisive} at decisive positions")
+    check(deficit.max().item() <= 4, f"{tag}: a served token trails the "
+          f"re-score's best by {deficit.max().item()} bf16 spacings")
+    n_tok = int(sum(len(g) for g in gens))
+    info = dict(phase="serve", quant=tag, card=card, requests=len(reqs),
+                tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                ms_per_chunk_incl_admission=1e3 * wall
+                / m["chunk_dispatches"],
+                prefill_dispatches=m["prefill_dispatches"],
+                chunk_dispatches=m["chunk_dispatches"], decode_steps=steps,
+                decode_attention_launches=n_da, int8_matmul_launches=n_i8,
+                teacher_forced_top1=rate,
+                teacher_forced_top1_decisive=rate_decisive,
+                decisive_positions=int(decisive.sum().item()),
+                max_deficit_bf16_spacings=deficit.max().item())
+
+    # the same requests again on the same engine, tracing the device's
+    # kernels only (host ops untraced, so the drain keeps its pace): the
+    # tokens must not change, and the trace gives the device busy share
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+        res2 = eng.drain()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    for (p, _, _), g, rid in zip(reqs, gens, again):
+        check(np.array_equal(np.asarray(res2[rid])[0][len(p):], g),
+              f"{tag}: request {rid} served again gave other tokens")
+    info["profiled"] = device_profile(prof, pwall)
+    info["profiled"]["wall_s"] = pwall
+    emit(info)
+    return info
+
+
+def serving_phase(card):
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=768,
+                      intermediate_size=2048, num_hidden_layers=12,
+                      num_attention_heads=12, num_key_value_heads=4,
+                      max_position_embeddings=1024, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))),
+             int(rng.integers(32, 97)), None) for _ in range(16)]
+    # every fourth request stops at an eos its greedy stream reaches
+    ref = LlamaDecoder(model, max_len=256)
+    for j in range(1, 16, 4):
+        p, n, _ = reqs[j]
+        out = np.asarray(ref.generate(p[None], n))[0]
+        reqs[j] = (p, n, int(out[len(p) + n // 2]))
+    del ref
+    return [serve(model, q, reqs, cfg.vocab_size, card)
+            for q in (None, "int8wk")]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    from paddle_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+          f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)",
+          flush=True)
+    t1 = time.perf_counter()
+    cases = kernel_phase()
+    t2 = time.perf_counter()
+    runs = serving_phase(card)
+    print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
+          f"serving {time.perf_counter() - t2:.1f} s", flush=True)
+    launches = {
+        "decode_attention": sum(r["decode_attention_launches"] for r in runs),
+        "int8_matmul": sum(r["int8_matmul_launches"] for r in runs)}
+    for k, n in launches.items():
+        check(n > 0, f"{k} never launched on the serving path")
+    rows = []
+    for name, src, replaces, case in (
+            ("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
+             "paddle_tpu/ops/pallas/decode_attention.py:137",
+             "decode_attention bf16 B8 H12 KV4 D64 L256"),
+            ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
+             "paddle_tpu/ops/pallas/int8_matmul.py:77",
+             "int8_matmul bf16 B8 head 768x32000")):
+        c = next(c for c in cases if c["case"] == case)
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(x["max_abs_err"] for x in cases
+                            if x["kernel"] == name),
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=c["library_ms"], case=case))
+    emit({"kernels": rows})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

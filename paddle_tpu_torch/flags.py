@@ -1,0 +1,71 @@
+"""Runtime switches of the PyTorch port, overridable from the environment.
+
+Counterpart of ``paddle_tpu/flags.py`` (its own copy: the port imports
+nothing of the JAX package). Only the decode flags the serving path reads
+are declared, with the JAX package's names and defaults. Read one as
+``flags.<name>``; a ``FLAGS_<name>`` environment variable overrides its
+default at first read, and ``set_flags`` overrides both.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+__all__ = ["set_flags", "flags"]
+
+_TRUE = {"1", "true", "yes", "on"}
+_FALSE = {"0", "false", "no", "off", ""}
+
+_DEFAULTS: Dict[str, Any] = {
+    # route single-token GQA cache attention through the CUDA
+    # decode-attention kernel (ops/kernels/decode_attention.py); off, or
+    # for MHA, the masked dense form runs instead
+    "use_decode_attention": True,
+    # default decode recipe for LlamaDecoder when neither quant= nor
+    # weight_dtype= is passed: '' (fp32/bf16), 'int8w' (per-channel absmax
+    # int8 weights, int8 matmul kernel) or 'int8wk' (int8w + int8 KV cache
+    # with per-row absmax scales); PADDLE_TPU_DECODE_QUANT is equivalent
+    "decode_quant": "",
+    # serve LlamaDecoder.generate through the per-token host loop (one
+    # counted dispatch and one host sync per token) instead of the fused
+    # loop; PADDLE_TPU_DECODE_FALLBACK=1 is equivalent
+    "decode_fallback": False,
+}
+
+
+def _parse(name: str, value: Any) -> Any:
+    if not isinstance(_DEFAULTS[name], bool):
+        return type(_DEFAULTS[name])(value)
+    if not isinstance(value, str):
+        return bool(value)
+    v = value.strip().lower()
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    raise ValueError(f"cannot parse boolean flag {name}={value!r}")
+
+
+class _Flags:
+    def __init__(self) -> None:
+        self._values: Dict[str, Any] = {}
+
+    def __getattr__(self, name: str) -> Any:
+        if name not in _DEFAULTS:
+            raise AttributeError(f"undefined flag {name!r}")
+        if name not in self._values:
+            env = os.environ.get("FLAGS_" + name)
+            self._values[name] = (_DEFAULTS[name] if env is None
+                                  else _parse(name, env))
+        return self._values[name]
+
+
+flags = _Flags()
+
+
+def set_flags(d: Dict[str, Any]) -> None:
+    for name, value in d.items():
+        if name not in _DEFAULTS:
+            raise KeyError(f"undefined flag {name!r}")
+        flags._values[name] = _parse(name, value)

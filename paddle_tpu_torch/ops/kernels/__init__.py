@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches its kernel (built from ``paddle_tpu_torch/csrc`` on
+first use, see ``_build``) or raises."""

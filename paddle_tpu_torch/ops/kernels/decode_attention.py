@@ -1,0 +1,128 @@
+"""Single-token GQA cache attention: CUDA kernel and plain version.
+
+Counterpart of ``paddle_tpu/ops/pallas/decode_attention.py``; the kernel
+is ``paddle_tpu_torch/csrc/decode_attention.cu``. Layouts as there: q
+(B, H, D) one token per sequence; kc/vc (B, KV, L, D) padded head-major
+cache, f32/bf16 like q or int8 with (B, KV, L, 1) f32 scales; out
+(B, H, D) in q's dtype. ``pos`` is the valid length: an int or a scalar
+or (B,) int tensor (rows at different cache offsets); positions
+``>= pos[b]`` are masked. Inference only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import _build
+
+__all__ = ["supported", "decode_attention", "decode_attention_ref",
+           "launches"]
+
+#: kernel launches made by ``decode_attention`` (plain-version calls and
+#: direct ``decode_attention_ref`` calls do not count)
+launches = 0
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def supported(q, kc) -> bool:
+    """What the CUDA kernel takes: H a multiple of KV with rep = H / KV
+    up to 16, D a multiple of 8 up to 256, f32/bf16 q with a cache of
+    q's dtype or int8. Any L (the TPU kernel's L % 128 rule is gone)."""
+    if q.ndim != 3 or kc.ndim != 4:
+        return False
+    B, H, D = q.shape
+    Bk, KV, _, Dk = kc.shape
+    return (Bk == B and Dk == D and KV >= 1 and H % KV == 0
+            and H // KV <= 16 and D % 8 == 0 and D <= 256
+            and q.dtype in (torch.float32, torch.bfloat16)
+            and kc.dtype in (q.dtype, torch.int8))
+
+
+def _lens(pos, B: int, device) -> torch.Tensor:
+    """The valid length as a contiguous (B,) int32 tensor on ``device``
+    (an int becomes a device fill: no host round-trip either way)."""
+    if isinstance(pos, int):
+        return torch.full((B,), pos, dtype=torch.int32, device=device)
+    t = pos.to(device=device, dtype=torch.int32).reshape(-1)
+    return t.expand(B).contiguous() if t.numel() == 1 else t.contiguous()
+
+
+def decode_attention_ref(q, kc, vc, lens, k_scale=None, v_scale=None):
+    """Plain version: f32 math, masked softmax, dequantized int8 cache.
+    ``lens`` is the (B,) valid length."""
+    B, H, D = q.shape
+    KV, L = kc.shape[1], kc.shape[2]
+    rep = H // KV
+    k, v = kc.float(), vc.float()
+    if k_scale is not None:
+        k, v = k * k_scale.float(), v * v_scale.float()
+    qf = q.float().reshape(B, KV, rep, D)
+    s = torch.einsum("bgrd,bgld->bgrl", qf, k) * (1.0 / math.sqrt(D))
+    valid = (torch.arange(L, device=q.device)[None, :]
+             < lens.to(q.device).reshape(-1, 1))               # (B, L)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrl,bgld->bgrd", p, v)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _check(q, kc, vc, k_scale, v_scale):
+    if not supported(q, kc):
+        raise ValueError(
+            f"decode_attention kernel does not take q {tuple(q.shape)} "
+            f"{q.dtype} with cache {tuple(kc.shape)} {kc.dtype}")
+    if vc.shape != kc.shape or vc.dtype != kc.dtype:
+        raise ValueError("kc and vc must share shape and dtype")
+    quant = kc.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 caches need k_scale and v_scale; other "
+                         "caches take none")
+    ts = [q, kc, vc] + ([k_scale, v_scale] if quant else [])
+    if quant:
+        want = tuple(kc.shape[:3]) + (1,)
+        for s in (k_scale, v_scale):
+            if tuple(s.shape) != want or s.dtype != torch.float32:
+                raise ValueError(f"scales must be f32 {want}, got "
+                                 f"{tuple(s.shape)} {s.dtype}")
+    for t in ts:
+        if t.device != q.device:
+            raise ValueError("all operands must be on q's device")
+        if not t.is_contiguous():
+            raise ValueError("decode_attention kernel needs contiguous "
+                             "operands")
+    for t in (kc, vc):
+        # the kernel loads 8 elements at once
+        if t.data_ptr() % (8 * t.element_size()):
+            raise ValueError("cache buffers must be 8-element aligned")
+
+
+def decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
+    """q (B, H, D) x cache (B, KV, L, D), valid length ``pos`` ->
+    (B, H, D). CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    global launches
+    lens = _lens(pos, q.shape[0], q.device)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, kc, vc, lens, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    _check(q, kc, vc, k_scale, v_scale)
+    B, H, D = q.shape
+    KV, L = kc.shape[1], kc.shape[2]
+    out = torch.empty_like(q)
+    rc = _build.library().decode_attention_launch(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        k_scale.data_ptr() if k_scale is not None else None,
+        v_scale.data_ptr() if v_scale is not None else None,
+        lens.data_ptr(), out.data_ptr(), B, H, KV, L, D,
+        _CODES[q.dtype], _CODES[kc.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"decode_attention launch failed: "
+                           f"{_build.error_string(rc)} ({rc})")
+    launches += 1
+    return out

@@ -1,0 +1,176 @@
+"""The port's LlamaDecoder (paddle_tpu_torch/inference/generate.py) against
+the JAX package's, on the CPU at a tiny GQA size.
+
+The same weights (the JAX model's, carried over by ``from_jax_state_dict``)
+go through both decoders. Greedy tokens must be bit-equal for every quant
+recipe and every path (fused, chunked), and the dispatch counts must move
+alike. Logits are compared at f32 atol 1e-4: the two libraries sum the
+matmuls in different orders.
+"""
+
+import numpy as np
+import pytest
+
+import paddle_tpu as paddle
+from paddle_tpu.inference.generate import LlamaDecoder as JaxDecoder
+from paddle_tpu.models.llama import LlamaConfig as JaxConfig
+from paddle_tpu.models.llama import LlamaForCausalLM as JaxModel
+from paddle_tpu.quantization.kv_cache import \
+    QuantMismatchError as JaxQuantMismatchError
+from paddle_tpu_torch.convert import from_jax_state_dict
+from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.inference.generate import LlamaDecoder
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.quantization.kv_cache import QuantMismatchError
+
+# TINY_CONFIG's GQA shape (4 heads over 2 KV heads); max_len 128 keeps
+# the JAX decode-attention kernel eligible (L % 128 == 0) in interpret mode
+CFG = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+           num_hidden_layers=2, num_attention_heads=4,
+           num_key_value_heads=2, max_position_embeddings=128)
+MAX_LEN = 128
+NEW = 12
+QUANTS = [None, "int8w", "int8wk"]
+
+
+@pytest.fixture(scope="module")
+def models():
+    paddle.seed(3)
+    jm = JaxModel(JaxConfig(**CFG))
+    state = {k: np.asarray(v.value) for k, v in jm.state_dict().items()}
+    tm = from_jax_state_dict(
+        state, LlamaForCausalLM(LlamaConfig(**CFG), device="cpu"))
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def ids():
+    return np.random.default_rng(5).integers(0, 256, (2, 5))
+
+
+@pytest.fixture(scope="module")
+def jax_ref(models, ids):
+    """Per quant recipe: the JAX decoder, its fused greedy tokens and its
+    dispatch delta for a fused generate (and, unquantized, for a T=3
+    chunked one)."""
+    jm, _ = models
+    out = {}
+    for quant in QUANTS:
+        dec = JaxDecoder(jm, max_len=MAX_LEN, quant=quant)
+        d0 = dec.dispatch_count
+        toks = np.asarray(dec.generate(ids, NEW))
+        d1 = dec.dispatch_count
+        d_chunk3 = None
+        if quant is None:
+            chunked = np.asarray(dec.generate(ids, NEW, chunk_size=3))
+            np.testing.assert_array_equal(chunked, toks)
+            d_chunk3 = dec.dispatch_count - d1
+        out[quant] = (dec, toks, d1 - d0, d_chunk3)
+    return out
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_prefill_logits_match_jax(models, ids, jax_ref, quant):
+    import jax.numpy as jnp
+
+    _, tm = models
+    jdec = jax_ref[quant][0]
+    kc, vc = jdec._empty_cache(ids.shape[0])
+    want, _, _ = jdec._prefill(jdec.params, jnp.asarray(ids), kc, vc)
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, quant=quant, device="cpu")
+    kc, vc = dec._empty_cache(ids.shape[0])
+    got = dec._prefill(dec._ids(ids), kc, vc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("chunk", [None, 1, 3])
+def test_greedy_tokens_bit_equal_jax(models, ids, jax_ref, quant, chunk):
+    _, tm = models
+    _, want, d_fused, d_chunk3 = jax_ref[quant]
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, quant=quant, device="cpu")
+    d0 = dec.dispatch_count
+    got = dec.generate(ids, NEW, chunk_size=chunk)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    delta = dec.dispatch_count - d0
+    if chunk is None:
+        assert delta == d_fused == 2
+        assert got.resilience["level"] == "fused"
+    else:
+        assert delta == 1 + -(-NEW // chunk)
+        if d_chunk3 is not None and chunk == 3:
+            assert delta == d_chunk3
+        assert got.resilience["level"] == "chunked"
+
+
+def test_matches_kernel_routed_jax_decoder(models, ids):
+    """The JAX decoder with its Pallas decode-attention kernel routed in
+    (interpret mode off the TPU; a fresh decoder, since JAX reads the
+    flag at trace time): chunked int8wk tokens equal the port's."""
+    jm, tm = models
+    paddle.set_flags({"use_decode_attention": True,
+                      "decode_attention_interpret": True})
+    try:
+        jdec = JaxDecoder(jm, max_len=MAX_LEN, quant="int8wk")
+        want = np.asarray(jdec.generate(ids, 8, chunk_size=3))
+    finally:
+        paddle.set_flags({"decode_attention_interpret": False})
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, quant="int8wk", device="cpu")
+    np.testing.assert_array_equal(
+        np.asarray(dec.generate(ids, 8, chunk_size=3)), want)
+
+
+def test_eos_and_routing_flags(models, ids, jax_ref):
+    """Greedy+eos trims like the JAX decoder; the dense attention form
+    (use_decode_attention off) and the per-token fallback give the same
+    tokens as the kernel route."""
+    jm, tm = models
+    jdec, ref = jax_ref[None][:2]
+    eos = int(ref[0, ids.shape[1] + 4])
+    want = np.asarray(jdec.generate(ids, NEW, eos_token_id=eos))
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, device="cpu")
+    np.testing.assert_array_equal(
+        np.asarray(dec.generate(ids, NEW, eos_token_id=eos)), want)
+    np.testing.assert_array_equal(
+        np.asarray(dec.generate(ids, NEW, eos_token_id=eos, chunk_size=5)),
+        want)
+    for flag in ({"use_decode_attention": False}, {"decode_fallback": True}):
+        set_flags(flag)
+        try:
+            got = np.asarray(dec.generate(ids, NEW))
+        finally:
+            set_flags({"use_decode_attention": True,
+                       "decode_fallback": False})
+        np.testing.assert_array_equal(got, ref, err_msg=str(flag))
+
+
+def test_model_generate_delegates(models, ids, jax_ref):
+    """LlamaForCausalLM.generate builds its own decoder (max_len 64 here,
+    as the JAX model's does) and gives the JAX decoder's tokens."""
+    _, tm = models
+    got = np.asarray(tm.generate(ids, NEW, quant="int8w"))
+    np.testing.assert_array_equal(got, jax_ref["int8w"][1])
+    assert tm._decoder.max_len == 64 and tm._decoder.quant == "int8w"
+
+
+def test_typed_refusals_match_jax(models, ids, jax_ref):
+    jm, tm = models
+    with pytest.raises(JaxQuantMismatchError):
+        JaxDecoder(jm, max_len=MAX_LEN, quant="int4")
+    with pytest.raises(QuantMismatchError):
+        LlamaDecoder(tm, max_len=MAX_LEN, quant="int4", device="cpu")
+    assert issubclass(QuantMismatchError, ValueError)
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, device="cpu")
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        jax_ref[None][0].generate(ids, MAX_LEN)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        dec.generate(ids, MAX_LEN)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec.generate(ids, 4, do_sample=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec.generate(ids, 4, draft_model="skip:1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec.init_decode_state(ids, adapter_idx=[0, 0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaDecoder(tm, mesh="dp:2", device="cpu")

@@ -1,0 +1,209 @@
+"""The port's two kernels (paddle_tpu_torch/ops/kernels) against the JAX
+package's Pallas kernels, and against their own plain versions on the card.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+its Pallas kernel in interpret mode, as the JAX package's own tests do
+(tests/test_fused_kernels.py, same shapes and tolerances). The JAX imports
+live inside the parity tests, so the card's test run (which has no JAX:
+``pytest --noconftest -m gpu tests/test_torch_kernels.py``) can collect
+this file. The ``gpu`` tests decide inside their body whether a card is
+present and skip here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.kernels import decode_attention as da
+from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+from paddle_tpu_torch.quantization import weight_quantize
+from paddle_tpu_torch.quantization.kv_cache import quantize_kv_rows
+
+# f32 tolerance of the JAX package's own kernel tests
+_ATOL = _RTOL = 2e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("KV,H", [(4, 4), (2, 6)])
+def test_decode_attention_plain_matches_jax_scalar_pos(KV, H):
+    """MHA and GQA (rep 3), scalar valid length 1, 100 and L."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas.decode_attention import decode_attention
+
+    rng = np.random.default_rng(0)
+    B, L, D = 2, 256, 8
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    vc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    for pos in (1, 100, L):
+        want = np.asarray(decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                           jnp.asarray(vc), pos,
+                                           block_l=128))
+        got = da.decode_attention(_t(q), _t(kc), _t(vc), pos).numpy()
+        np.testing.assert_allclose(got, want, rtol=_RTOL, atol=_ATOL,
+                                   err_msg=f"KV={KV} pos={pos}")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_plain_matches_jax_per_row_pos(quant):
+    """Per-row valid lengths [100, 37] (the chunked serving path), f32 and
+    int8 K/V quantized by each package's own quantize_kv_rows."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas.decode_attention import decode_attention
+    from paddle_tpu.quantization.kv_cache import \
+        quantize_kv_rows as jax_quantize_kv_rows
+
+    rng = np.random.default_rng(1)
+    B, L, D, KV, H = 2, 256, 8, 2, 6
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    vc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    pos = np.asarray([100, 37], np.int32)
+    if not quant:
+        want = decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                jnp.asarray(vc), jnp.asarray(pos),
+                                block_l=128)
+        got = da.decode_attention(_t(q), _t(kc), _t(vc), _t(pos))
+    else:
+        jk, jv = (jax_quantize_kv_rows(jnp.asarray(kc)),
+                  jax_quantize_kv_rows(jnp.asarray(vc)))
+        want = decode_attention(jnp.asarray(q), jk["q"], jv["q"],
+                                jnp.asarray(pos), block_l=128,
+                                k_scale=jk["s"], v_scale=jv["s"])
+        tk, tv = quantize_kv_rows(_t(kc)), quantize_kv_rows(_t(vc))
+        got = da.decode_attention(_t(q), tk["q"], tv["q"], _t(pos),
+                                  k_scale=tk["s"], v_scale=tv["s"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=_RTOL,
+                               atol=_ATOL)
+
+
+@pytest.mark.parametrize("K,N", [(256, 512), (512, 640), (5504, 256),
+                                 (768, 1000)])
+def test_int8_matmul_plain_matches_jax(K, N):
+    """K = 5504 is the 1B down_proj contraction; N = 640 and 1000 are
+    ragged against the TPU kernel's 512/1024 column tiles. x takes
+    multiples of 1/8 so every f32 partial sum is exact: the two libraries
+    sum in different orders, and with arbitrary f32 inputs that order
+    alone moves outputs of magnitude ~20 by ~1e-5."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas.int8_matmul import int8_matmul
+
+    rng = np.random.default_rng(0)
+    x = (rng.integers(-16, 17, (8, K)) / 8).astype(np.float32)
+    w = rng.integers(-127, 127, (K, N)).astype(np.int8)
+    s = rng.uniform(0.01, 0.02, (N,)).astype(np.float32)
+    want = np.asarray(int8_matmul(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(s)))
+    got = i8.int8_matmul(_t(x), _t(w), _t(s)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_quantizers_bit_equal_jax():
+    """weight_quantize and quantize_kv_rows give the JAX package's int8
+    codes and scales exactly (round half to even in both)."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.framework.tensor import Tensor
+    from paddle_tpu.quantization import weight_quantize as jax_wq
+    from paddle_tpu.quantization.kv_cache import \
+        quantize_kv_rows as jax_quantize_kv_rows
+
+    rng = np.random.default_rng(2)
+    w = (rng.standard_normal((64, 96)) * 0.02).astype(np.float32)
+    w[3, :] = 0.5 * w[5, :]                  # exact .5 ratios: ties
+    jq, js = jax_wq(Tensor(jnp.asarray(w)))
+    tq, ts = weight_quantize(_t(w))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq.value))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js.value))
+    kv = rng.standard_normal((2, 3, 16, 8)).astype(np.float32)
+    jk, tk = jax_quantize_kv_rows(jnp.asarray(kv)), quantize_kv_rows(_t(kv))
+    np.testing.assert_array_equal(tk["q"].numpy(), np.asarray(jk["q"]))
+    np.testing.assert_array_equal(tk["s"].numpy(), np.asarray(jk["s"]))
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take():
+    assert da.supported(torch.zeros(2, 12, 64), torch.zeros(2, 4, 300, 64))
+    assert not da.supported(torch.zeros(2, 5, 8), torch.zeros(2, 2, 256, 8))
+    assert not da.supported(torch.zeros(2, 34, 8), torch.zeros(2, 2, 64, 8))
+    assert not da.supported(torch.zeros(2, 4, 12), torch.zeros(2, 2, 64, 12))
+    w = torch.zeros(256, 512, dtype=torch.int8)
+    assert i8.supported(torch.zeros(64, 256), w)
+    assert not i8.supported(torch.zeros(65, 256), w)
+    assert not i8.supported(torch.zeros(8, 255), w)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        da.decode_attention(torch.zeros(1, 2, 8, device="meta"),
+                            torch.zeros(1, 1, 8, 8, device="meta"),
+                            torch.zeros(1, 1, 8, 8, device="meta"), 4)
+
+
+# -- on the card: each kernel against its plain version ----------------------
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _close(got, want, dtype):
+    """Per element. f32: atol 1e-4 on O(1) outputs. bf16: two bf16
+    spacings of |ref|, floored at those of 1e-3 of the row's largest
+    |ref|: each side rounds one f32 result of reassociated sums to bf16,
+    so they differ by one spacing at most."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        tol = torch.full_like(want, 1e-4)
+    else:
+        a = want.abs()
+        a = torch.maximum(a, 1e-3 * a.amax(-1, keepdim=True))
+        a = a.clamp_min(torch.finfo(torch.float32).tiny)
+        tol = 2 * torch.exp2(torch.floor(torch.log2(a)) - 7)
+    assert (diff <= tol).all(), (diff.max().item(),
+                                 (diff / tol).max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_attention_kernel_matches_plain_on_card(dtype, quant):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, H, KV, L, D, lens in (
+            (8, 12, 4, 256, 64, [1, 37, 256, 100, 64, 65, 255, 128]),
+            (2, 6, 2, 300, 8, [300, 1]),
+            (3, 16, 1, 130, 256, [130, 129, 7]),
+            (2, 4, 4, 64, 128, [64, 63])):
+        q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
+        kf = torch.randn(B, KV, L, D, generator=g, device="cuda")
+        vf = torch.randn(B, KV, L, D, generator=g, device="cuda")
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if quant:
+            k8, v8 = quantize_kv_rows(kf), quantize_kv_rows(vf)
+            args = (q, k8["q"], v8["q"], lt)
+            kw = dict(k_scale=k8["s"], v_scale=v8["s"])
+        else:
+            args, kw = (q, kf.to(dtype), vf.to(dtype), lt), {}
+        got = da.decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        _close(got, da.decode_attention_ref(*args, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, K, N in ((8, 768, 1280), (8, 768, 768), (8, 768, 4096),
+                    (8, 2048, 768), (8, 768, 32000), (64, 768, 1000),
+                    (1, 100, 17), (33, 130, 48)):
+        x = torch.randn(B, K, generator=g, device="cuda").to(dtype)
+        w, s = weight_quantize(
+            torch.randn(K, N, generator=g, device="cuda") * 0.02)
+        got = i8.int8_matmul(x, w, s)
+        torch.cuda.synchronize()
+        _close(got, i8.int8_matmul_ref(x, w, s), dtype)

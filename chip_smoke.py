@@ -4,20 +4,27 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
 2. Builds the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc``
-   command) and prints the build seconds.
+   per source, all started together, then one link) and prints the build
+   seconds.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   serving path's shapes, with times from CUDA events (kernel, plain
-   version, and one PyTorch library call as a yardstick the port never
-   makes) beside the least time the card could take. Device times come
-   from a CUDA graph of 100-200 calls (host enqueue excluded; the eager
-   per-call wall time is printed beside as ``eager_ms``). Inputs rotate
-   over enough copies to overflow the 50 MB L2, as the decode step finds
-   them.
+   serving and training paths' shapes, with times from CUDA events
+   (kernel, plain version, and one PyTorch library call as a yardstick
+   the port never makes) beside the least time the card could take.
+   Microsecond kernels are timed as a CUDA graph of 100-200 calls (host
+   enqueue excluded; the eager per-call wall time is printed beside as
+   ``eager_ms``), over enough input copies to overflow the 50 MB L2, as
+   the decode step finds them. The flash-attention kernels run for
+   milliseconds and are timed in a host loop. A library backward (SDPA's,
+   ``F.rms_norm``'s) counts the device time of its kernels under
+   ``torch.profiler``, without the autograd engine's host cost.
    Tolerances, per element: f32 |err| <= 1e-4 (outputs are O(1)); bf16
    |err| <= two bf16 spacings of the element's |ref|, floored at those of
    1e-3 of its row's largest |ref|. Kernel and plain version each round
    one f32 result of reassociated sums to bf16, so they differ by one
-   spacing at most.
+   spacing at most. bf16 flash attention rounds p (and ds) to bf16 per
+   64-key tile where the plain version rounds them over the whole row, so
+   its tolerance adds 2^-7 of the |terms| those roundings scale
+   (``flash_bounds``).
 4. Serving phase: the GQA Llama of bench.py's decode-quant config (vocab
    32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
    bf16, random weights from a seeded generator) behind ``ServingEngine``
@@ -32,7 +39,18 @@
    Each run then serves the same requests again under ``torch.profiler``
    (the tokens must not change) and its line adds the device busy share
    and the costliest kernels.
-5. Prints ``{"kernels": [...]}``, the card line, and last
+5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
+   hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
+   AdamW, B 8, S 1024, one fixed batch. One backward with the kernels and
+   one with their plain versions (swapped in here only) must agree: loss
+   within two bf16 spacings, every gradient at cosine >= 0.99. Then 2
+   warm-up and 8 timed steps: finite losses, the first within 0.5 of
+   ln 32000, falling; per step 12 flash forward and 12 flash backward
+   launches and 25 + 25 RMSNorm launches. Its line prints step ms,
+   tokens/s, MFU (``flops_per_token`` against the bf16 peak) and, from
+   one more step under ``torch.profiler``, the device busy share and the
+   costliest kernels.
+6. Prints ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
@@ -114,6 +132,24 @@ def eager_ms(fn, sets, iters=200):
     return t0.elapsed_time(t1) / iters
 
 
+def library_backward_ms(out, inputs, grad, iters=50):
+    """Device ms per ``torch.autograd.grad(out, inputs, grad)``: the summed
+    device time of the kernels it launches over ``iters`` eager calls
+    under ``torch.profiler``. A library backward runs through the autograd
+    engine, whose host cost a wall clock would add to short kernels."""
+    def call():
+        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    return device_profile(prof, 1.0)["device_busy_ms"] / iters
+
+
 def n_copies(set_bytes: int) -> int:
     """Input copies whose total exceeds twice the L2."""
     return max(2, min(256, math.ceil(2 * L2_BYTES / max(set_bytes, 1))))
@@ -126,10 +162,19 @@ def bound(bytes_moved: float, flops: float, peak: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def err_and_tol(got, want, dtype):
-    """Max |err| and its largest ratio to the element's tolerance (the
-    module docstring states the tolerances); the check is ratio <= 1."""
+def err_and_tol(got, want, dtype, bound=None):
+    """Max |err|, its largest ratio to the element's tolerance (the module
+    docstring states the tolerances; the check is ratio <= 1) and that
+    ratio without ``bound``. NaN counts as equal to NaN and as infinitely
+    far from any number. ``bound`` (bf16 flash attention) is the sum of
+    |terms| behind each element that a rounding of p or ds to bf16 at
+    another point scales: it adds 2^-7 of itself (half a spacing on each
+    side) and 2^-16 of the largest |ref| (f32 summation order)."""
     got, want = got.float(), want.float()
+    nan = torch.isnan(want)
+    if not torch.equal(nan, torch.isnan(got)):
+        return math.inf, math.inf, math.inf
+    got, want = got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0)
     diff = (got - want).abs()
     if dtype == torch.float32:
         tol = torch.full_like(want, 1e-4)
@@ -138,7 +183,30 @@ def err_and_tol(got, want, dtype):
         a = torch.maximum(a, 1e-3 * a.amax(-1, keepdim=True))
         a = a.clamp_min(torch.finfo(torch.float32).tiny)
         tol = 2 * torch.exp2(torch.floor(torch.log2(a)) - 7)
-    return diff.max().item(), (diff / tol).max().item()
+    strict = (diff / tol).max().item()
+    if bound is not None and dtype != torch.float32:
+        tol = tol + 2.0 ** -7 * bound.float() + 2.0 ** -16 * want.abs().max()
+    return diff.max().item(), (diff / tol).max().item(), strict
+
+
+def flash_bounds(q, k, v, lse, do, causal, scale):
+    """Per element of out, dq, dk and dv: the sum of |terms| that the bf16
+    rounding of p (out, dv) or of ds (dq, dk) scales, from the plain
+    version's f32 attention weights A = exp(s - lse) and ds = A (dp -
+    delta) scale. Layout (B, S, H, D) like the outputs."""
+    from paddle_tpu_torch.ops.kernels.flash_attention import (_NEG_INF,
+                                                              _scores)
+    bh = lambda x: x.float().transpose(1, 2)      # noqa: E731
+    back = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    lse4 = lse[..., None]
+    a = torch.where(lse4 <= _NEG_INF * 0.5, 0.0,
+                    torch.exp(_scores(q, k, causal, scale) - lse4))
+    dof = bh(do)
+    delta = (dof * (a @ bh(v))).sum(-1, keepdim=True)
+    ds = (a * (dof @ bh(v).transpose(-1, -2) - delta) * scale).abs()
+    return dict(out=back(a @ bh(v).abs()), dq=back(ds @ bh(k).abs()),
+                dk=back(ds.transpose(-1, -2) @ bh(q).abs()),
+                dv=back(a.transpose(-1, -2) @ dof.abs()))
 
 
 # -- kernel phase -------------------------------------------------------------
@@ -181,7 +249,7 @@ def da_case(name, B, H, KV, L, D, lens, dtype, quant, g):
     def lib(q4, kr, vr):
         return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask)
 
-    err, ratio = err_and_tol(kern(*sets[0]), plain(*sets[0]), dtype)
+    err, ratio, _ = err_and_tol(kern(*sets[0]), plain(*sets[0]), dtype)
     torch.cuda.synchronize()
     check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
     n = int(sum(min(x, L) for x in lens))
@@ -211,8 +279,8 @@ def i8_case(name, B, K, N, dtype, g):
     def lib(x, w, s):
         return torch.matmul(x, w.to(x.dtype)) * s
 
-    err, ratio = err_and_tol(i8.int8_matmul(*sets[0]),
-                             i8.int8_matmul_ref(*sets[0]), dtype)
+    err, ratio, _ = err_and_tol(i8.int8_matmul(*sets[0]),
+                                i8.int8_matmul_ref(*sets[0]), dtype)
     torch.cuda.synchronize()
     check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
     moved = K * N + B * K * esz + 4 * N + B * N * esz
@@ -227,6 +295,140 @@ def i8_case(name, B, K, N, dtype, g):
                 bound_by=b_by)
 
 
+def visible_pairs(Sq, Sk, causal):
+    """(query, key) pairs a causal bottom-right mask leaves (all if not
+    causal): what the kernels must compute."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq
+    return sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
+
+
+def flash_case(name, B, Sq, Sk, H, D, causal, dtype, g, library=True):
+    """Forward and backward of the flash kernels against their plain
+    versions (the backward fed the plain forward's out and lse), and
+    their times: kernel, plain and (Sq == Sk) torch's
+    scaled_dot_product_attention forward and backward. These kernels run
+    for milliseconds, so a host loop timed with CUDA events measures the
+    device: the enqueue hides behind it."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    esz = torch.tensor([], dtype=dtype).element_size()
+    scale = D ** -0.5
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+               for S in (Sq, Sk, Sk))
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, causal, scale)
+    grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
+    refs = fa.flash_bwd_ref(q, k, v, ref_out, ref_lse, do, causal, scale)
+    torch.cuda.synchronize()
+    bounds = (flash_bounds(q, k, v, ref_lse, do, causal, scale)
+              if dtype == torch.bfloat16 else {})
+    errs = {}
+    for what, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (ref_out, *refs)):
+        errs[what] = err_and_tol(got, want, dtype, bounds.get(what))
+        check(errs[what][1] <= 1, f"{name} {what}: max |err| "
+              f"{errs[what][0]}, {errs[what][1]} x its tolerance")
+    lse_err = (lse - ref_lse).abs().max().item()
+    check(lse_err <= 1e-4, f"{name} lse: max |err| {lse_err}")
+    del bounds, out, grads, refs
+    iters = 20 if Sq * Sk >= 2**20 else 50
+    fwd = lambda: fa.flash_fwd(q, k, v, causal, scale)          # noqa: E731
+    bwd = lambda: fa.flash_bwd(q, k, v, ref_out, ref_lse, do,   # noqa: E731
+                               causal, scale)
+    n_q, n_k = B * Sq * H * D, B * Sk * H * D
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    f_ms, f_by = bound(esz * (2 * n_q + 2 * n_k) + 4 * B * H * Sq,
+                       4.0 * pairs * D, peak)
+    b_ms, b_by = bound(esz * (4 * n_q + 4 * n_k) + 4 * B * H * Sq,
+                       10.0 * pairs * D, peak)
+    lib_f = lib_b = None
+    if library:
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_f = eager_ms(lambda *_: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal), [()], iters)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_b = library_backward_ms(ol, (ql, kl, vl), do.transpose(1, 2),
+                                    iters)
+    common = dict(err_over_strict_tol=max(e[2] for e in errs.values()))
+    rows = [dict(case=f"{name} fwd", kernel="flash_attention_fwd",
+                 max_abs_err=errs["out"][0], err_over_tol=errs["out"][1],
+                 lse_max_abs_err=lse_err,
+                 ms=eager_ms(lambda *_: fwd(), [()], iters),
+                 plain_ms=eager_ms(lambda *_: fa.flash_fwd_ref(
+                     q, k, v, causal, scale), [()], max(5, iters // 4)),
+                 library_ms=lib_f, bound_ms=f_ms, bound_by=f_by, **common),
+            dict(case=f"{name} bwd", kernel="flash_attention_bwd",
+                 max_abs_err=max(errs[x][0] for x in ("dq", "dk", "dv")),
+                 err_over_tol=max(errs[x][1] for x in ("dq", "dk", "dv")),
+                 ms=eager_ms(lambda *_: bwd(), [()], iters),
+                 plain_ms=eager_ms(lambda *_: fa.flash_bwd_ref(
+                     q, k, v, ref_out, ref_lse, do, causal, scale), [()],
+                     max(5, iters // 4)),
+                 library_ms=lib_b, bound_ms=b_ms, bound_by=b_by, **common)]
+    return rows
+
+
+def rms_case(name, rows, H, dtype, g):
+    """RMSNorm forward and backward kernels against their plain versions,
+    timed through CUDA graphs (these kernels run for microseconds), with
+    torch's F.rms_norm forward and backward as the yardstick."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    esz = torch.tensor([], dtype=dtype).element_size()
+    eps = 1e-6
+    sets = []
+    for _ in range(n_copies(3 * rows * H * esz)):
+        x = torch.randn(rows, H, generator=g, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn(H, generator=g, device="cuda")).to(dtype)
+        gy = torch.randn(rows, H, generator=g, device="cuda").to(dtype)
+        sets.append((x, w, gy, rn.rms_fwd_ref(x, w, eps)[1]))
+    x, w, gy, inv = sets[0]
+    out, k_inv = rn.rms_fwd(x, w, eps)
+    ref_out, ref_inv = rn.rms_fwd_ref(x, w, eps)
+    dx, dw = rn.rms_bwd(x, w, inv, gy)
+    ref_dx, ref_dw = rn.rms_bwd_ref(x, w, inv, gy)
+    torch.cuda.synchronize()
+    e_out, e_dx, e_dw = (err_and_tol(a, b, dtype) for a, b in
+                         ((out, ref_out), (dx, ref_dx), (dw, ref_dw)))
+    e_inv = err_and_tol(k_inv, ref_inv, torch.float32)
+    for what, e in (("out", e_out), ("dx", e_dx), ("dw", e_dw),
+                    ("inv", e_inv)):
+        check(e[1] <= 1, f"{name} {what}: max |err| {e[0]}, {e[1]} x its "
+              f"tolerance")
+    n = rows * H
+    f_ms, f_by = bound(2 * n * esz + H * esz + 4 * rows, 4.0 * n, F32_FLOPS)
+    b_ms, b_by = bound(3 * n * esz + 2 * H * esz + 4 * rows, 10.0 * n,
+                       F32_FLOPS)
+    xl = x.detach().requires_grad_()
+    wl = w.detach().requires_grad_()
+    yl = F.rms_norm(xl, (H,), wl, eps)
+    return [
+        dict(case=f"{name} fwd", kernel="rms_norm_fwd",
+             max_abs_err=max(e_out[0], e_inv[0]),
+             err_over_tol=max(e_out[1], e_inv[1]),
+             ms=time_ms(lambda x, w, gy, inv: rn.rms_fwd(x, w, eps), sets),
+             plain_ms=time_ms(lambda x, w, gy, inv: rn.rms_fwd_ref(x, w, eps),
+                              sets, iters=100),
+             library_ms=time_ms(lambda x, w, gy, inv: F.rms_norm(
+                 x, (H,), w, eps), sets, iters=100),
+             bound_ms=f_ms, bound_by=f_by),
+        dict(case=f"{name} bwd", kernel="rms_norm_bwd",
+             max_abs_err=max(e_dx[0], e_dw[0]),
+             err_over_tol=max(e_dx[1], e_dw[1]),
+             ms=time_ms(lambda x, w, gy, inv: rn.rms_bwd(x, w, inv, gy), sets),
+             plain_ms=time_ms(lambda x, w, gy, inv: rn.rms_bwd_ref(
+                 x, w, inv, gy), sets, iters=100),
+             library_ms=library_backward_ms(yl, (xl, wl), gy, 100),
+             bound_ms=b_ms, bound_by=b_by)]
+
+
 def kernel_phase():
     g = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -237,6 +439,9 @@ def kernel_phase():
                 64, lens, f32, False, g),
         da_case("decode_attention bf16 B8 H12 KV4 D64 L256", 8, 12, 4, 256,
                 64, lens, bf, False, g),
+        # a row of valid length 0: NaN (0 / 0) in kernel and plain alike
+        da_case("decode_attention bf16 B8 H12 KV4 D64 L256 with an empty "
+                "row", 8, 12, 4, 256, 64, [0] + lens[1:], bf, False, g),
         da_case("decode_attention bf16 int8-KV B8 H12 KV4 D64 L256", 8, 12,
                 4, 256, 64, lens, bf, True, g),
         da_case("decode_attention f32 int8-KV B8 H12 KV4 D64 L256", 8, 12,
@@ -254,6 +459,17 @@ def kernel_phase():
                            ("head", 768, 32000)):
             cases.append(i8_case(f"int8_matmul bf16 B{B} {what} {K}x{N}",
                                  B, K, N, bf, g))
+    # the training path's shapes (bench_llama: B8 S1024, 12 heads of 64,
+    # hidden 768), one f32 case and a ragged one (S not a multiple of the
+    # 64-row tile, sq < sk causal)
+    cases += flash_case("flash_attention bf16 B8 H12 S1024 D64 causal", 8,
+                        1024, 1024, 12, 64, True, bf, g)
+    cases += flash_case("flash_attention f32 B2 H4 S256 D64 causal", 2, 256,
+                        256, 4, 64, True, f32, g)
+    cases += flash_case("flash_attention bf16 B2 H3 Sq200 Sk333 D64 causal",
+                        2, 200, 333, 3, 64, True, bf, g, library=False)
+    cases += rms_case("rms_norm bf16 8192x768", 8192, 768, bf, g)
+    cases += rms_case("rms_norm f32 8192x768", 8192, 768, f32, g)
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -408,6 +624,133 @@ def serving_phase(card):
             for q in (None, "int8wk")]
 
 
+# -- training phase -----------------------------------------------------------
+
+class plain_kernels:
+    """Inside the block the four training wrappers run their plain
+    versions on the card (module attributes swapped, restored on exit).
+    Only this script does this: the port itself never routes a CUDA
+    tensor to a plain version."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import rms_norm as rn
+        self.saved = [(fa, "flash_fwd", fa.flash_fwd_ref),
+                      (fa, "flash_bwd", fa.flash_bwd_ref),
+                      (rn, "rms_fwd", rn.rms_fwd_ref),
+                      (rn, "rms_bwd", rn.rms_bwd_ref)]
+        self.saved = [(m, a, getattr(m, a), f) for m, a, f in self.saved]
+        for m, a, _, f in self.saved:
+            setattr(m, a, f)
+
+    def __exit__(self, *exc):
+        for m, a, orig, _ in self.saved:
+            setattr(m, a, orig)
+
+
+def _grads(model, ids, labels):
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(ids, labels)
+    loss.backward()
+    out = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), out
+
+
+def train_phase(card):
+    """bench.py's bench_llama on the card: the 134M Llama (vocab 32000,
+    hidden 768, intermediate 2048, 12 layers, 12 heads, MHA, bf16) through
+    ShardedTrainer with AdamW(1e-4, multi_precision=False), B 8, S 1024,
+    the fixed batch of numpy seed 0, weights from a seeded generator."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainer
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=768,
+                      intermediate_size=2048, num_hidden_layers=12,
+                      num_attention_heads=12, num_key_value_heads=12,
+                      max_position_embeddings=1024, dtype="bfloat16")
+    B, S = 8, 1024
+    model = LlamaForCausalLM(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                          device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             device="cuda")
+
+    # one backward with the kernels and one with the plain versions, from
+    # the same weights: the loss within two bf16 spacings of its value,
+    # each gradient at cosine >= 0.99
+    loss_k, g_k = _grads(model, ids, labels)
+    with plain_kernels():
+        loss_p, g_p = _grads(model, ids, labels)
+    spacing = 2.0 ** (math.floor(math.log2(abs(loss_p))) - 7)
+    check(abs(loss_k - loss_p) <= 2 * spacing, f"train: kernel loss "
+          f"{loss_k} vs plain {loss_p}")
+    cos = {n: torch.nn.functional.cosine_similarity(
+        g_k[n].reshape(1, -1), g_p[n].reshape(1, -1)).item() for n in g_k}
+    worst = min(cos, key=cos.get)
+    check(cos[worst] >= 0.99, f"train: gradient of {worst} at cosine "
+          f"{cos[worst]} to the plain one")
+    del g_k, g_p
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=False)
+    trainer = ShardedTrainer(model, opt, lambda m, i, l: m.loss(i, l))
+    losses = [trainer.train_step(ids, labels).item() for _ in range(2)]
+    timed = 8
+    torch.cuda.synchronize()
+    fa.fwd_launches = fa.bwd_launches = 0
+    rn.fwd_launches = rn.bwd_launches = 0
+    t0 = time.perf_counter()
+    step_losses = [trainer.train_step(ids, labels) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_attention_fwd=fa.fwd_launches,
+                    flash_attention_bwd=fa.bwd_launches,
+                    rms_norm_fwd=rn.fwd_launches,
+                    rms_norm_bwd=rn.bwd_launches)
+    losses += [x.item() for x in step_losses]
+    L = cfg.num_hidden_layers
+    for what, per in (("flash_attention_fwd", L), ("flash_attention_bwd", L),
+                      ("rms_norm_fwd", 2 * L + 1),
+                      ("rms_norm_bwd", 2 * L + 1)):
+        check(launches[what] == per * timed, f"train: {what} launches "
+              f"{launches[what]} != {per} x {timed} steps")
+    check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"train: first loss {losses[0]} not within 0.5 of ln V")
+    check(losses[-1] < losses[0], f"train: loss did not fall over "
+          f"{len(losses)} steps: {losses}")
+    step_s = wall / timed
+    flops = model.flops_per_token(S) * B * S
+    info = dict(phase="train", card=card, batch=B, seq=S,
+                params=model.num_params(), steps=len(losses),
+                losses=losses, step_ms=1e3 * step_s,
+                tokens_per_s=B * S / step_s,
+                mfu=flops / step_s / BF16_FLOPS,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step={k: v / timed for k, v in launches.items()},
+                kernel_vs_plain=dict(loss_kernel=loss_k, loss_plain=loss_p,
+                                     min_grad_cosine=cos[worst],
+                                     min_grad_cosine_param=worst))
+    # one more step under the profiler (device kernels only)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(ids, labels)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    info["profiled"] = device_profile(prof, pwall)
+    info["profiled"]["wall_s"] = pwall
+    emit(info)
+    return info, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -427,13 +770,18 @@ def main() -> int:
     cases = kernel_phase()
     t2 = time.perf_counter()
     runs = serving_phase(card)
+    t3 = time.perf_counter()
+    _, launches = train_phase(card)
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-          f"serving {time.perf_counter() - t2:.1f} s", flush=True)
-    launches = {
-        "decode_attention": sum(r["decode_attention_launches"] for r in runs),
-        "int8_matmul": sum(r["int8_matmul_launches"] for r in runs)}
+          f"serving {t3 - t2:.1f} s, training "
+          f"{time.perf_counter() - t3:.1f} s", flush=True)
+    launches.update(
+        decode_attention=sum(r["decode_attention_launches"] for r in runs),
+        int8_matmul=sum(r["int8_matmul_launches"] for r in runs))
     for k, n in launches.items():
-        check(n > 0, f"{k} never launched on the serving path")
+        check(n > 0, f"{k} never launched on its path")
+    flash = "flash_attention bf16 B8 H12 S1024 D64 causal"
+    rms = "rms_norm bf16 8192x768"
     rows = []
     for name, src, replaces, case in (
             ("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
@@ -441,7 +789,17 @@ def main() -> int:
              "decode_attention bf16 B8 H12 KV4 D64 L256"),
             ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
              "paddle_tpu/ops/pallas/int8_matmul.py:77",
-             "int8_matmul bf16 B8 head 768x32000")):
+             "int8_matmul bf16 B8 head 768x32000"),
+            ("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:142 and :163",
+             f"{flash} fwd"),
+            ("flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention.cu",
+             "paddle_tpu/ops/pallas/flash_attention.py:304 and :325",
+             f"{flash} bwd"),
+            ("rms_norm_fwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/ops/pallas/rms_norm.py:75", f"{rms} fwd"),
+            ("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/ops/pallas/rms_norm.py:128", f"{rms} bwd")):
         c = next(c for c in cases if c["case"] == case)
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -2,8 +2,9 @@
 
 A second package beside the JAX one, with its module paths and public
 names: ``models.llama``, ``inference.generate``, ``serving``,
-``quantization`` and the hand-written CUDA kernels under
-``ops/kernels`` (sources in ``csrc/``). It imports ``torch`` and numpy,
+``quantization``, ``nn.functional``, ``optimizer``, ``parallel.train``
+and the hand-written CUDA kernels under ``ops/kernels`` (sources in
+``csrc/``). It imports ``torch`` and numpy,
 never ``jax`` and nothing of ``paddle_tpu``. Entry points run on the card
 (``cuda``) unless the caller passes ``device="cpu"``.
 
@@ -25,10 +26,12 @@ _LAZY = {
     "LlamaDecoder": "paddle_tpu_torch.inference.generate",
     "DecodeState": "paddle_tpu_torch.inference.generate",
     "ServingEngine": "paddle_tpu_torch.serving.engine",
+    "ShardedTrainer": "paddle_tpu_torch.parallel.train",
     "from_jax_state_dict": "paddle_tpu_torch.convert",
+    "to_numpy_state_dict": "paddle_tpu_torch.convert",
 }
 _SUBMODULES = ("models", "inference", "serving", "quantization", "ops",
-               "runtime", "convert", "device")
+               "runtime", "convert", "device", "nn", "optimizer", "parallel")
 
 __all__ = ["flags", "__version__", *_LAZY, *_SUBMODULES]
 

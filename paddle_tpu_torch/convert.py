@@ -1,4 +1,4 @@
-"""Carry a JAX model's parameters into the port's model.
+"""Carry a JAX model's parameters into the port's model, and back out.
 
 The JAX package's ``LlamaForCausalLM.state_dict()`` and the port's
 ``named_parameters()`` share names and layouts (linear weights ``(in,
@@ -14,7 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state_dict"]
+__all__ = ["from_jax_state_dict", "to_numpy_state_dict"]
 
 
 def from_jax_state_dict(np_state: Dict[str, np.ndarray], model):
@@ -35,3 +35,11 @@ def from_jax_state_dict(np_state: Dict[str, np.ndarray], model):
                                  f"not match {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(src, np.float32)).to(p.dtype))
     return model
+
+
+def to_numpy_state_dict(model) -> Dict[str, np.ndarray]:
+    """``{name: float32 numpy array}`` of every parameter of ``model``
+    (numpy has no bf16; bf16 values are exact in f32), for comparing
+    with the JAX package's ``{name: np.asarray(t.value)}``."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in model.named_parameters()}

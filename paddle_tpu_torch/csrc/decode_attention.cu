@@ -277,8 +277,9 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       num += sa[(w * rep + r) * D + d] * c;
       den += sl[w * rep + r] * c;
     }
-    // an empty prefix (lens[b] == 0) writes zeros
-    store_f(den > 0.f ? num / den : 0.f, out + qoff + i);
+    // an empty prefix (lens[b] == 0) gives 0 / 0 = NaN, as the TPU
+    // kernel's acc / l does
+    store_f(num / den, out + qoff + i);
   }
 }
 

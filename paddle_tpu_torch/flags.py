@@ -1,8 +1,8 @@
 """Runtime switches of the PyTorch port, overridable from the environment.
 
 Counterpart of ``paddle_tpu/flags.py`` (its own copy: the port imports
-nothing of the JAX package). Only the decode flags the serving path reads
-are declared, with the JAX package's names and defaults. Read one as
+nothing of the JAX package). The flags the serving and training paths
+read are declared, with the JAX package's names and defaults. Read one as
 ``flags.<name>``; a ``FLAGS_<name>`` environment variable overrides its
 default at first read, and ``set_flags`` overrides both.
 """
@@ -31,6 +31,23 @@ _DEFAULTS: Dict[str, Any] = {
     # counted dispatch and one host sync per token) instead of the fused
     # loop; PADDLE_TPU_DECODE_FALLBACK=1 is equivalent
     "decode_fallback": False,
+    # route scaled_dot_product_attention through the CUDA flash-attention
+    # kernels (ops/kernels/flash_attention.py) when there is no mask or
+    # dropout and the key length is at least flash_attention_min_seq
+    "use_fused_attention": True,
+    "flash_attention_min_seq": 512,
+    # route rms_norm through the CUDA RMSNorm kernels when eligible
+    "use_fused_rms_norm": True,
+    # the fused rope kernel is not ported yet (ROADMAP.md section 2, row
+    # 7): True raises NotImplementedError instead of running plain rope
+    "use_fused_rope": False,
+    # route large-vocab LM losses through the chunked-vocab fused head+CE
+    # (ops/fused_ce.py) instead of materializing (T, V) logits
+    "use_fused_lm_ce": True,
+    # transient f32 logits budget (MB) of the chunked fused lm-head CE
+    "fused_ce_logits_budget_mb": 1536,
+    # run every fused op as its canonical unfused composition
+    "decompose_fused_ops": False,
 }
 
 

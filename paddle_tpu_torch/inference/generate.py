@@ -23,6 +23,10 @@ Positions are a Python int (the whole batch at one offset: prefill, the
 fused loop) or a per-row ``(B,)`` tensor (the chunked serving carry,
 where rows admitted at different times sit at different offsets).
 
+Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
+``decode_chunk``) runs under ``torch.inference_mode()``: the model's
+parameters are trainable, and decoding records no autograd graph.
+
 Not ported yet (ROADMAP.md queue 1): sampling (``do_sample=True`` needs a
 threefry2x32 matching ``jax.random`` bit for bit), speculative decoding
 (``draft_model=``), LoRA (``adapter_idx=``), meshes, the retry and
@@ -351,6 +355,7 @@ class LlamaDecoder:
         self.dispatch_count += 1
         return self._fwd(ids, kc, vc, 0)
 
+    @torch.inference_mode()
     def admit_prefill(self, ids, true_len, pos0, kc=None, vc=None,
                       return_all: bool = False):
         """Length-bucketed admission prefill: ``ids`` (N, bucket) right-
@@ -417,6 +422,7 @@ class LlamaDecoder:
             st, logits=logits, pos=pos, done=done)
 
     # -- chunked resumable decode ------------------------------------------
+    @torch.inference_mode()
     def init_decode_state(self, input_ids, eos_token_id=None,
                           draft_model=None, adapter_idx=None) -> DecodeState:
         """Prefill (one dispatch) and build the carry for
@@ -439,6 +445,7 @@ class LlamaDecoder:
             eos=torch.full((B,), -1 if eos is None else eos,
                            dtype=torch.long, device=dev))
 
+    @torch.inference_mode()
     def decode_chunk(self, state: DecodeState, num_tokens: int,
                      do_sample: bool = False, top_k=None, top_p=None):
         """Advance the carry by ``num_tokens`` greedy steps in one
@@ -489,6 +496,7 @@ class LlamaDecoder:
             logits = self._fwd(self._ids(nxt[:, None]), kc, vc, S + i)
         return np.concatenate(out, axis=1)
 
+    @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None,
                  do_sample: bool = False, temperature: float = 1.0,

@@ -1,12 +1,13 @@
-"""Llama-family causal LM — the parameter holder the decoder serves.
+"""Llama-family causal LM: RMSNorm, RoPE, GQA attention, SwiGLU MLP.
 
 Counterpart of ``paddle_tpu/models/llama.py``: the same config, the same
 parameter names as the JAX model's ``state_dict()`` and paddle's
 ``(in, out)`` linear layout, so ``convert.from_jax_state_dict`` carries
-weights across one to one. This slice serves the model; the training
-forward (flash attention, the RMSNorm kernel) arrives with the training
-slice, so the modules here hold parameters and ``generate`` delegates to
-``inference.generate.LlamaDecoder``.
+weights across one to one. ``forward`` and ``loss`` are the training path:
+attention through ``nn.functional.scaled_dot_product_attention`` (the
+flash-attention kernels), the norms through ``nn.functional.rms_norm``
+(the RMSNorm kernels), the loss through the chunked fused head + CE.
+``generate`` delegates to ``inference.generate.LlamaDecoder``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
+import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.flags import flags
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "TINY_CONFIG"]
 
@@ -63,8 +66,23 @@ def _rope_tables(seq_len: int, head_dim: int, theta: float, dtype,
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 
 
+def _rope_op(x, cos, sin):
+    """Rotate (B, S, H, D) by position tables (S, D/2), halves split at
+    D/2 (the Llama convention)."""
+    if flags.use_fused_rope:
+        raise NotImplementedError(
+            "the fused rope kernel is not ported to paddle_tpu_torch yet "
+            "(ROADMAP.md section 2, row 7); set use_fused_rope off")
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
 class _Weight(nn.Module):
-    """One ``weight`` parameter (inference only: no gradient)."""
+    """One trainable ``weight`` parameter: normal(0, 0.02) from ``gen``,
+    or ones."""
 
     def __init__(self, shape, dtype, device, init, gen):
         super().__init__()
@@ -73,51 +91,116 @@ class _Weight(nn.Module):
             w.fill_(1.0)
         else:
             w.normal_(0.0, 0.02, generator=gen)
-        self.weight = nn.Parameter(w.to(dtype), requires_grad=False)
+        self.weight = nn.Parameter(w.to(dtype))
+
+
+class _Linear(_Weight):
+    """paddle's ``nn.Linear`` without bias: weight (in, out), ``x @ W``."""
+
+    def forward(self, x):
+        return torch.matmul(x, self.weight)
+
+
+class _Embedding(_Weight):
+    def forward(self, ids):
+        return torch.nn.functional.embedding(ids, self.weight)
+
+
+class _RMSNorm(_Weight):
+    def __init__(self, shape, dtype, device, init, gen, eps):
+        super().__init__(shape, dtype, device, init, gen)
+        self.epsilon = eps
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, mk):
         super().__init__()
+        self.config = cfg
         h, kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
                     cfg.head_dim)
-        self.q_proj = mk((cfg.hidden_size, h * d))
-        self.k_proj = mk((cfg.hidden_size, kv * d))
-        self.v_proj = mk((cfg.hidden_size, kv * d))
-        self.o_proj = mk((h * d, cfg.hidden_size))
+        self.q_proj = mk(_Linear, (cfg.hidden_size, h * d))
+        self.k_proj = mk(_Linear, (cfg.hidden_size, kv * d))
+        self.v_proj = mk(_Linear, (cfg.hidden_size, kv * d))
+        self.o_proj = mk(_Linear, (h * d, cfg.hidden_size))
+
+    def forward(self, hidden, cos, sin, attn_mask=None):
+        cfg = self.config
+        B, S, _ = hidden.shape
+        H, KV, D = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                    cfg.head_dim)
+        q = _rope_op(self.q_proj(hidden).reshape(B, S, H, D), cos, sin)
+        k = _rope_op(self.k_proj(hidden).reshape(B, S, KV, D), cos, sin)
+        v = self.v_proj(hidden).reshape(B, S, KV, D)
+        rep = H // KV
+        if rep > 1:
+            # GQA: repeat K/V before the kernel; autograd sums dk and dv
+            # back over the repeated heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                             is_causal=True,
+                                             training=self.training)
+        return self.o_proj(out.reshape(B, S, H * D))
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, mk):
         super().__init__()
-        self.gate_proj = mk((cfg.hidden_size, cfg.intermediate_size))
-        self.up_proj = mk((cfg.hidden_size, cfg.intermediate_size))
-        self.down_proj = mk((cfg.intermediate_size, cfg.hidden_size))
+        self.gate_proj = mk(_Linear, (cfg.hidden_size, cfg.intermediate_size))
+        self.up_proj = mk(_Linear, (cfg.hidden_size, cfg.intermediate_size))
+        self.down_proj = mk(_Linear, (cfg.intermediate_size, cfg.hidden_size))
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, mk):
         super().__init__()
-        self.input_layernorm = mk((cfg.hidden_size,), "ones")
+        eps = cfg.rms_norm_eps
+        self.input_layernorm = mk(_RMSNorm, (cfg.hidden_size,), "ones",
+                                  eps=eps)
         self.self_attn = LlamaAttention(cfg, mk)
-        self.post_attention_layernorm = mk((cfg.hidden_size,), "ones")
+        self.post_attention_layernorm = mk(_RMSNorm, (cfg.hidden_size,),
+                                           "ones", eps=eps)
         self.mlp = LlamaMLP(cfg, mk)
+
+    def forward(self, hidden, cos, sin, attn_mask=None):
+        hidden = hidden + self.self_attn(self.input_layernorm(hidden), cos,
+                                         sin, attn_mask)
+        return hidden + self.mlp(self.post_attention_layernorm(hidden))
 
 
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, mk):
         super().__init__()
-        self.embed_tokens = mk((cfg.vocab_size, cfg.hidden_size))
+        self.config = cfg
+        self.embed_tokens = mk(_Embedding, (cfg.vocab_size, cfg.hidden_size))
         self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, mk)
                                     for _ in range(cfg.num_hidden_layers))
-        self.norm = mk((cfg.hidden_size,), "ones")
+        self.norm = mk(_RMSNorm, (cfg.hidden_size,), "ones",
+                       eps=cfg.rms_norm_eps)
+
+    def forward(self, input_ids, attn_mask=None):
+        cfg = self.config
+        cos, sin = _rope_tables(input_ids.shape[1], cfg.head_dim,
+                                cfg.rope_theta, cfg.torch_dtype,
+                                device=input_ids.device)
+        hidden = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            hidden = layer(hidden, cos, sin, attn_mask)
+        return self.norm(hidden)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Parameters named as in the JAX model's ``state_dict()``; linear
-    weights normal(0, 0.02) from a ``torch.Generator`` seeded with
-    ``seed`` on ``device``, norm weights ones. ``device`` defaults to
-    ``cuda`` and raises without a card (``device="cpu"`` opts in)."""
+    """Parameters named as in the JAX model's ``state_dict()``, all
+    trainable; linear weights normal(0, 0.02) from a ``torch.Generator``
+    seeded with ``seed`` on ``device``, norm weights ones. ``device``
+    defaults to ``cuda`` and raises without a card (``device="cpu"`` opts
+    in)."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -126,16 +209,58 @@ class LlamaForCausalLM(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         dt = config.torch_dtype
 
-        def mk(shape, init="normal"):
-            return _Weight(shape, dt, dev, init, gen)
+        def mk(cls, shape, init="normal", **kw):
+            return cls(shape, dt, dev, init, gen, **kw)
 
         self.model = LlamaModel(config, mk)
         self.lm_head = (None if config.tie_word_embeddings
-                        else mk((config.hidden_size, config.vocab_size)))
+                        else mk(_Linear, (config.hidden_size,
+                                          config.vocab_size)))
 
     @property
     def device(self) -> torch.device:
         return self.model.embed_tokens.weight.device
+
+    def _ids(self, ids) -> torch.Tensor:
+        if isinstance(ids, torch.Tensor):
+            return ids.to(self.device, torch.long)
+        return torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                               device=self.device)
+
+    def _head_weight(self):
+        """The (H, V) lm-head matrix, for forward and the fused loss
+        (tied: the transposed embedding)."""
+        if self.lm_head is None:
+            return self.model.embed_tokens.weight.t()
+        return self.lm_head.weight
+
+    def forward(self, input_ids, attn_mask=None):
+        hidden = self.model(self._ids(input_ids), attn_mask)
+        return torch.matmul(hidden, self._head_weight())
+
+    def loss(self, input_ids, labels):
+        """Mean next-token CE. Large vocabularies (V >= 4096, with
+        ``use_fused_lm_ce``) go through the chunked fused head + CE and
+        never form the (T, V) logits at once."""
+        V = self.config.vocab_size
+        labels = self._ids(labels)
+        if flags.use_fused_lm_ce and V >= 4096:
+            from paddle_tpu_torch.ops.fused_ce import fused_lm_loss
+            return fused_lm_loss(self.model(self._ids(input_ids)),
+                                 self._head_weight(), labels)
+        logits = self(input_ids)
+        return F.cross_entropy(logits.reshape(-1, V), labels.reshape(-1))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Train-step FLOPs per token: 6N for the matmuls (forward and
+        backward) plus the attention score/value term 12·L·H·S (PaLM
+        appendix B)."""
+        cfg = self.config
+        return (6 * self.num_params()
+                + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  max_len: Optional[int] = None,

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` command for
-``sm_90a`` into one shared library with a plain ``extern "C"`` interface,
-which is loaded with ``ctypes``.
+Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into one shared library with a plain ``extern "C"`` interface, which is
+loaded with ``ctypes``.
 No PyTorch headers are included, so a build takes seconds. The library
 lands in ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``) under a name that hashes the sources and flags, so an
@@ -28,18 +29,26 @@ __all__ = ["SOURCES", "library", "build", "build_log", "error_string"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("decode_attention.cu", "int8_matmul.cu")
+SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_attention.cu",
+           "rms_norm.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # every pointer and the stream as c_void_p: without argtypes ctypes would
 # pass Python ints as 32-bit C ints and cut 64-bit device pointers
 _SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     "int8_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _P],
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _F, _I, _I, _P],
+    "rms_norm_fwd_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -83,15 +92,30 @@ def build() -> Path:
     if so.exists():
         return so
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
     tmp_so = so.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-shared", *(str(CSRC / n) for n in SOURCES),
-         "-o", str(tmp_so)], capture_output=True, text=True)
-    build_log().write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    objs = [OUT_DIR / f"{tag}.{Path(n).stem}.o" for n in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", str(CSRC / n), "-o", str(o)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n, o in zip(SOURCES, objs)]
+    logs = [(n, *p.communicate()) for n, p in zip(SOURCES, procs)]
+    failed = [n for n, p in zip(SOURCES, procs) if p.returncode]
+    text = "".join(f"== {n}\n{out}" for n, out, _ in logs)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+             str(tmp_so)], capture_output=True, text=True)
+        text += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode:
+            failed = ["link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    build_log().write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{text}")
     os.replace(tmp_so, so)
     build_seconds = time.perf_counter() - t0
     return so

@@ -12,6 +12,9 @@ decoder's ``dispatch_count`` moves by exactly ``prefill_dispatches +
 chunk_dispatches``. Admission copies and row retirement are in-place
 tensor updates outside the counted sites.
 
+``step`` (admission, the chunk dispatch, harvest) runs under
+``torch.inference_mode()``, so serving records no autograd graph.
+
 Admission takes the JAX engine's host-scatter route (the one it takes
 with the device ring off): each prefilled row is copied into the carry
 with ``index_copy_`` (``admission.host_scattered`` in ``metrics()``).
@@ -237,6 +240,7 @@ class ServingEngine:
         return rid
 
     # -- the serving loop --------------------------------------------------
+    @torch.inference_mode()
     def step(self) -> List[Tuple[int, Any]]:
         """One iteration: admit into free slots, run ONE chunk dispatch,
         harvest finished rows. Returns ``[(request_id, result), ...]``

@@ -1,4 +1,4 @@
-"""The port's two kernels (paddle_tpu_torch/ops/kernels) against the JAX
+"""The port's kernels (paddle_tpu_torch/ops/kernels) against the JAX
 package's Pallas kernels, and against their own plain versions on the card.
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import decode_attention as da
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+from paddle_tpu_torch.ops.kernels import rms_norm as rn
 from paddle_tpu_torch.quantization import weight_quantize
 from paddle_tpu_torch.quantization.kv_cache import quantize_kv_rows
 
@@ -80,6 +82,27 @@ def test_decode_attention_plain_matches_jax_per_row_pos(quant):
                                   k_scale=tk["s"], v_scale=tv["s"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=_RTOL,
                                atol=_ATOL)
+
+
+def test_decode_attention_empty_prefix_is_nan_like_jax():
+    """A row with valid length 0 gives 0 / 0 = NaN in the JAX kernel
+    (decode_attention.py:99) and in the port; its neighbour is finite."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas.decode_attention import decode_attention
+
+    rng = np.random.default_rng(2)
+    B, L, D, KV, H = 2, 128, 8, 2, 4
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    vc = rng.standard_normal((B, KV, L, D)).astype(np.float32)
+    pos = np.asarray([0, 37], np.int32)
+    want = np.asarray(decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                       jnp.asarray(vc), jnp.asarray(pos),
+                                       block_l=128))
+    got = da.decode_attention(_t(q), _t(kc), _t(vc), _t(pos)).numpy()
+    assert np.isnan(want[0]).all() and np.isnan(got[0]).all()
+    np.testing.assert_allclose(got[1], want[1], rtol=_RTOL, atol=_ATOL)
 
 
 @pytest.mark.parametrize("K,N", [(256, 512), (512, 640), (5504, 256),
@@ -207,3 +230,82 @@ def test_int8_matmul_kernel_matches_plain_on_card(dtype):
         got = i8.int8_matmul(x, w, s)
         torch.cuda.synchronize()
         _close(got, i8.int8_matmul_ref(x, w, s), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernels_match_plain_on_card(dtype):
+    """Odd row counts and widths, and w in the other dtype. Tolerances
+    follow x's dtype: every output is a function of the normalized rows,
+    which both sides round to x's dtype."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for shape, wdt in (((8192, 768), dtype), ((3, 37, 200), dtype),
+                       ((5, 96), other), ((2, 1, 4096), dtype),
+                       ((13, 7), dtype)):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn(shape[-1], generator=g,
+                                   device="cuda")).to(wdt)
+        out, inv = rn.rms_fwd(x, w, 1e-6)
+        ref_out, ref_inv = rn.rms_fwd_ref(x, w, 1e-6)
+        gy = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+        dx, dw = rn.rms_bwd(x, w, inv, gy)
+        ref_dx, ref_dw = rn.rms_bwd_ref(x, w, ref_inv, gy)
+        torch.cuda.synchronize()
+        for got, want in ((out, ref_out), (dx, ref_dx), (dw, ref_dw)):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            _close(got, want, dtype)
+        _close(inv, ref_inv, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain_on_card(dtype):
+    """Ragged lengths, sq < sk causal, non-causal sq > sk, every head dim.
+    bf16 adds chip_smoke's bound for p and ds rounded at another point."""
+    _need_card()
+    from chip_smoke import err_and_tol, flash_bounds
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, Sq, Sk, H, D, causal in ((2, 100, 100, 3, 64, True),
+                                    (1, 77, 200, 2, 32, True),
+                                    (2, 130, 70, 2, 16, False),
+                                    (1, 64, 64, 2, 128, True),
+                                    (1, 257, 257, 1, 64, False)):
+        if D not in fa._HEAD_DIMS[dtype]:
+            continue
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(
+            dtype) for S in (Sq, Sk, Sk))
+        do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+        scale = D ** -0.5
+        out, lse = fa.flash_fwd(q, k, v, causal, scale)
+        ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, causal, scale)
+        grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
+        refs = fa.flash_bwd_ref(q, k, v, ref_out, ref_lse, do, causal, scale)
+        torch.cuda.synchronize()
+        bounds = flash_bounds(q, k, v, ref_lse, do, causal, scale)
+        case = (B, Sq, Sk, H, D, causal)
+        for name, got, want in zip(("out", "dq", "dk", "dv"),
+                                   (out, *grads), (ref_out, *refs)):
+            assert got.dtype == dtype and got.shape == want.shape
+            err, ratio, _ = err_and_tol(got, want, dtype, bounds[name])
+            assert ratio <= 1, (case, name, err, ratio)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4, case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_empty_prefix_on_card(dtype):
+    """Valid length 0 gives NaN on the card as in the plain version (and
+    the JAX kernel); the other rows hold their usual tolerance."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(3, 12, 64, generator=g, device="cuda").to(dtype)
+    kc, vc = (torch.randn(3, 4, 256, 64, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    lt = torch.tensor([0, 100, 256], dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, kc, vc, lt)
+    torch.cuda.synchronize()
+    want = da.decode_attention_ref(q, kc, vc, lt)
+    assert torch.isnan(got[0]).all() and torch.isnan(want[0]).all()
+    _close(got[1:], want[1:], dtype)

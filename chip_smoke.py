@@ -7,7 +7,9 @@
    per source, all started together, then one link) and prints the build
    seconds.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   serving and training paths' shapes, with times from CUDA events
+   serving and training paths' shapes (the UNet's GroupNorms and D-80
+   flash attention, the Llama's rope among them), with times from CUDA
+   events
    (kernel, plain version, and one PyTorch library call as a yardstick
    the port never makes) beside the least time the card could take.
    Microsecond kernels are timed as a CUDA graph of 100-200 calls (host
@@ -24,7 +26,9 @@
    spacing at most. bf16 flash attention rounds p (and ds) to bf16 per
    64-key tile where the plain version rounds them over the whole row, so
    its tolerance adds 2^-7 of the |terms| those roundings scale
-   (``flash_bounds``).
+   (``flash_bounds``). f32 GroupNorm dw and db are held at 1e-4 of their
+   largest |ref|; the shifted 1000 +- 0.01 GroupNorm case must also be
+   finite and no further from the f64 truth than the plain version.
 4. Serving phase: the GQA Llama of bench.py's decode-quant config (vocab
    32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
    bf16, random weights from a seeded generator) behind ``ServingEngine``
@@ -44,13 +48,25 @@
    AdamW, B 8, S 1024, one fixed batch. One backward with the kernels and
    one with their plain versions (swapped in here only) must agree: loss
    within two bf16 spacings, every gradient at cosine >= 0.99. Then 2
-   warm-up and 8 timed steps: finite losses, the first within 0.5 of
+   warm-up and 6 timed steps: finite losses, the first within 0.5 of
    ln 32000, falling; per step 12 flash forward and 12 flash backward
    launches and 25 + 25 RMSNorm launches. Its line prints step ms,
-   tokens/s, MFU (``flops_per_token`` against the bf16 peak) and, from
-   one more step under ``torch.profiler``, the device busy share and the
-   costliest kernels.
-6. Prints ``{"kernels": [...]}``, the card line, and last
+   tokens/s, MFU (``flops_per_token`` against the bf16 peak), the
+   optimizer update's host ms and, from one more step under
+   ``torch.profiler``, the device busy share and the costliest kernels.
+   Then ``use_fused_rope`` on: the rope kernel against its plain version
+   in one backward, 24 + 24 rope launches a step, and the step ms with
+   the flag on beside 6 more steps with it off.
+6. UNet phase: bench.py's bench_unet (``UNetConfig()``, 748 M bf16
+   parameters, AdamW(1e-4, multi_precision=False), B 8, 4 x 64 x 64
+   latents, context 8 x 77 x 1024) through ``ShardedTrainer``: kernel
+   against plain backward as above, 2 warm-up and 5 timed steps with
+   finite, falling losses and 61 + 61 GroupNorm and 5 + 5 flash launches
+   a step (``unet_census`` counts them from the config). Its line prints
+   step ms, images/s, MFU (the census's FLOPs), peak memory, the update's
+   host ms and a profiled step's busy share, kernel kinds and per-kernel
+   ms.
+7. Prints ``{"kernels": [...]}``, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
@@ -429,6 +445,128 @@ def rms_case(name, rows, H, dtype, g):
              bound_ms=b_ms, bound_by=b_by)]
 
 
+def gn_case(name, shape, G, act, dtype, g, shift=None):
+    """GroupNorm forward and backward kernels against their plain versions
+    (the backward fed the plain forward's statistics), timed through CUDA
+    graphs, with torch's F.group_norm (then F.silu where act is silu)
+    forward and the device time of its backward kernels as the yardstick.
+    f32 dw and db are sums of B x HW products per channel in another
+    order, held at 1e-4 of their largest |ref|. ``shift``: x = shift +
+    0.01 N (f32 only), judged also against the f64 truth: finite, and the
+    kernel no worse than the plain version."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.kernels import group_norm as gn
+    esz = torch.tensor([], dtype=dtype).element_size()
+    C, eps = shape[1], 1e-5
+    n = math.prod(shape)
+    sets = []
+    for _ in range(n_copies(3 * n * esz)):
+        x = torch.randn(shape, generator=g, device="cuda")
+        x = (shift + 0.01 * x if shift is not None else x).to(dtype)
+        w = (1 + 0.1 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+        gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        _, mean, rstd = gn.gn_fwd_ref(x, w, b, G, eps, act)
+        sets.append((x, w, b, gy, mean, rstd))
+    x, w, b, gy, mean, rstd = sets[0]
+    out, k_mean, k_rstd = gn.gn_fwd(x, w, b, G, eps, act)
+    ref_out, _, _ = gn.gn_fwd_ref(x, w, b, G, eps, act)
+    dx, dw, db = gn.gn_bwd(x, w, b, mean, rstd, gy, G, act)
+    ref_dx, ref_dw, ref_db = gn.gn_bwd_ref(x, w, b, mean, rstd, gy, G, act)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        sc = [t.abs().max().clamp_min(1) for t in (ref_dw, ref_db)]
+        dw, ref_dw, db, ref_db = (dw / sc[0], ref_dw / sc[0], db / sc[1],
+                                  ref_db / sc[1])
+    errs = {k: err_and_tol(a, r, dtype) for k, a, r in (
+        ("out", out, ref_out), ("dx", dx, ref_dx), ("dw", dw, ref_dw),
+        ("db", db, ref_db))}
+    errs["mean"] = err_and_tol(k_mean, mean, torch.float32)
+    errs["rstd"] = err_and_tol(k_rstd / rstd, torch.ones_like(rstd),
+                               torch.float32)
+    for what, e in errs.items():
+        check(e[1] <= 1, f"{name} {what}: max |err| {e[0]}, {e[1]} x its "
+              f"tolerance")
+    extra = {}
+    if shift is not None:
+        x64 = x.double().reshape(shape[0], G, -1)
+        aff = (1, C) + (1,) * (len(shape) - 2)
+        true = ((x64 - x64.mean(-1, keepdim=True)) / torch.sqrt(
+            x64.var(-1, correction=0, keepdim=True) + eps)).reshape(shape) \
+            * w.double().reshape(aff) + b.double().reshape(aff)
+        if act:
+            true = true * torch.sigmoid(true)
+        k_err = (out.double() - true).abs().max().item()
+        p_err = (ref_out.double() - true).abs().max().item()
+        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        check(k_err <= p_err + 1e-3, f"{name}: kernel error {k_err} against "
+              f"the f64 truth, plain {p_err}")
+        extra = dict(err_vs_f64=k_err, plain_err_vs_f64=p_err)
+    f_ms, f_by = bound(2 * n * esz + 2 * C * esz + 8 * shape[0] * G,
+                       (12.0 if act else 8.0) * n, F32_FLOPS)
+    b_ms, b_by = bound(3 * n * esz + 4 * C * esz + 8 * shape[0] * G,
+                       (20.0 if act else 12.0) * n, F32_FLOPS)
+
+    def lib_fwd(x, w, b, *_):
+        y = F.group_norm(x, G, w, b, eps)
+        return F.silu(y) if act else y
+
+    xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, b))
+    yl = lib_fwd(xl, wl, bl)
+    common = dict(shape=list(shape), groups=G, act=act, **extra)
+    return [
+        dict(case=f"{name} fwd", kernel="group_norm_fwd",
+             max_abs_err=max(errs[k][0] for k in ("out", "mean", "rstd")),
+             err_over_tol=max(errs[k][1] for k in ("out", "mean", "rstd")),
+             ms=time_ms(lambda x, w, b, *_: gn.gn_fwd(x, w, b, G, eps, act),
+                        sets),
+             plain_ms=time_ms(lambda x, w, b, *_: gn.gn_fwd_ref(
+                 x, w, b, G, eps, act), sets, iters=20),
+             library_ms=time_ms(lib_fwd, sets, iters=100), bound_ms=f_ms,
+             bound_by=f_by, **common),
+        dict(case=f"{name} bwd", kernel="group_norm_bwd",
+             max_abs_err=max(errs[k][0] for k in ("dx", "dw", "db")),
+             err_over_tol=max(errs[k][1] for k in ("dx", "dw", "db")),
+             ms=time_ms(lambda x, w, b, gy, m, r: gn.gn_bwd(
+                 x, w, b, m, r, gy, G, act), sets),
+             plain_ms=time_ms(lambda x, w, b, gy, m, r: gn.gn_bwd_ref(
+                 x, w, b, m, r, gy, G, act), sets, iters=20),
+             library_ms=library_backward_ms(yl, (xl, wl, bl), gy, 50),
+             bound_ms=b_ms, bound_by=b_by, **common)]
+
+
+def rope_case(name, B, S, H, D, dtype, g):
+    """The rope kernel forward (the rotation) and backward (the same kernel
+    with -sin) against the plain version, timed through CUDA graphs.
+    PyTorch has no single call for rope, so there is no library time."""
+    from paddle_tpu_torch.ops.kernels import rope as rp
+    esz = torch.tensor([], dtype=dtype).element_size()
+    n = B * S * H * D
+    sets = []
+    for _ in range(n_copies(2 * n * esz)):
+        x = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+        t = torch.randn(S, D // 2, generator=g, device="cuda")
+        sets.append((x, t.cos().to(dtype), t.sin().to(dtype)))
+    x, c, sn = sets[0]
+    e_f = err_and_tol(rp.rope_fwd(x, c, sn), rp.rope_ref(x, c, sn), dtype)
+    e_b = err_and_tol(rp.rope_bwd(x, c, sn), rp.rope_ref(x, c, sn, -1),
+                      dtype)
+    torch.cuda.synchronize()
+    for what, e in (("fwd", e_f), ("bwd", e_b)):
+        check(e[1] <= 1, f"{name} {what}: max |err| {e[0]}, {e[1]} x its "
+              f"tolerance")
+    r_ms, r_by = bound(2 * n * esz + S * D * esz, 3.0 * n, F32_FLOPS)
+    return [dict(case=f"{name} {what}", kernel=f"rope_{what}",
+                 max_abs_err=e[0], err_over_tol=e[1],
+                 ms=time_ms(fn, sets),
+                 plain_ms=time_ms(lambda x, c, s: rp.rope_ref(x, c, s, sign),
+                                  sets, iters=50),
+                 library_ms=None, bound_ms=r_ms, bound_by=r_by)
+            for what, e, fn, sign in (("fwd", e_f, rp.rope_fwd, 1),
+                                      ("bwd", e_b, rp.rope_bwd, -1))]
+
+
 def kernel_phase():
     g = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -470,6 +608,28 @@ def kernel_phase():
                         2, 200, 333, 3, 64, True, bf, g, library=False)
     cases += rms_case("rms_norm bf16 8192x768", 8192, 768, bf, g)
     cases += rms_case("rms_norm f32 8192x768", 8192, 768, f32, g)
+    # the UNet's level-1 self-attention: 640 channels over 8 heads of 80
+    cases += flash_case("flash_attention bf16 B8 H8 S1024 D80", 8, 1024,
+                        1024, 8, 80, False, bf, g)
+    # the UNet path's GroupNorms (B 8, 32 groups): the level-0 slab, the
+    # largest slab (960 channels at 64 x 64), the narrowest maps, an
+    # attention block's norm without SiLU, one f32 case and the shifted
+    # 1000 +- 0.01 case
+    for shape, act, dt, shift in (((8, 320, 64, 64), "silu", bf, None),
+                                  ((8, 960, 64, 64), "silu", bf, None),
+                                  ((8, 2560, 8, 8), "silu", bf, None),
+                                  ((8, 640, 32, 32), None, bf, None),
+                                  ((8, 640, 32, 32), "silu", f32, None),
+                                  ((8, 320, 64, 64), None, f32, 1000.0)):
+        tag = "bf16" if dt == bf else "f32"
+        cases += gn_case(
+            f"group_norm {tag} {'x'.join(map(str, shape))} G32 "
+            f"{act or 'none'}{' shifted' if shift else ''}", shape, 32, act,
+            dt, g, shift)
+    # the Llama trainer's q and k with use_fused_rope (B 8, S 1024, 12
+    # heads of 64)
+    cases += rope_case("rope bf16 B8 S1024 H12 D64", 8, 1024, 12, 64, bf, g)
+    cases += rope_case("rope f32 B8 S1024 H12 D64", 8, 1024, 12, 64, f32, g)
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -627,18 +787,25 @@ def serving_phase(card):
 # -- training phase -----------------------------------------------------------
 
 class plain_kernels:
-    """Inside the block the four training wrappers run their plain
-    versions on the card (module attributes swapped, restored on exit).
-    Only this script does this: the port itself never routes a CUDA
-    tensor to a plain version."""
+    """Inside the block the training wrappers run their plain versions on
+    the card (module attributes swapped, restored on exit). Only this
+    script does this: the port itself never routes a CUDA tensor to a
+    plain version."""
 
     def __enter__(self):
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import group_norm as gn
         from paddle_tpu_torch.ops.kernels import rms_norm as rn
+        from paddle_tpu_torch.ops.kernels import rope as rp
         self.saved = [(fa, "flash_fwd", fa.flash_fwd_ref),
                       (fa, "flash_bwd", fa.flash_bwd_ref),
                       (rn, "rms_fwd", rn.rms_fwd_ref),
-                      (rn, "rms_bwd", rn.rms_bwd_ref)]
+                      (rn, "rms_bwd", rn.rms_bwd_ref),
+                      (gn, "gn_fwd", gn.gn_fwd_ref),
+                      (gn, "gn_bwd", gn.gn_bwd_ref),
+                      (rp, "rope_fwd", rp.rope_ref),
+                      (rp, "rope_bwd", lambda g, c, s: rp.rope_ref(g, c, s,
+                                                                   -1))]
         self.saved = [(m, a, getattr(m, a), f) for m, a, f in self.saved]
         for m, a, _, f in self.saved:
             setattr(m, a, f)
@@ -648,10 +815,10 @@ class plain_kernels:
             setattr(m, a, orig)
 
 
-def _grads(model, ids, labels):
+def _grads(model, loss_fn, *batch):
     for p in model.parameters():
         p.grad = None
-    loss = model.loss(ids, labels)
+    loss = loss_fn(model, *batch)
     loss.backward()
     out = {n: p.grad.float().clone() for n, p in model.named_parameters()}
     for p in model.parameters():
@@ -659,14 +826,69 @@ def _grads(model, ids, labels):
     return loss.item(), out
 
 
+def kernel_vs_plain(tag, model, loss_fn, *batch):
+    """One backward with the kernels and one with their plain versions,
+    from the same weights: the loss within two bf16 spacings of its value,
+    each gradient at cosine >= 0.99."""
+    loss_k, g_k = _grads(model, loss_fn, *batch)
+    with plain_kernels():
+        loss_p, g_p = _grads(model, loss_fn, *batch)
+    spacing = 2.0 ** (math.floor(math.log2(abs(loss_p))) - 7)
+    check(abs(loss_k - loss_p) <= 2 * spacing, f"{tag}: kernel loss "
+          f"{loss_k} vs plain {loss_p}")
+    cos = {n: torch.nn.functional.cosine_similarity(
+        g_k[n].reshape(1, -1), g_p[n].reshape(1, -1)).item() for n in g_k}
+    worst = min(cos, key=cos.get)
+    check(cos[worst] >= 0.99, f"{tag}: gradient of {worst} at cosine "
+          f"{cos[worst]} to the plain one")
+    return dict(loss_kernel=loss_k, loss_plain=loss_p,
+                min_grad_cosine=cos[worst], min_grad_cosine_param=worst)
+
+
+def llama_loss(m, ids, labels):
+    return m.loss(ids, labels)
+
+
+def timed_steps(trainer, batch, timed, counters):
+    """``timed`` steps after every count in ``counters`` (module, attribute
+    pairs) is set to 0; returns (losses, wall seconds, {name: launches})."""
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(*batch) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([x.item() for x in losses], wall,
+            {k: getattr(mod, attr) for k, (mod, attr) in counters.items()})
+
+
+def profiled_step(trainer, batch):
+    """One more step under the profiler (device kernels only)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    info = device_profile(prof, pwall)
+    info["wall_s"] = pwall
+    return info, prof
+
+
 def train_phase(card):
     """bench.py's bench_llama on the card: the 134M Llama (vocab 32000,
     hidden 768, intermediate 2048, 12 layers, 12 heads, MHA, bf16) through
     ShardedTrainer with AdamW(1e-4, multi_precision=False), B 8, S 1024,
-    the fixed batch of numpy seed 0, weights from a seeded generator."""
+    the fixed batch of numpy seed 0, weights from a seeded generator. Then
+    the same with use_fused_rope on: the rope kernel against its plain
+    version in one backward, and the step time with rope's kernel beside
+    the step time without it, in this one run."""
+    from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.ops.kernels import rope as rp
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ShardedTrainer
 
@@ -681,44 +903,28 @@ def train_phase(card):
                           device="cuda")
     labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              device="cuda")
-
-    # one backward with the kernels and one with the plain versions, from
-    # the same weights: the loss within two bf16 spacings of its value,
-    # each gradient at cosine >= 0.99
-    loss_k, g_k = _grads(model, ids, labels)
-    with plain_kernels():
-        loss_p, g_p = _grads(model, ids, labels)
-    spacing = 2.0 ** (math.floor(math.log2(abs(loss_p))) - 7)
-    check(abs(loss_k - loss_p) <= 2 * spacing, f"train: kernel loss "
-          f"{loss_k} vs plain {loss_p}")
-    cos = {n: torch.nn.functional.cosine_similarity(
-        g_k[n].reshape(1, -1), g_p[n].reshape(1, -1)).item() for n in g_k}
-    worst = min(cos, key=cos.get)
-    check(cos[worst] >= 0.99, f"train: gradient of {worst} at cosine "
-          f"{cos[worst]} to the plain one")
-    del g_k, g_p
+    batch = (ids, labels)
+    vs_plain = kernel_vs_plain("train", model, llama_loss, *batch)
 
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 multi_precision=False)
-    trainer = ShardedTrainer(model, opt, lambda m, i, l: m.loss(i, l))
-    losses = [trainer.train_step(ids, labels).item() for _ in range(2)]
-    timed = 8
-    torch.cuda.synchronize()
-    fa.fwd_launches = fa.bwd_launches = 0
-    rn.fwd_launches = rn.bwd_launches = 0
-    t0 = time.perf_counter()
-    step_losses = [trainer.train_step(ids, labels) for _ in range(timed)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(flash_attention_fwd=fa.fwd_launches,
-                    flash_attention_bwd=fa.bwd_launches,
-                    rms_norm_fwd=rn.fwd_launches,
-                    rms_norm_bwd=rn.bwd_launches)
-    losses += [x.item() for x in step_losses]
+    trainer = ShardedTrainer(model, opt, llama_loss)
+    losses = [trainer.train_step(*batch).item() for _ in range(2)]
+    timed = 6
+    counters = dict(flash_attention_fwd=(fa, "fwd_launches"),
+                    flash_attention_bwd=(fa, "bwd_launches"),
+                    rms_norm_fwd=(rn, "fwd_launches"),
+                    rms_norm_bwd=(rn, "bwd_launches"),
+                    rope_fwd=(rp, "fwd_launches"),
+                    rope_bwd=(rp, "bwd_launches"))
+    step_losses, wall, launches = timed_steps(trainer, batch, timed,
+                                              counters)
+    losses += step_losses
     L = cfg.num_hidden_layers
     for what, per in (("flash_attention_fwd", L), ("flash_attention_bwd", L),
                       ("rms_norm_fwd", 2 * L + 1),
-                      ("rms_norm_bwd", 2 * L + 1)):
+                      ("rms_norm_bwd", 2 * L + 1), ("rope_fwd", 0),
+                      ("rope_bwd", 0)):
         check(launches[what] == per * timed, f"train: {what} launches "
               f"{launches[what]} != {per} x {timed} steps")
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
@@ -733,21 +939,226 @@ def train_phase(card):
                 losses=losses, step_ms=1e3 * step_s,
                 tokens_per_s=B * S / step_s,
                 mfu=flops / step_s / BF16_FLOPS,
+                update_host_ms=1e3 * trainer.update_host_s,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches_per_step={k: v / timed for k, v in launches.items()},
-                kernel_vs_plain=dict(loss_kernel=loss_k, loss_plain=loss_p,
-                                     min_grad_cosine=cos[worst],
-                                     min_grad_cosine_param=worst))
-    # one more step under the profiler (device kernels only)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(ids, labels)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    info["profiled"] = device_profile(prof, pwall)
-    info["profiled"]["wall_s"] = pwall
+                kernel_vs_plain=vs_plain)
+    info["profiled"], _ = profiled_step(trainer, batch)
     emit(info)
+
+    # use_fused_rope on: 24 rope forward and 24 backward launches a step
+    set_flags({"use_fused_rope": True})
+    try:
+        rope_vs_plain = kernel_vs_plain("train rope", model, llama_loss,
+                                        *batch)
+        for _ in range(2):
+            trainer.train_step(*batch)
+        r_losses, r_wall, r_launches = timed_steps(trainer, batch, timed,
+                                                   counters)
+    finally:
+        set_flags({"use_fused_rope": False})
+    for what, per in (("rope_fwd", 2 * L), ("rope_bwd", 2 * L),
+                      ("flash_attention_fwd", L)):
+        check(r_launches[what] == per * timed, f"train rope: {what} "
+              f"launches {r_launches[what]} != {per} x {timed} steps")
+    check(all(math.isfinite(x) for x in r_losses),
+          f"train rope: losses {r_losses}")
+    # the same number of steps with the flag off again, in this run
+    o_losses, o_wall, _ = timed_steps(trainer, batch, timed, counters)
+    rope = dict(phase="train_rope", card=card, steps=timed,
+                losses=r_losses, step_ms_rope_kernel=1e3 * r_wall / timed,
+                step_ms_rope_plain=1e3 * o_wall / timed,
+                launches_per_step={k: v / timed
+                                   for k, v in r_launches.items()},
+                kernel_vs_plain=rope_vs_plain)
+    emit(rope)
+    launches["rope_fwd"] = r_launches["rope_fwd"]
+    launches["rope_bwd"] = r_launches["rope_bwd"]
+    del trainer, opt, model
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def unet_census(cfg, B, side, ctx_len, min_seq):
+    """What one forward of the UNet does, counted from the config as the
+    constructor builds it: multiply-adds of the convolutions and linears,
+    of the attention products (q k^T and p v), the GroupNorm calls as
+    (channels, HW, act), and the attention calls that take the flash
+    kernels (key length >= min_seq)."""
+    ch, tc = cfg.model_channels, 4 * cfg.model_channels
+    c = dict(macs=B * (ch * tc + tc * tc), attn_macs=0, gn=[], flash=0)
+
+    def conv(cin, cout, k, hw):
+        c["macs"] += B * hw * cin * cout * k * k
+
+    def res(cin, cout, s):
+        c["gn"].append((cin, s * s, "silu"))
+        conv(cin, cout, 3, s * s)
+        c["macs"] += B * tc * cout
+        c["gn"].append((cout, s * s, "silu"))
+        conv(cout, cout, 3, s * s)
+        if cin != cout:
+            conv(cin, cout, 1, s * s)
+
+    def attn(ch_, s):
+        L = s * s
+        c["gn"].append((ch_, L, None))
+        c["macs"] += B * L * ch_ * 4 * ch_
+        c["attn_macs"] += 2 * B * L * L * ch_
+        c["flash"] += L >= min_seq
+        if cfg.context_dim is not None:
+            c["macs"] += (2 * B * L * ch_ * ch_
+                          + B * ctx_len * cfg.context_dim * 2 * ch_)
+            c["attn_macs"] += 2 * B * L * ctx_len * ch_
+            c["flash"] += ctx_len >= min_seq
+
+    s, cur, chans = side, ch, [ch]
+    conv(cfg.in_channels, ch, 3, s * s)
+    last = len(cfg.channel_mult) - 1
+    for lvl, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            res(cur, ch * mult, s)
+            cur = ch * mult
+            if lvl in cfg.attention_levels:
+                attn(cur, s)
+            chans.append(cur)
+        if lvl != last:
+            s //= 2
+            conv(cur, cur, 3, s * s)
+            chans.append(cur)
+    res(cur, cur, s)
+    attn(cur, s)
+    res(cur, cur, s)
+    for lvl, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for _ in range(cfg.num_res_blocks + 1):
+            res(cur + chans.pop(), ch * mult, s)
+            cur = ch * mult
+            if lvl in cfg.attention_levels:
+                attn(cur, s)
+        if lvl:
+            s *= 2
+            conv(cur, cur, 3, s * s)
+    c["gn"].append((cur, s * s, "silu"))
+    conv(cur, cfg.out_channels, 3, s * s)
+    return c
+
+
+# device kernels by kind, first match wins: cuDNN's NCHW <-> NHWC
+# relayouts, convolution and GEMM kernels (cuDNN, cuBLAS), the port's
+# own kernels, and PyTorch's elementwise, copy and reduction kernels
+KINDS = (("layout", ("nchwToNhwc", "nhwcToNchw")),
+         ("conv_gemm", ("cudnn", "xmma", "gemm", "nvjet", "cutlass",
+                        "sm90_", "implicit_convolve", "wgrad", "dgrad")),
+         ("port_kernels", ("gn_fwd_kernel", "gn_bwd_kernel", "flash_",
+                           "rope_kernel", "rms_")),
+         ("elementwise_copy_reduce", ("at::native",)))
+
+
+def kinds_ms(prof):
+    """Device ms of a profiled window by kind of kernel (``KINDS``; the
+    rest is ``other``)."""
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        kind = next((k for k, pats in KINDS
+                     if any(p in e.key for p in pats)), "other")
+        out[kind] = out.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def unet_loss(m, x, t, ctx, tgt):
+    """bench_unet's loss."""
+    return ((m(x, t, ctx) - tgt).float() ** 2).mean()
+
+
+def unet_phase(card):
+    """bench.py's bench_unet on the card: UNetConfig() (model channels
+    320, mult (1, 2, 4, 4), 2 res blocks, attention at levels 1-3, 8 heads,
+    context 1024, 32 groups), bf16 parameters from a seeded generator,
+    ShardedTrainer with AdamW(1e-4, multi_precision=False), B 8 latents
+    4 x 64 x 64, timesteps in [0, 1000), context 8 x 77 x 1024, one batch
+    from numpy seed 0 reused every step."""
+    from paddle_tpu_torch.flags import flags
+    from paddle_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import group_norm as gn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainer
+
+    cfg = UNetConfig()
+    B, side, ctx_len = 8, 64, 77
+    model = UNet2DConditionModel(cfg, dtype="bfloat16", seed=0)
+    census = unet_census(cfg, B, side, ctx_len, flags.flash_attention_min_seq)
+    n_gn, n_flash = len(census["gn"]), census["flash"]
+    check((n_gn, n_flash) == (61, 5), f"unet: census {n_gn} GroupNorms, "
+          f"{n_flash} flash calls")
+    rng = np.random.default_rng(0)
+    bf = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                   device="cuda").to(torch.bfloat16)
+    x = bf(rng.normal(size=(B, cfg.in_channels, side, side)))
+    t = torch.as_tensor(rng.integers(0, 1000, (B,)).astype(np.int64),
+                        device="cuda")
+    ctx = bf(rng.normal(size=(B, ctx_len, cfg.context_dim)))
+    tgt = bf(rng.normal(size=tuple(x.shape)))
+    batch = (x, t, ctx, tgt)
+    vs_plain = kernel_vs_plain("unet", model, unet_loss, *batch)
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=False)
+    trainer = ShardedTrainer(model, opt, unet_loss)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(*batch).item() for _ in range(2)]
+    timed = 5
+    counters = dict(group_norm_fwd=(gn, "fwd_launches"),
+                    group_norm_bwd=(gn, "bwd_launches"),
+                    flash_attention_fwd=(fa, "fwd_launches"),
+                    flash_attention_bwd=(fa, "bwd_launches"))
+    step_losses, wall, launches = timed_steps(trainer, batch, timed,
+                                              counters)
+    losses += step_losses
+    for what, per in (("group_norm_fwd", n_gn), ("group_norm_bwd", n_gn),
+                      ("flash_attention_fwd", n_flash),
+                      ("flash_attention_bwd", n_flash)):
+        check(launches[what] == per * timed, f"unet: {what} launches "
+              f"{launches[what]} != {per} x {timed} steps")
+    check(all(math.isfinite(v) for v in losses), f"unet: losses {losses}")
+    check(losses[-1] < losses[0], f"unet: loss did not fall over "
+          f"{len(losses)} steps: {losses}")
+    step_s = wall / timed
+    flops = 3 * 2 * (census["macs"] + census["attn_macs"])
+    gn_elems = sum(B * ch_ * hw for ch_, hw, _ in census["gn"])
+    esz = 2
+    gn_bound = dict(
+        fwd_ms=1e3 * 2 * gn_elems * esz / HBM_BYTES_PER_S,
+        bwd_ms=1e3 * 3 * gn_elems * esz / HBM_BYTES_PER_S)
+    info = dict(phase="unet_train", card=card, batch=B, latent=side,
+                params=model.num_params(), steps=len(losses), losses=losses,
+                step_ms=1e3 * step_s, images_per_s=B / step_s,
+                step_tflop=flops / 1e12, mfu=flops / step_s / BF16_FLOPS,
+                update_host_ms=1e3 * trainer.update_host_s,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step={k: v / timed for k, v in launches.items()},
+                group_norm_elements_per_step=gn_elems,
+                group_norm_bound_ms_per_step=gn_bound,
+                kernel_vs_plain=vs_plain)
+    prof_info, prof = profiled_step(trainer, batch)
+    by_name = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            for k in ("gn_fwd_kernel", "gn_bwd_kernel", "flash_fwd_kernel",
+                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+                if k in e.key:
+                    by_name[k] = by_name.get(k, 0.0) + \
+                        e.self_device_time_total / 1e3
+    prof_info["kernel_ms_per_step"] = by_name
+    prof_info["ms_by_kind"] = kinds_ms(prof)
+    info["profiled"] = prof_info
+    emit(info)
+    del trainer, opt, model
+    torch.cuda.empty_cache()
     return info, launches
 
 
@@ -772,40 +1183,68 @@ def main() -> int:
     runs = serving_phase(card)
     t3 = time.perf_counter()
     _, launches = train_phase(card)
+    t4 = time.perf_counter()
+    _, unet_launches = unet_phase(card)
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-          f"serving {t3 - t2:.1f} s, training "
-          f"{time.perf_counter() - t3:.1f} s", flush=True)
+          f"serving {t3 - t2:.1f} s, llama training {t4 - t3:.1f} s, unet "
+          f"training {time.perf_counter() - t4:.1f} s", flush=True)
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in runs),
-        int8_matmul=sum(r["int8_matmul_launches"] for r in runs))
+        int8_matmul=sum(r["int8_matmul_launches"] for r in runs),
+        group_norm_fwd=unet_launches["group_norm_fwd"],
+        group_norm_bwd=unet_launches["group_norm_bwd"],
+        flash_attention_fwd_d80=unet_launches["flash_attention_fwd"],
+        flash_attention_bwd_d80=unet_launches["flash_attention_bwd"])
     for k, n in launches.items():
         check(n > 0, f"{k} never launched on its path")
     flash = "flash_attention bf16 B8 H12 S1024 D64 causal"
+    flash80 = "flash_attention bf16 B8 H8 S1024 D80"
     rms = "rms_norm bf16 8192x768"
+    gn_case_ = "group_norm bf16 8x320x64x64 G32 silu"
+    rope = "rope bf16 B8 S1024 H12 D64"
+    fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fa_fwd = "paddle_tpu/ops/pallas/flash_attention.py:142 and :163"
+    fa_bwd = "paddle_tpu/ops/pallas/flash_attention.py:304 and :325"
     rows = []
-    for name, src, replaces, case in (
-            ("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
+    for name, kernel, src, replaces, case in (
+            ("decode_attention", "decode_attention",
+             "paddle_tpu_torch/csrc/decode_attention.cu",
              "paddle_tpu/ops/pallas/decode_attention.py:137",
              "decode_attention bf16 B8 H12 KV4 D64 L256"),
-            ("int8_matmul", "paddle_tpu_torch/csrc/int8_matmul.cu",
+            ("int8_matmul", "int8_matmul",
+             "paddle_tpu_torch/csrc/int8_matmul.cu",
              "paddle_tpu/ops/pallas/int8_matmul.py:77",
              "int8_matmul bf16 B8 head 768x32000"),
-            ("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_attention.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:142 and :163",
+            ("flash_attention_fwd", "flash_attention_fwd", fa_src, fa_fwd,
              f"{flash} fwd"),
-            ("flash_attention_bwd", "paddle_tpu_torch/csrc/flash_attention.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:304 and :325",
+            ("flash_attention_bwd", "flash_attention_bwd", fa_src, fa_bwd,
              f"{flash} bwd"),
-            ("rms_norm_fwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+            ("flash_attention_fwd_d80", "flash_attention_fwd", fa_src,
+             fa_fwd, f"{flash80} fwd"),
+            ("flash_attention_bwd_d80", "flash_attention_bwd", fa_src,
+             fa_bwd, f"{flash80} bwd"),
+            ("rms_norm_fwd", "rms_norm_fwd",
+             "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:75", f"{rms} fwd"),
-            ("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
-             "paddle_tpu/ops/pallas/rms_norm.py:128", f"{rms} bwd")):
+            ("rms_norm_bwd", "rms_norm_bwd",
+             "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/ops/pallas/rms_norm.py:128", f"{rms} bwd"),
+            ("rope_fwd", "rope_fwd", "paddle_tpu_torch/csrc/rope.cu",
+             "paddle_tpu/ops/pallas/rope.py:70", f"{rope} fwd"),
+            ("rope_bwd", "rope_bwd", "paddle_tpu_torch/csrc/rope.cu",
+             "paddle_tpu/ops/pallas/rope.py:70", f"{rope} bwd"),
+            ("group_norm_fwd", "group_norm_fwd",
+             "paddle_tpu_torch/csrc/group_norm.cu",
+             "paddle_tpu/ops/pallas/group_norm.py:139", f"{gn_case_} fwd"),
+            ("group_norm_bwd", "group_norm_bwd",
+             "paddle_tpu_torch/csrc/group_norm.cu",
+             "paddle_tpu/ops/pallas/group_norm.py:196", f"{gn_case_} bwd")):
         c = next(c for c in cases if c["case"] == case)
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in cases
-                            if x["kernel"] == name),
+                            if x["kernel"] == kernel),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], case=case))
     emit({"kernels": rows})

@@ -1,12 +1,13 @@
 """paddle_tpu_torch — the PyTorch and CUDA port of paddle_tpu.
 
 A second package beside the JAX one, with its module paths and public
-names: ``models.llama``, ``inference.generate``, ``serving``,
-``quantization``, ``nn.functional``, ``optimizer``, ``parallel.train``
-and the hand-written CUDA kernels under ``ops/kernels`` (sources in
-``csrc/``). It imports ``torch`` and numpy,
-never ``jax`` and nothing of ``paddle_tpu``. Entry points run on the card
-(``cuda``) unless the caller passes ``device="cpu"``.
+names: ``models.llama``, ``models.unet``, ``inference.generate``,
+``serving``, ``quantization``, ``nn.functional``, ``nn.layers``,
+``incubate.nn.functional``, ``optimizer``, ``parallel.train`` and the
+hand-written CUDA kernels under ``ops/kernels`` (sources in ``csrc/``).
+It imports ``torch`` and numpy, never ``jax`` and nothing of
+``paddle_tpu``. Entry points run on the card (``cuda``) unless the caller
+passes ``device="cpu"``.
 
 Submodules load on first attribute access, so ``import paddle_tpu_torch``
 stays cheap.
@@ -23,6 +24,8 @@ __version__ = "0.1.0"
 _LAZY = {
     "LlamaConfig": "paddle_tpu_torch.models.llama",
     "LlamaForCausalLM": "paddle_tpu_torch.models.llama",
+    "UNetConfig": "paddle_tpu_torch.models.unet",
+    "UNet2DConditionModel": "paddle_tpu_torch.models.unet",
     "LlamaDecoder": "paddle_tpu_torch.inference.generate",
     "DecodeState": "paddle_tpu_torch.inference.generate",
     "ServingEngine": "paddle_tpu_torch.serving.engine",
@@ -31,7 +34,8 @@ _LAZY = {
     "to_numpy_state_dict": "paddle_tpu_torch.convert",
 }
 _SUBMODULES = ("models", "inference", "serving", "quantization", "ops",
-               "runtime", "convert", "device", "nn", "optimizer", "parallel")
+               "runtime", "convert", "device", "nn", "optimizer", "parallel",
+               "incubate")
 
 __all__ = ["flags", "__version__", *_LAZY, *_SUBMODULES]
 

@@ -1,8 +1,9 @@
 """Carry a JAX model's parameters into the port's model, and back out.
 
-The JAX package's ``LlamaForCausalLM.state_dict()`` and the port's
-``named_parameters()`` share names and layouts (linear weights ``(in,
-out)``), so the transfer is a checked one-to-one copy. The caller hands
+The JAX package's ``LlamaForCausalLM`` and ``UNet2DConditionModel``
+``state_dict()`` and the port's ``named_parameters()`` share names and
+layouts (linear weights ``(in, out)``, convolutions OIHW), so the transfer
+is a checked one-to-one copy. The caller hands
 the JAX side over as numpy arrays (``{name: np.asarray(t.value)}``); this
 module imports nothing of JAX.
 """

@@ -66,7 +66,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 
 // Shared-memory pitches in elements. io tiles pad by 8 and f32 tiles by 4
 // so rows start on different banks; both keep WMMA's 32-byte alignment for
-// every 16 x 16 fragment.
+// every 16 x 16 fragment. D need not be a power of two: D 80 (the UNet's
+// 640 channels over 8 heads) is five 16-wide fragments, its io pitch 88
+// puts a 16-row fragment 2816 bytes on (88 x 32), its f32 pitch 84 at
+// 5376 (168 x 32), and a row is ten 16-byte vectors in load_tile.
 template <int D> struct Pitch {
   static constexpr int io = D + 8;       // q/k/v/do tiles (T)
   static constexpr int acc = D + 4;      // f32 (rows, D) accumulators
@@ -569,8 +572,8 @@ bool bad_shape(int B, int H, int Sq, int Sk) {
 
 }  // namespace
 
-// dtype codes: 0 float32 (D 16, 32 or 64), 1 bfloat16 (D 16, 32, 64 or
-// 128). Returns a cudaError_t.
+// dtype codes: 0 float32 (D 16, 32 or 64), 1 bfloat16 (D 16, 32, 64, 80
+// or 128). Returns a cudaError_t.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out, void* lse,
                                           int B, int H, int Sq, int Sk, int D,
@@ -586,6 +589,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
     if (D == 16) e = PTT_FWD(bf, 16);
     else if (D == 32) e = PTT_FWD(bf, 32);
     else if (D == 64) e = PTT_FWD(bf, 64);
+    else if (D == 80) e = PTT_FWD(bf, 80);
     else if (D == 128) e = PTT_FWD(bf, 128);
   } else if (dtype == 0) {
     if (D == 16) e = PTT_FWD(float, 16);
@@ -615,6 +619,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k,
     if (D == 16) e = PTT_BWD(bf, 16);
     else if (D == 32) e = PTT_BWD(bf, 32);
     else if (D == 64) e = PTT_BWD(bf, 64);
+    else if (D == 80) e = PTT_BWD(bf, 80);
     else if (D == 128) e = PTT_BWD(bf, 128);
   } else if (dtype == 0) {
     if (D == 16) e = PTT_BWD(float, 16);

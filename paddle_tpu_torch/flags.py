@@ -38,8 +38,11 @@ _DEFAULTS: Dict[str, Any] = {
     "flash_attention_min_seq": 512,
     # route rms_norm through the CUDA RMSNorm kernels when eligible
     "use_fused_rms_norm": True,
-    # the fused rope kernel is not ported yet (ROADMAP.md section 2, row
-    # 7): True raises NotImplementedError instead of running plain rope
+    # route GroupNorm(+SiLU) through the CUDA GroupNorm kernels
+    # (ops/kernels/group_norm.py) when eligible
+    "use_fused_group_norm": True,
+    # route rope through the CUDA rope kernel (ops/kernels/rope.py) when
+    # eligible; off by default, as in the JAX package
     "use_fused_rope": False,
     # route large-vocab LM losses through the chunked-vocab fused head+CE
     # (ops/fused_ce.py) instead of materializing (T, V) logits

@@ -6,7 +6,8 @@ parameter names as the JAX model's ``state_dict()`` and paddle's
 weights across one to one. ``forward`` and ``loss`` are the training path:
 attention through ``nn.functional.scaled_dot_product_attention`` (the
 flash-attention kernels), the norms through ``nn.functional.rms_norm``
-(the RMSNorm kernels), the loss through the chunked fused head + CE.
+(the RMSNorm kernels), rope through the rope kernel when
+``use_fused_rope`` is on, the loss through the chunked fused head + CE.
 ``generate`` delegates to ``inference.generate.LlamaDecoder``.
 """
 
@@ -22,6 +23,7 @@ from torch import nn
 import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.ops.kernels import rope as _rope_k
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "TINY_CONFIG"]
 
@@ -68,11 +70,12 @@ def _rope_tables(seq_len: int, head_dim: int, theta: float, dtype,
 
 def _rope_op(x, cos, sin):
     """Rotate (B, S, H, D) by position tables (S, D/2), halves split at
-    D/2 (the Llama convention)."""
-    if flags.use_fused_rope:
-        raise NotImplementedError(
-            "the fused rope kernel is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md section 2, row 7); set use_fused_rope off")
+    D/2 (the Llama convention). Routes to the rope kernel
+    (ops/kernels/rope.py) when ``use_fused_rope`` is on and the shapes and
+    dtypes are eligible."""
+    if flags.use_fused_rope and _rope_k.supported(
+            tuple(x.shape), tuple(cos.shape), x.dtype, cos.dtype):
+        return _rope_k.rope_fused(x, cos, sin)
     d2 = x.shape[-1] // 2
     x1, x2 = x[..., :d2], x[..., d2:]
     c = cos[None, :, None, :]

@@ -1,12 +1,16 @@
-"""The functional ops the Llama training path uses.
+"""The functional ops the Llama and UNet training paths use.
 
 Counterpart of the matching parts of ``paddle_tpu/nn/functional.py``:
-``rms_norm``, ``scaled_dot_product_attention`` (paddle's (batch, seq,
-heads, head_dim) layout) with its reference form ``_sdpa_ref``, ``silu``
-and ``cross_entropy``. The routing rules are the JAX package's: RMSNorm to
-its kernels when ``ops/fused_norm.py`` finds them eligible, attention to
-the flash-attention kernels when the flags allow and there is no mask and
-no dropout and the key length reaches ``flash_attention_min_seq``.
+``rms_norm``, ``group_norm``, ``scaled_dot_product_attention`` (paddle's
+(batch, seq, heads, head_dim) layout) with its reference form
+``_sdpa_ref``, ``silu``, ``cross_entropy``, and ``linear`` (paddle's (in,
+out) weights), ``conv2d`` (NCHW, OIHW weights) and nearest
+``interpolate``. The routing rules are the JAX package's: RMSNorm and
+GroupNorm to their kernels when ``ops/fused_norm.py`` finds them eligible,
+attention to the flash-attention kernels when the flags allow and there is
+no mask and no dropout and the key length reaches
+``flash_attention_min_seq``. Convolutions, linears and upsampling are
+XLA ops in the JAX package and torch ops here.
 """
 
 from __future__ import annotations
@@ -17,15 +21,73 @@ import torch
 import torch.nn.functional as _F
 
 from paddle_tpu_torch.flags import flags
-from paddle_tpu_torch.ops.fused_norm import _kernel_ok, rms_lax, rms_norm_fused
+from paddle_tpu_torch.ops.fused_norm import (_gn_kernel_ok, _kernel_ok,
+                                             group_norm_fused, rms_lax,
+                                             rms_norm_fused)
 from paddle_tpu_torch.ops.kernels import flash_attention as _fa
 
-__all__ = ["rms_norm", "scaled_dot_product_attention", "silu",
-           "cross_entropy"]
+__all__ = ["rms_norm", "group_norm", "scaled_dot_product_attention", "silu",
+           "cross_entropy", "linear", "conv2d", "interpolate"]
+
+_LOWP = (torch.bfloat16, torch.float16)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md section "
+        f"1, item 16)")
 
 
 def silu(x):
     return _F.silu(x)
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight (+ bias)`` with paddle's (in, out) weight. Types
+    promote as in JAX; a bf16 or f16 x accumulates in f32 and rounds the
+    product to x's dtype before the bias add."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    out = torch.matmul(x.to(dt), weight.to(dt))
+    if x.dtype in _LOWP:
+        out = out.to(x.dtype)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    """2-D convolution, NCHW maps and OIHW weights, ``padding`` an int or
+    an (h, w) pair. The bias is added after the convolution's rounding, as
+    the JAX package adds it."""
+    if (data_format != "NCHW" or isinstance(padding, str)
+            or not (isinstance(padding, int) or len(padding) == 2)):
+        raise _not_ported(f"conv2d data_format={data_format!r} "
+                          f"padding={padding!r}")
+    out = _F.conv2d(x, weight, None, _pair(stride), _pair(padding),
+                    _pair(dilation), groups)
+    if bias is not None:
+        out = out + bias.reshape(1, -1, 1, 1)
+    return out
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """Nearest-neighbour resize of an NCHW map to ``size`` or by
+    ``scale_factor``, sampling at pixel centres as ``jax.image.resize``
+    does (torch's ``nearest-exact``)."""
+    if mode != "nearest" or data_format != "NCHW":
+        raise _not_ported(f"interpolate mode={mode!r} "
+                          f"data_format={data_format!r}")
+    if size is None:
+        sf = (scale_factor if isinstance(scale_factor, (list, tuple))
+              else (scale_factor,) * 2)
+        size = (int(x.shape[2] * sf[0]), int(x.shape[3] * sf[1]))
+    return _F.interpolate(x, size=tuple(size), mode="nearest-exact")
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -35,6 +97,35 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     if weight is not None and _kernel_ok(x, weight, epsilon):
         return rms_norm_fused(x, weight, epsilon)
     return rms_lax(x, weight, epsilon)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """GroupNorm over ``num_groups`` channel groups (axis 1). Through the
+    GroupNorm kernels (``ops/kernels/group_norm.py``) when eligible, a
+    missing weight or bias then standing in as ones or zeros; else the
+    composition in x's dtype (the JAX package's, statistics by
+    ``mean``/``var``)."""
+    if (data_format == "NCHW" and x.ndim >= 3
+            and _gn_kernel_ok(x, num_groups, epsilon)):
+        C = x.shape[1]
+        w = (weight if weight is not None
+             else torch.ones(C, dtype=x.dtype, device=x.device))
+        b = (bias if bias is not None
+             else torch.zeros(C, dtype=x.dtype, device=x.device))
+        return group_norm_fused(x, w, b, num_groups, epsilon, None)
+    n_, c = x.shape[0], x.shape[1]
+    r = x.reshape((n_, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, r.ndim))
+    mean = r.mean(axes, keepdim=True)
+    var = r.var(axes, correction=0, keepdim=True)
+    out = ((r - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    shape = [1, c] + [1] * (x.ndim - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
 
 
 def _sdpa_ref(q, k, v, attn_mask=None, causal=False, scale=None):

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_attention.cu",
-           "rms_norm.cu")
+           "rms_norm.cu", "group_norm.cu", "rope.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,6 +49,11 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _F, _I, _I, _P],
     "rms_norm_fwd_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "group_norm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                              _I, _I, _I, _I, _P],
+    "group_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P],
+    "rope_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

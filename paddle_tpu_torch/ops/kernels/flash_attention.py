@@ -31,12 +31,14 @@ bwd_launches = 0
 
 _NEG_INF = -1e30
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = {torch.float32: (16, 32, 64), torch.bfloat16: (16, 32, 64, 128)}
+# bf16 D 80: the UNet's level-1 heads (640 channels over 8)
+_HEAD_DIMS = {torch.float32: (16, 32, 64),
+              torch.bfloat16: (16, 32, 64, 80, 128)}
 
 
 def supported(q, k, v) -> bool:
     """What the kernels take: q (B, Sq, H, D) and k, v (B, Sk, H, D) of one
-    dtype, bf16 with D in 16/32/64/128 or f32 with D in 16/32/64 (the f32
+    dtype, bf16 with D in 16/32/64/80/128 or f32 with D in 16/32/64 (the f32
     backward's tiles must fit shared memory). Any Sq and Sk."""
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         return False

@@ -14,6 +14,7 @@ not ported yet (ROADMAP.md section 1, items 13 and 14).
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -41,7 +42,8 @@ def _mesh_size(mesh) -> int:
 class ShardedTrainer:
     """One-device trainer with the JAX ``ShardedTrainer``'s surface.
 
-    ``loss_fn(model, *batch) -> scalar tensor`` drives the forward.
+    ``loss_fn(model, *batch) -> scalar tensor`` drives the forward; the
+    batch may be tensors or numpy arrays (ml_dtypes bfloat16 included).
     ``train_step(*batch)`` runs one step and returns the loss;
     ``train_steps(*stacked)`` runs K steps over (K, ...) inputs and
     returns the (K,) losses. Both advance ``optimizer._step_count``. The
@@ -63,6 +65,10 @@ class ShardedTrainer:
                        if p.requires_grad}
         self.opt_state = {n: optimizer.init_state(p)
                           for n, p in self.params.items()}
+        #: host seconds the last step spent issuing the optimizer update
+        #: (about a dozen eager ops per parameter; the device may still be
+        #: running them when the step returns)
+        self.update_host_s = 0.0
 
     @property
     def device(self) -> torch.device:
@@ -71,7 +77,13 @@ class ShardedTrainer:
     def _put(self, b):
         if isinstance(b, torch.Tensor):
             return b.to(self.device)
-        return torch.as_tensor(np.asarray(b), device=self.device)
+        a = np.ascontiguousarray(b)
+        if a.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16, which torch.as_tensor does not take:
+            # carry the bits over
+            return torch.from_numpy(a.view(np.uint16)).view(
+                torch.bfloat16).to(self.device)
+        return torch.as_tensor(a, device=self.device)
 
     def _step(self, batch) -> torch.Tensor:
         for p in self.params.values():
@@ -81,12 +93,14 @@ class ShardedTrainer:
         opt = self.optimizer
         lr = float(opt.get_lr())
         wd = getattr(opt, "_weight_decay", 0.0) or 0.0
+        t0 = time.perf_counter()
         with torch.no_grad():
             for name, p in self.params.items():
                 new_p, self.opt_state[name] = opt.update(
                     p.grad, self.opt_state[name], p, lr, wd)
                 p.copy_(new_p)
                 p.grad = None
+        self.update_host_s = time.perf_counter() - t0
         opt._step_count += 1
         return loss.detach()
 

@@ -16,8 +16,10 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import group_norm as gn
 from paddle_tpu_torch.ops.kernels import int8_matmul as i8
 from paddle_tpu_torch.ops.kernels import rms_norm as rn
+from paddle_tpu_torch.ops.kernels import rope as rp
 from paddle_tpu_torch.quantization import weight_quantize
 from paddle_tpu_torch.quantization.kv_cache import quantize_kv_rows
 
@@ -165,6 +167,143 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                             torch.zeros(1, 1, 8, 8, device="meta"), 4)
 
 
+# -- GroupNorm and rope -------------------------------------------------------
+
+@pytest.mark.parametrize("act,shape", [(None, (2, 32, 8, 8)),
+                                       ("silu", (2, 96, 4, 4))])
+def test_group_norm_plain_matches_jax(act, shape):
+    """gn_fwd / gn_bwd (plain versions) against the Pallas kernels in
+    interpret mode at UNET_TINY's widths (32 channels on 8 x 8 maps, 96 on
+    4 x 4, 8 groups): out, mean and rstd at 1e-5, dx, dw and db at 1e-4;
+    then the autograd unit against jax.grad of the JAX one."""
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.fused_norm import group_norm_fused as jax_fused
+    from paddle_tpu.ops.pallas import group_norm as pgn
+
+    from paddle_tpu_torch.ops.fused_norm import group_norm_fused
+
+    rng = np.random.default_rng(0)
+    C = shape[1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    jx, jw, jb, jg = map(jnp.asarray, (x, w, b, g))
+    out, mean, rstd = pgn.gn_fwd(jx, jw, jb, 8, 1e-5, act)
+    want = (out, mean, rstd) + pgn.gn_bwd(jx, jw, jb, mean, rstd, jg, 8, act)
+    tout, tmean, trstd = gn.gn_fwd(_t(x), _t(w), _t(b), 8, 1e-5, act)
+    got = (tout, tmean, trstd) + gn.gn_bwd(_t(x), _t(w), _t(b), tmean, trstd,
+                                           _t(g), 8, act)
+    for name, a, c, tol in zip(("out", "mean", "rstd", "dx", "dw", "db"),
+                               got, want, (1e-5,) * 3 + (1e-4,) * 3):
+        c = np.asarray(c)
+        np.testing.assert_allclose(a.numpy().reshape(c.shape), c, rtol=tol,
+                                   atol=tol, err_msg=f"{act} {name}")
+    want = jax.grad(lambda x, w, b: (jax_fused(x, w, b, 8, 1e-5, act)
+                                     * jg).sum(), (0, 1, 2))(jx, jw, jb)
+    tx, tw, tb = (_t(a).requires_grad_() for a in (x, w, b))
+    (group_norm_fused(tx, tw, tb, 8, 1e-5, act) * _t(g)).sum().backward()
+    for a, c in zip((tx, tw, tb), want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(c), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(act))
+
+
+def test_group_norm_routing_rule_matches_jax():
+    """The port routes the JAX package's shapes: its rule equals the JAX
+    ``supported`` at the SD level-0 slab and an 84 MB slab, and takes
+    every GroupNorm of the full UNet at B 8 on 64 x 64 latents."""
+    from paddle_tpu.ops.pallas.group_norm import supported
+
+    for shape, groups in (((8, 320, 64, 64), 32), ((1, 320, 256, 256), 1)):
+        assert gn.supported(shape, groups) == supported(shape, groups)
+    assert gn.supported((8, 320, 64, 64), 32)
+    assert not gn.supported((1, 320, 256, 256), 1)
+    for C, side in ((320, 64), (640, 64), (960, 64), (640, 32), (960, 32),
+                    (1280, 32), (1920, 32), (1280, 16), (1920, 16),
+                    (2560, 16), (1280, 8), (2560, 8)):
+        assert gn.supported((8, C, side, side), 32), (C, side)
+    assert not gn.supported((8, 30, 4, 4), 32)
+    assert not gn.supported((8, 32), 8)
+
+
+def test_group_norm_mean_shifted_no_nan():
+    """tests/test_fused_kernels.py's case on the port: 1000 +- 0.01 input,
+    judged against the f64 truth; the pivot-shifted plain version is finite
+    and never worse than the plain composition."""
+    from paddle_tpu_torch.ops.fused_norm import (group_norm_fused,
+                                                 group_norm_lax)
+
+    rng = np.random.default_rng(1)
+    x = (1000.0 + 0.01 * rng.standard_normal((2, 8, 4, 4))).astype(
+        np.float32)
+    w, b = torch.ones(8), torch.zeros(8)
+    out = group_norm_fused(_t(x), w, b, 4, 1e-5, None).numpy()
+    ref = group_norm_lax(_t(x), w, b, 4, 1e-5, None).numpy()
+    x64 = x.astype(np.float64).reshape(2, 4, -1)
+    true = ((x64 - x64.mean(-1, keepdims=True))
+            / np.sqrt(x64.var(-1, keepdims=True) + 1e-5)).reshape(x.shape)
+    assert np.isfinite(out).all()
+    kerr, lerr = np.abs(out - true).max(), np.abs(ref - true).max()
+    assert kerr < 0.02, kerr
+    assert kerr <= lerr + 1e-3, (kerr, lerr)
+
+
+def _rope_case(dtype, seed):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    B, S, H, D = 2, 16, 3, 8
+    x = rng.normal(size=(B, S, H, D))
+    t = rng.normal(size=(S, D // 2))
+    g = rng.normal(size=(B, S, H, D))
+    return [jnp.asarray(a, dtype) for a in (x, np.cos(t), np.sin(t), g)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_plain_matches_jax(dtype):
+    """rope_fused (its plain versions) against the Pallas kernel in
+    interpret mode: the rotation and the gradients of x, cos and sin. f32
+    at 1e-5. bf16: XLA rounds each product and the sum (the TPU kernel's
+    arithmetic), the plain version rounds the f32 result once; half a
+    spacing of each product and one of the result stay within 2^-6 of the
+    terms |x1 c| + |x2 s| (of the gradients' products for the tables)."""
+    import jax
+
+    from paddle_tpu.ops.pallas import rope as prope
+
+    jx, jc, js, jg = _rope_case(dtype, 4)
+    want = prope.rope_fused(jx, jc, js)
+    want_g = jax.grad(lambda x, c, s: (prope.rope_fused(x, c, s).astype(
+        "float32") * jg.astype("float32")).sum(), (0, 1, 2))(jx, jc, js)
+    tdt = getattr(torch, dtype)
+    tx, tc, ts = (_t(np.asarray(a, np.float32)).to(tdt).requires_grad_()
+                  for a in (jx, jc, js))
+    tg = _t(np.asarray(jg, np.float32)).to(tdt)
+    out = rp.rope_fused(tx, tc, ts)
+    (out.float() * tg.float()).sum().backward()
+    assert out.dtype == tdt and rp.fwd_launches == rp.bwd_launches == 0
+    f = lambda a: np.asarray(a, np.float32)       # noqa: E731
+    x, c, s, g = map(f, (jx, jc, js, jg))
+    d2 = x.shape[-1] // 2
+    ac, as_ = np.abs(c[None, :, None, :]), np.abs(s[None, :, None, :])
+
+    def terms(v):
+        v1, v2 = np.abs(v[..., :d2]), np.abs(v[..., d2:])
+        return np.concatenate([v1 * ac + v2 * as_, v2 * ac + v1 * as_], -1)
+
+    gx = np.abs(g * x)
+    tterm = (gx[..., :d2] + gx[..., d2:]).sum((0, 2))
+    for name, a, w, t in (("out", out, want, terms(x)),
+                          ("dx", tx.grad, want_g[0], terms(g)),
+                          ("dcos", tc.grad, want_g[1], tterm),
+                          ("dsin", ts.grad, want_g[2], tterm)):
+        tol = 1e-5 * (1 + np.abs(f(w))) if dtype == "float32" else \
+            2 ** -6 * t + 1e-6
+        assert (np.abs(f(a.detach().float()) - f(w)) <= tol).all(), name
+
+
 # -- on the card: each kernel against its plain version ----------------------
 
 def _need_card():
@@ -262,8 +401,9 @@ def test_rms_norm_kernels_match_plain_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain_on_card(dtype):
-    """Ragged lengths, sq < sk causal, non-causal sq > sk, every head dim.
-    bf16 adds chip_smoke's bound for p and ds rounded at another point."""
+    """Ragged lengths, sq < sk causal, non-causal sq > sk, every head dim
+    (bf16 D 80: the UNet's level-1 heads). bf16 adds chip_smoke's bound for
+    p and ds rounded at another point."""
     _need_card()
     from chip_smoke import err_and_tol, flash_bounds
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -271,7 +411,9 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
                                     (1, 77, 200, 2, 32, True),
                                     (2, 130, 70, 2, 16, False),
                                     (1, 64, 64, 2, 128, True),
-                                    (1, 257, 257, 1, 64, False)):
+                                    (1, 257, 257, 1, 64, False),
+                                    (2, 200, 200, 2, 80, False),
+                                    (1, 90, 150, 3, 80, True)):
         if D not in fa._HEAD_DIMS[dtype]:
             continue
         q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(
@@ -291,6 +433,61 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
             err, ratio, _ = err_and_tol(got, want, dtype, bounds[name])
             assert ratio <= 1, (case, name, err, ratio)
         assert (lse - ref_lse).abs().max().item() <= 1e-4, case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_kernels_match_plain_on_card(dtype):
+    """The UNet's widest slab and narrowest maps, HW not a multiple of 8
+    (one element at a time), a 3D input, w in the other dtype, both acts,
+    a mean far from zero."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    for shape, G, act, wdt, shift in (((2, 960, 64, 64), 32, "silu", dtype, 0),
+                                      ((2, 2560, 8, 8), 32, "silu", dtype, 0),
+                                      ((2, 640, 32, 32), 32, None, dtype, 0),
+                                      ((3, 96, 7, 7), 8, "silu", other, 0),
+                                      ((2, 64, 200), 4, None, dtype, 0),
+                                      ((2, 32, 16, 16), 8, None, dtype, 50)):
+        x = (torch.randn(shape, generator=g, device="cuda") + shift).to(dtype)
+        C = shape[1]
+        w = (1 + 0.1 * torch.randn(C, generator=g, device="cuda")).to(wdt)
+        b = (0.1 * torch.randn(C, generator=g, device="cuda")).to(wdt)
+        gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        out, mean, rstd = gn.gn_fwd(x, w, b, G, 1e-5, act)
+        ref_out, ref_mean, ref_rstd = gn.gn_fwd_ref(x, w, b, G, 1e-5, act)
+        grads = gn.gn_bwd(x, w, b, ref_mean, ref_rstd, gy, G, act)
+        refs = gn.gn_bwd_ref(x, w, b, ref_mean, ref_rstd, gy, G, act)
+        torch.cuda.synchronize()
+        for got, want in zip((out, grads[0]), (ref_out, refs[0])):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            _close(got, want, dtype)
+        # dw and db sum B * HW products per channel in f32 in another
+        # order: f32 is held to 1e-4 of their largest magnitude
+        for got, want in zip(grads[1:], refs[1:]):
+            assert got.dtype == want.dtype == wdt and got.shape == (C,)
+            if wdt == torch.float32:
+                scale = want.abs().amax().clamp_min(1)
+                got, want = got / scale, want / scale
+            _close(got, want, wdt)
+        _close(mean, ref_mean, torch.float32)
+        _close(rstd / ref_rstd, torch.ones_like(rstd), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, S, H, D in ((8, 1024, 12, 64), (2, 8, 3, 8), (1, 24, 5, 130)):
+        x = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+        t = torch.randn(S, D // 2, generator=g, device="cuda")
+        c, s = t.cos().to(dtype), t.sin().to(dtype)
+        out, back = rp.rope_fwd(x, c, s), rp.rope_bwd(x, c, s)
+        torch.cuda.synchronize()
+        _close(out, rp.rope_ref(x, c, s), dtype)
+        _close(back, rp.rope_ref(x, c, s, -1), dtype)
 
 
 @pytest.mark.gpu

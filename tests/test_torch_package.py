@@ -46,6 +46,8 @@ def test_import_leaves_jax_out_and_chip_smoke_refuses_without_a_card():
     non-zero code before printing any result."""
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving.engine\n"
             "import paddle_tpu_torch.models.llama, chip_smoke, torch\n"
+            "import paddle_tpu_torch.models.unet\n"
+            "import paddle_tpu_torch.incubate.nn.functional\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'paddle_tpu')]\n"
             "assert not bad, bad\n"
@@ -63,9 +65,12 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
         pytest.skip("a card is present: the default device is valid here")
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.models.llama import TINY_CONFIG, LlamaForCausalLM
+    from paddle_tpu_torch.models.unet import UNet2DConditionModel
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(TINY_CONFIG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UNet2DConditionModel()
     model = LlamaForCausalLM(TINY_CONFIG, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaDecoder(model)

@@ -340,9 +340,53 @@ def test_tiny_llama_trainer_steps_match_jax(min_seq_64):
         out, np.asarray(jm.generate(prompt, max_new_tokens=6)))
 
 
+@pytest.fixture
+def fused_rope():
+    set_flags({"use_fused_rope": True})
+    paddle.set_flags({"use_fused_rope": True})
+    yield
+    set_flags({"use_fused_rope": False})
+    paddle.set_flags({"use_fused_rope": False})
+
+
+def test_tiny_llama_trainer_with_fused_rope_matches_jax(fused_rope):
+    """use_fused_rope on both sides: the JAX trainer runs the Pallas rope
+    kernel (interpret mode) and the port its rope unit (the plain version
+    on the CPU); three AdamW steps give the same losses at 1e-5.
+    Attention takes the plain form on both sides (S 64 is under the
+    default ``flash_attention_min_seq``), which keeps the JAX compile
+    short; the other trainer test covers the flash route."""
+    from paddle_tpu.parallel import init_mesh
+    from paddle_tpu.parallel.mesh import set_mesh
+    from paddle_tpu.parallel.train import ShardedTrainer as JaxTrainer
+
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainer
+
+    jm, tm = _models()
+    ids, labels = _batch()
+    mesh = init_mesh((1, 1, 1), ("dp", "sep", "mp"))
+    try:
+        jt = JaxTrainer(jm, paddle.optimizer.AdamW(
+            learning_rate=1e-3, parameters=jm.parameters(),
+            weight_decay=0.01), lambda m, i, l: m.loss(i, l), mesh, {})
+        with mesh:
+            want = [float(jt.train_step(ids, labels).numpy())
+                    for _ in range(3)]
+    finally:
+        set_mesh(None)
+    tt = ShardedTrainer(tm, AdamW(learning_rate=1e-3,
+                                  parameters=tm.parameters(),
+                                  weight_decay=0.01),
+                        lambda m, i, l: m.loss(i, l))
+    got = [tt.train_step(ids, labels).item() for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 def test_trainer_train_steps_and_refusals():
     """train_steps over stacked (K, ...) batches equals K train_steps;
-    a multi-device mesh, amp, grad clip and LR schedulers are refused."""
+    a multi-device mesh, amp, grad clip and LR schedulers are refused;
+    use_fused_rope runs (it raised before the rope kernel was ported)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ShardedTrainer
 
@@ -367,12 +411,17 @@ def test_trainer_train_steps_and_refusals():
         AdamW(1e-3, parameters=tm1.parameters(), grad_clip=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AdamW(lambda: 1e-3, parameters=tm1.parameters())
-    set_flags({"use_fused_rope": True})
-    try:
-        with pytest.raises(NotImplementedError, match="row 7"):
-            tm1.loss(ids, labels)
-    finally:
-        set_flags({"use_fused_rope": False})
+    # use_fused_rope routes rope through the rope kernel's autograd unit,
+    # whose plain version on CPU tensors rotates exactly as the plain rope
+    from paddle_tpu_torch.ops.kernels import rope as rp
+    with torch.no_grad():
+        off = tm1.loss(ids, labels)
+        set_flags({"use_fused_rope": True})
+        try:
+            on = tm1.loss(ids, labels)
+        finally:
+            set_flags({"use_fused_rope": False})
+    assert torch.equal(on, off) and rp.fwd_launches == 0
 
 
 def test_optimizer_step_and_state_dict_follow_the_trainer():

@@ -5,7 +5,9 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
 2. Builds the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together, then one link) and prints the build
-   seconds.
+   seconds, and each flash kernel's registers, spills and shared memory
+   (``-Xptxas -v`` in the build log, and the dynamic shared memory the
+   launch asks for).
 3. Kernel phase: each kernel against its plain PyTorch version at the
    serving and training paths' shapes (the UNet's GroupNorms and D-80
    flash attention, the Llama's rope among them), with times from CUDA
@@ -24,10 +26,12 @@
    1e-3 of its row's largest |ref|. Kernel and plain version each round
    one f32 result of reassociated sums to bf16, so they differ by one
    spacing at most. bf16 flash attention rounds p (and ds) to bf16 per
-   64-key tile where the plain version rounds them over the whole row, so
-   its tolerance adds 2^-7 of the |terms| those roundings scale
-   (``flash_bounds``). f32 GroupNorm dw and db are held at 1e-4 of their
-   largest |ref|; the shifted 1000 +- 0.01 GroupNorm case must also be
+   tile of keys against a running maximum where the plain version rounds
+   them over the whole row, so its tolerance adds 2^-7 of the |terms|
+   those roundings scale (``flash_bounds``); two backward runs must give
+   dq within the bf16 tolerance of each other (its f32 sums land in
+   another order each run). f32 GroupNorm dw and db are held at 1e-4 of
+   their largest |ref|; the shifted 1000 +- 0.01 GroupNorm case must also be
    finite and no further from the f64 truth than the plain version.
 4. Serving phase: the GQA Llama of bench.py's decode-quant config (vocab
    32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
@@ -225,6 +229,50 @@ def flash_bounds(q, k, v, lse, do, causal, scale):
                 dv=back(a.transpose(-1, -2) @ dof.abs()))
 
 
+def flash_build_info():
+    """Each flash kernel's registers and spills (``-Xptxas -v`` in the
+    build log), its static shared memory and, for the wgmma kernels, the
+    dynamic shared memory their launch asks for."""
+    import re
+
+    from paddle_tpu_torch.ops.kernels import _build
+    lib = _build.library()
+    lines = _build.build_log().read_text().splitlines()
+    rows = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w*flash_\w+)'", line)
+        if not m:
+            continue
+        # the kernel's own name follows its length, after the namespace's
+        name = re.search(r"\d(flash_[a-z0-9_]+?_kernel)[IE]",
+                         m.group(1)).group(1)
+        d = re.search(r"_kernelILi(\d+)E", m.group(1))
+        t = re.search(r"_kernelI(f|13__nv_bfloat16)(?:Li(\d+)E)?",
+                      m.group(1))
+        row = dict(kernel=name + (f"<{d.group(1)}>" if d else "")
+                   + (f"<{'f32' if t.group(1) == 'f' else 'bf16'}"
+                      f"{', ' + t.group(2) if t.group(2) else ''}>"
+                      if t else ""))
+        for x in lines[i + 1:i + 5]:
+            r = re.search(r"Used (\d+) registers", x)
+            if r:
+                row["registers"] = int(r.group(1))
+                sm = re.search(r"(\d+) bytes smem", x)
+                row["static_smem"] = int(sm.group(1)) if sm else 0
+                break
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", x)
+            if sp:
+                row["spill_stores"] = int(sp.group(1))
+                row["spill_loads"] = int(sp.group(2))
+        if d and "wgmma" in name:
+            fn = (lib.flash_attention_fwd_smem if "fwd" in name
+                  else lib.flash_attention_bwd_smem)
+            row["dynamic_smem"] = fn(int(d.group(1)))
+        rows.append(row)
+    return rows
+
+
 # -- kernel phase -------------------------------------------------------------
 
 def da_case(name, B, H, KV, L, D, lens, dtype, quant, g):
@@ -338,8 +386,13 @@ def flash_case(name, B, Sq, Sk, H, D, causal, dtype, g, library=True):
     out, lse = fa.flash_fwd(q, k, v, causal, scale)
     ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, causal, scale)
     grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
+    again = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
     refs = fa.flash_bwd_ref(q, k, v, ref_out, ref_lse, do, causal, scale)
     torch.cuda.synchronize()
+    dq_rerun = err_and_tol(again[0], grads[0], dtype)
+    check(dq_rerun[1] <= 1, f"{name} dq of two runs: max |diff| "
+          f"{dq_rerun[0]}, {dq_rerun[1]} x its tolerance")
+    del again
     bounds = (flash_bounds(q, k, v, ref_lse, do, causal, scale)
               if dtype == torch.bfloat16 else {})
     errs = {}
@@ -382,11 +435,15 @@ def flash_case(name, B, Sq, Sk, H, D, causal, dtype, g, library=True):
             dict(case=f"{name} bwd", kernel="flash_attention_bwd",
                  max_abs_err=max(errs[x][0] for x in ("dq", "dk", "dv")),
                  err_over_tol=max(errs[x][1] for x in ("dq", "dk", "dv")),
+                 dq_rerun_max_abs_diff=dq_rerun[0],
                  ms=eager_ms(lambda *_: bwd(), [()], iters),
                  plain_ms=eager_ms(lambda *_: fa.flash_bwd_ref(
                      q, k, v, ref_out, ref_lse, do, causal, scale), [()],
                      max(5, iters // 4)),
                  library_ms=lib_b, bound_ms=b_ms, bound_by=b_by, **common)]
+    for r in rows:
+        if r["library_ms"]:
+            r["over_library"] = r["ms"] / r["library_ms"]
     return rows
 
 
@@ -876,6 +933,24 @@ def profiled_step(trainer, batch):
     return info, prof
 
 
+# the flash kernels by name: the profiled steps report each one's ms
+FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
+                 "flash_bwd_wgmma_kernel", "flash_bwd_dq_convert_kernel")
+
+
+def kernel_ms(prof, names):
+    """Device ms of a profiled window per kernel whose name holds one of
+    ``names``."""
+    out = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0):
+            for k in names:
+                if k in e.key:
+                    out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
 def train_phase(card):
     """bench.py's bench_llama on the card: the 134M Llama (vocab 32000,
     hidden 768, intermediate 2048, 12 layers, 12 heads, MHA, bf16) through
@@ -943,7 +1018,8 @@ def train_phase(card):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches_per_step={k: v / timed for k, v in launches.items()},
                 kernel_vs_plain=vs_plain)
-    info["profiled"], _ = profiled_step(trainer, batch)
+    info["profiled"], prof = profiled_step(trainer, batch)
+    info["profiled"]["kernel_ms_per_step"] = kernel_ms(prof, FLASH_KERNELS)
     emit(info)
 
     # use_fused_rope on: 24 rope forward and 24 backward launches a step
@@ -1144,16 +1220,8 @@ def unet_phase(card):
                 group_norm_bound_ms_per_step=gn_bound,
                 kernel_vs_plain=vs_plain)
     prof_info, prof = profiled_step(trainer, batch)
-    by_name = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0):
-            for k in ("gn_fwd_kernel", "gn_bwd_kernel", "flash_fwd_kernel",
-                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
-                if k in e.key:
-                    by_name[k] = by_name.get(k, 0.0) + \
-                        e.self_device_time_total / 1e3
-    prof_info["kernel_ms_per_step"] = by_name
+    prof_info["kernel_ms_per_step"] = kernel_ms(
+        prof, ("gn_fwd_kernel", "gn_bwd_kernel") + FLASH_KERNELS)
     prof_info["ms_by_kind"] = kinds_ms(prof)
     info["profiled"] = prof_info
     emit(info)
@@ -1177,6 +1245,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)",
           flush=True)
+    emit({"flash_build": flash_build_info()})
     t1 = time.perf_counter()
     cases = kernel_phase()
     t2 = time.perf_counter()
@@ -1202,7 +1271,8 @@ def main() -> int:
     rms = "rms_norm bf16 8192x768"
     gn_case_ = "group_norm bf16 8x320x64x64 G32 silu"
     rope = "rope bf16 B8 S1024 H12 D64"
-    fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fa_fwd_src = "paddle_tpu_torch/csrc/flash_fwd.cu"
+    fa_bwd_src = "paddle_tpu_torch/csrc/flash_bwd.cu"
     fa_fwd = "paddle_tpu/ops/pallas/flash_attention.py:142 and :163"
     fa_bwd = "paddle_tpu/ops/pallas/flash_attention.py:304 and :325"
     rows = []
@@ -1215,13 +1285,13 @@ def main() -> int:
              "paddle_tpu_torch/csrc/int8_matmul.cu",
              "paddle_tpu/ops/pallas/int8_matmul.py:77",
              "int8_matmul bf16 B8 head 768x32000"),
-            ("flash_attention_fwd", "flash_attention_fwd", fa_src, fa_fwd,
-             f"{flash} fwd"),
-            ("flash_attention_bwd", "flash_attention_bwd", fa_src, fa_bwd,
-             f"{flash} bwd"),
-            ("flash_attention_fwd_d80", "flash_attention_fwd", fa_src,
+            ("flash_attention_fwd", "flash_attention_fwd", fa_fwd_src,
+             fa_fwd, f"{flash} fwd"),
+            ("flash_attention_bwd", "flash_attention_bwd", fa_bwd_src,
+             fa_bwd, f"{flash} bwd"),
+            ("flash_attention_fwd_d80", "flash_attention_fwd", fa_fwd_src,
              fa_fwd, f"{flash80} fwd"),
-            ("flash_attention_bwd_d80", "flash_attention_bwd", fa_src,
+            ("flash_attention_bwd_d80", "flash_attention_bwd", fa_bwd_src,
              fa_bwd, f"{flash80} bwd"),
             ("rms_norm_fwd", "rms_norm_fwd",
              "paddle_tpu_torch/csrc/rms_norm.cu",

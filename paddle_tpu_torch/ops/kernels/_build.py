@@ -24,13 +24,16 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["SOURCES", "library", "build", "build_log", "error_string"]
+__all__ = ["SOURCES", "HEADERS", "library", "build", "build_log",
+           "error_string"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_attention.cu",
-           "rms_norm.cu", "group_norm.cu", "rope.cu")
+SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_fwd.cu",
+           "flash_bwd.cu", "rms_norm.cu", "group_norm.cu", "rope.cu")
+# headers the sources include: part of the library's hash
+HEADERS = ("flash_common.cuh", "flash_f32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,8 +48,11 @@ _SIGNATURES = {
     "int8_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _P],
-    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                                   _P],
+    "flash_attention_fwd_smem": [_I],
+    "flash_attention_bwd_smem": [_I],
     "rms_norm_fwd_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "group_norm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -76,7 +82,7 @@ def _nvcc() -> str:
 
 def _target() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return OUT_DIR / f"libpaddle_tpu_torch_kernels_{h.hexdigest()[:16]}.so"

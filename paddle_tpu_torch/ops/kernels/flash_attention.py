@@ -1,11 +1,11 @@
 """Flash attention forward and backward: CUDA kernels and plain versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``; the kernels
-are ``paddle_tpu_torch/csrc/flash_attention.cu``. Public layout as there:
-paddle's (batch, seq, heads, head_dim), equal q and k/v head counts (GQA
-repeats K/V before the call). ``flash_fwd`` returns ``(out, lse)`` with
-``lse`` (B, H, Sq) f32; ``flash_bwd`` takes ``(q, k, v, out, lse, do)``
-and returns ``(dq, dk, dv)``. Causal attention is bottom-right aligned
+are ``paddle_tpu_torch/csrc/flash_fwd.cu`` and ``flash_bwd.cu``. Public
+layout as there: paddle's (batch, seq, heads, head_dim), equal q and k/v
+head counts (GQA repeats K/V before the call). ``flash_fwd`` returns
+``(out, lse)`` with ``lse`` (B, H, Sq) f32; ``flash_bwd`` takes ``(q, k,
+v, out, lse, do)`` and returns ``(dq, dk, dv)``. Causal attention is bottom-right aligned
 (query i sees keys <= i + Sk - Sq) and needs Sk >= Sq. Where the JAX
 package transposes to (B*H, S, D) for its kernels, the CUDA kernels read
 the (B, S, H, D) layout with strides; the function is the same.
@@ -24,7 +24,8 @@ __all__ = ["supported", "flash_fwd", "flash_bwd", "flash_fwd_ref",
            "fwd_launches", "bwd_launches"]
 
 #: kernel launches made by ``flash_fwd`` and by ``flash_bwd`` (one per
-#: backward call, which runs the dq kernel and then the dk/dv kernel);
+#: backward call, which runs the delta kernel, then for bf16 the one-pass
+#: kernel and dq's conversion, for f32 the dq and the dk/dv kernels);
 #: plain-version calls and direct ``*_ref`` calls do not count
 fwd_launches = 0
 bwd_launches = 0
@@ -144,26 +145,35 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
 
 def flash_bwd(q, k, v, out, lse, do, causal: bool, scale: float):
     """(dq, dk, dv) from the forward's out and lse. CPU tensors take the
-    plain version; CUDA tensors launch the kernels or raise. delta =
-    sum(do * out) is a torch op here, as the JAX package computes it
-    outside its kernels."""
+    plain version; CUDA tensors launch the kernels or raise. A kernel
+    computes delta = sum(do * out); bf16 dq is summed in f32 into a zeroed
+    (B, H, Sq rounded up to 64, D) scratch, in an order that varies from
+    run to run."""
     global bwd_launches
     if not _on_card(q, "flash_bwd"):
         return flash_bwd_ref(q, k, v, out, lse, do, causal, scale)
     _refuse(q, k, v)
     B, Sq, H, D = q.shape
-    if out.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype:
+    if (out.shape != q.shape or do.shape != q.shape or do.dtype != q.dtype
+            or out.dtype != q.dtype):
         raise ValueError("flash_bwd: out and do must match q")
     if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError("flash_bwd: lse must be (B, H, Sq) f32")
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    _check(q, k, v, do, lse, delta)
+    _check(q, k, v, out, do, lse)
+    sp = -(-Sq // 64) * 64
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, sp), **f32)
+    lse2 = torch.empty((B, H, sp), **f32)
+    acc = (torch.zeros((B, H, sp, D), **f32) if q.dtype == torch.bfloat16
+           else None)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _build.library().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, Sq, k.shape[1], D, float(scale), int(causal),
-        _CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), lse2.data_ptr(),
+        None if acc is None else acc.data_ptr(), B, H, Sq, k.shape[1], D,
+        float(scale), int(causal), _CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"flash attention backward launch failed: "
                            f"{_build.error_string(rc)} ({rc})")

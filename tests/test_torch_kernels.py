@@ -401,9 +401,13 @@ def test_rms_norm_kernels_match_plain_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain_on_card(dtype):
-    """Ragged lengths, sq < sk causal, non-causal sq > sk, every head dim
-    (bf16 D 80: the UNet's level-1 heads). bf16 adds chip_smoke's bound for
-    p and ds rounded at another point."""
+    """Ragged lengths (Sq and Sk off the 64- and 128-row tiles, so TMA's
+    zero-filled edge is masked), Sq = 1, sq < sk causal with an offset off
+    the tiles, non-causal sq > sk, every head dim (bf16 D 80: the UNet's
+    level-1 heads), B*H over the card's 132 SMs, and two backward runs
+    whose dq agree although bf16 dq's f32 sums land in another order each
+    run. bf16 adds chip_smoke's bound for p and ds rounded at another
+    point."""
     _need_card()
     from chip_smoke import err_and_tol, flash_bounds
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -413,7 +417,14 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
                                     (1, 64, 64, 2, 128, True),
                                     (1, 257, 257, 1, 64, False),
                                     (2, 200, 200, 2, 80, False),
-                                    (1, 90, 150, 3, 80, True)):
+                                    (1, 90, 150, 3, 80, True),
+                                    (2, 100, 333, 2, 64, True),
+                                    (1, 190, 250, 2, 128, False),
+                                    (2, 1, 300, 2, 64, False),
+                                    (1, 1, 77, 3, 80, True),
+                                    (1, 1, 1, 2, 16, True),
+                                    (4, 256, 256, 40, 64, True),
+                                    (3, 300, 300, 50, 80, False)):
         if D not in fa._HEAD_DIMS[dtype]:
             continue
         q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(
@@ -423,6 +434,7 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
         out, lse = fa.flash_fwd(q, k, v, causal, scale)
         ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, causal, scale)
         grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
+        again = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
         refs = fa.flash_bwd_ref(q, k, v, ref_out, ref_lse, do, causal, scale)
         torch.cuda.synchronize()
         bounds = flash_bounds(q, k, v, ref_lse, do, causal, scale)
@@ -433,6 +445,11 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
             err, ratio, _ = err_and_tol(got, want, dtype, bounds[name])
             assert ratio <= 1, (case, name, err, ratio)
         assert (lse - ref_lse).abs().max().item() <= 1e-4, case
+        # dk and dv sum in a fixed order; dq within the stated tolerance
+        assert torch.equal(grads[1], again[1]), case
+        assert torch.equal(grads[2], again[2]), case
+        err, ratio, _ = err_and_tol(again[0], grads[0], dtype)
+        assert ratio <= 1, (case, "dq run to run", err, ratio)
 
 
 @pytest.mark.gpu

@@ -21,6 +21,8 @@
    milliseconds and are timed in a host loop. A library backward (SDPA's,
    ``F.rms_norm``'s) counts the device time of its kernels under
    ``torch.profiler``, without the autograd engine's host cost.
+   The int8 matmul and the RMSNorm backward must also repeat bit for
+   bit over two runs on the same inputs.
    Tolerances, per element: f32 |err| <= 1e-4 (outputs are O(1)); bf16
    |err| <= two bf16 spacings of the element's |ref|, floored at those of
    1e-3 of its row's largest |ref|. Kernel and plain version each round
@@ -45,8 +47,8 @@
    the logits (and every served token within 4 spacings of the
    re-score's best elsewhere).
    Each run then serves the same requests again under ``torch.profiler``
-   (the tokens must not change) and its line adds the device busy share
-   and the costliest kernels.
+   (the tokens must not change) and its line adds the device busy share,
+   the costliest kernels and the int8 kernel's summed ms.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. One backward with the kernels and
@@ -57,7 +59,8 @@
    launches and 25 + 25 RMSNorm launches. Its line prints step ms,
    tokens/s, MFU (``flops_per_token`` against the bf16 peak), the
    optimizer update's host ms and, from one more step under
-   ``torch.profiler``, the device busy share and the costliest kernels.
+   ``torch.profiler``, the device busy share, the costliest kernels and
+   the flash and RMSNorm kernels' ms.
    Then ``use_fused_rope`` on: the rope kernel against its plain version
    in one backward, 24 + 24 rope launches a step, and the step ms with
    the flag on beside 6 more steps with it off.
@@ -343,10 +346,12 @@ def i8_case(name, B, K, N, dtype, g):
     def lib(x, w, s):
         return torch.matmul(x, w.to(x.dtype)) * s
 
-    err, ratio, _ = err_and_tol(i8.int8_matmul(*sets[0]),
-                                i8.int8_matmul_ref(*sets[0]), dtype)
+    got = i8.int8_matmul(*sets[0])
+    again = i8.int8_matmul(*sets[0])
+    err, ratio, _ = err_and_tol(got, i8.int8_matmul_ref(*sets[0]), dtype)
     torch.cuda.synchronize()
     check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
+    check(torch.equal(got, again), f"{name}: two runs differ")
     moved = K * N + B * K * esz + 4 * N + B * N * esz
     b_ms, b_by = bound(moved, 2.0 * B * K * N, BF16_FLOPS
                        if dtype == torch.bfloat16 else F32_FLOPS)
@@ -466,8 +471,11 @@ def rms_case(name, rows, H, dtype, g):
     out, k_inv = rn.rms_fwd(x, w, eps)
     ref_out, ref_inv = rn.rms_fwd_ref(x, w, eps)
     dx, dw = rn.rms_bwd(x, w, inv, gy)
+    dx2, dw2 = rn.rms_bwd(x, w, inv, gy)
     ref_dx, ref_dw = rn.rms_bwd_ref(x, w, inv, gy)
     torch.cuda.synchronize()
+    check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+          f"{name}: two backward runs differ")
     e_out, e_dx, e_dw = (err_and_tol(a, b, dtype) for a, b in
                          ((out, ref_out), (dx, ref_dx), (dw, ref_dw)))
     e_inv = err_and_tol(k_inv, ref_inv, torch.float32)
@@ -814,6 +822,8 @@ def serve(model, quant, reqs, V, card):
               f"{tag}: request {rid} served again gave other tokens")
     info["profiled"] = device_profile(prof, pwall)
     info["profiled"]["wall_s"] = pwall
+    info["profiled"]["int8_matmul_ms"] = kernel_ms(
+        prof, ("int8_matmul",)).get("int8_matmul", 0.0)
     emit(info)
     return info
 
@@ -933,9 +943,11 @@ def profiled_step(trainer, batch):
     return info, prof
 
 
-# the flash kernels by name: the profiled steps report each one's ms
+# the flash and RMSNorm kernels by name: the profiled steps report each
+# one's ms
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
                  "flash_bwd_wgmma_kernel", "flash_bwd_dq_convert_kernel")
+RMS_KERNELS = ("rms_fwd_kernel", "rms_bwd_vec_kernel", "rms_dw_reduce_kernel")
 
 
 def kernel_ms(prof, names):
@@ -1019,7 +1031,8 @@ def train_phase(card):
                 launches_per_step={k: v / timed for k, v in launches.items()},
                 kernel_vs_plain=vs_plain)
     info["profiled"], prof = profiled_step(trainer, batch)
-    info["profiled"]["kernel_ms_per_step"] = kernel_ms(prof, FLASH_KERNELS)
+    info["profiled"]["kernel_ms_per_step"] = kernel_ms(
+        prof, FLASH_KERNELS + RMS_KERNELS)
     emit(info)
 
     # use_fused_rope on: 24 rope forward and 24 backward launches a step

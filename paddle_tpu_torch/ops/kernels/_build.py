@@ -54,7 +54,8 @@ _SIGNATURES = {
     "flash_attention_fwd_smem": [_I],
     "flash_attention_bwd_smem": [_I],
     "rms_norm_fwd_launch": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P],
     "group_norm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                               _I, _I, _I, _I, _P],
     "group_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -105,8 +105,8 @@ def rms_fwd(x, w, eps: float):
 def rms_bwd(x, w, inv, g):
     """(dx, dw) given the forward's ``inv``; ``g`` is the gradient of
     ``out``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise. The per-block dw partials are summed here, as the
-    JAX package sums its kernel's partial block outside the kernel."""
+    kernel or raise. The kernel's per-block dw partials land in an f32
+    scratch that its second kernel sums in block order into dw."""
     global bwd_launches
     if not _device(x, "rms_bwd"):
         return rms_bwd_ref(x, w, inv, g)
@@ -122,12 +122,14 @@ def rms_bwd(x, w, inv, g):
     nb = min(_BWD_BLOCKS, rows)
     dx = torch.empty_like(x)
     dwp = torch.empty((nb, H), dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(w)
     rc = _build.library().rms_norm_bwd_launch(
         x.data_ptr(), w.data_ptr(), inv.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), dwp.data_ptr(), rows, H, nb, _CODES[x.dtype],
-        _CODES[w.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        dx.data_ptr(), dwp.data_ptr(), dw.data_ptr(), rows, H, nb,
+        _CODES[x.dtype], _CODES[w.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"rms_norm backward launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     bwd_launches += 1
-    return dx, dwp.sum(0).to(w.dtype)
+    return dx, dw

@@ -107,11 +107,17 @@ def test_decode_attention_empty_prefix_is_nan_like_jax():
     np.testing.assert_allclose(got[1], want[1], rtol=_RTOL, atol=_ATOL)
 
 
-@pytest.mark.parametrize("K,N", [(256, 512), (512, 640), (5504, 256),
-                                 (768, 1000)])
-def test_int8_matmul_plain_matches_jax(K, N):
+@pytest.mark.parametrize("B,K,N", [
+    pytest.param(8, 256, 512, id="256-512"),
+    pytest.param(8, 512, 640, id="512-640"),
+    pytest.param(8, 5504, 256, id="5504-256"),
+    pytest.param(8, 768, 1000, id="768-1000"),
+    pytest.param(33, 768, 1280, id="B33-768-1280"),
+    pytest.param(64, 2048, 768, id="B64-2048-768")])
+def test_int8_matmul_plain_matches_jax(B, K, N):
     """K = 5504 is the 1B down_proj contraction; N = 640 and 1000 are
-    ragged against the TPU kernel's 512/1024 column tiles. x takes
+    ragged against the TPU kernel's 512/1024 column tiles; 33 and 64 rows
+    are admission prefills, which the kernel serves up to 64 rows. x takes
     multiples of 1/8 so every f32 partial sum is exact: the two libraries
     sum in different orders, and with arbitrary f32 inputs that order
     alone moves outputs of magnitude ~20 by ~1e-5."""
@@ -120,7 +126,7 @@ def test_int8_matmul_plain_matches_jax(K, N):
     from paddle_tpu.ops.pallas.int8_matmul import int8_matmul
 
     rng = np.random.default_rng(0)
-    x = (rng.integers(-16, 17, (8, K)) / 8).astype(np.float32)
+    x = (rng.integers(-16, 17, (B, K)) / 8).astype(np.float32)
     w = rng.integers(-127, 127, (K, N)).astype(np.int8)
     s = rng.uniform(0.01, 0.02, (N,)).astype(np.float32)
     want = np.asarray(int8_matmul(jnp.asarray(x), jnp.asarray(w),
@@ -358,31 +364,43 @@ def test_decode_attention_kernel_matches_plain_on_card(dtype, quant):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_kernel_matches_plain_on_card(dtype):
+    """The serving shapes at 8 rows, the head and down at every prefill
+    row count, K and N off the kernel's 128-deep stages and its column
+    strips (800 x 1040), and shapes off the 16-byte grid. Two calls on the
+    same inputs must give the same bits (the split-K sum has a fixed
+    order)."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
     for B, K, N in ((8, 768, 1280), (8, 768, 768), (8, 768, 4096),
-                    (8, 2048, 768), (8, 768, 32000), (64, 768, 1000),
+                    (8, 2048, 768), (8, 768, 32000), (16, 768, 32000),
+                    (32, 768, 32000), (48, 768, 32000), (64, 768, 32000),
+                    (16, 2048, 768), (32, 2048, 768), (48, 2048, 768),
+                    (64, 2048, 768), (40, 800, 1040), (64, 768, 1000),
                     (1, 100, 17), (33, 130, 48)):
         x = torch.randn(B, K, generator=g, device="cuda").to(dtype)
         w, s = weight_quantize(
             torch.randn(K, N, generator=g, device="cuda") * 0.02)
         got = i8.int8_matmul(x, w, s)
+        again = i8.int8_matmul(x, w, s)
         torch.cuda.synchronize()
         _close(got, i8.int8_matmul_ref(x, w, s), dtype)
+        assert torch.equal(got, again), (B, K, N)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_kernels_match_plain_on_card(dtype):
-    """Odd row counts and widths, and w in the other dtype. Tolerances
+    """Odd row counts and widths, w in the other dtype, and fewer rows
+    than the backward's blocks (100 x 768). Two backward calls must give
+    the same bits (dw sums in a fixed order). Tolerances
     follow x's dtype: every output is a function of the normalized rows,
     which both sides round to x's dtype."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
-    for shape, wdt in (((8192, 768), dtype), ((3, 37, 200), dtype),
-                       ((5, 96), other), ((2, 1, 4096), dtype),
-                       ((13, 7), dtype)):
+    for shape, wdt in (((8192, 768), dtype), ((100, 768), dtype),
+                       ((3, 37, 200), dtype), ((5, 96), other),
+                       ((2, 1, 4096), dtype), ((13, 7), dtype)):
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
         w = (1 + 0.1 * torch.randn(shape[-1], generator=g,
                                    device="cuda")).to(wdt)
@@ -390,12 +408,14 @@ def test_rms_norm_kernels_match_plain_on_card(dtype):
         ref_out, ref_inv = rn.rms_fwd_ref(x, w, 1e-6)
         gy = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
         dx, dw = rn.rms_bwd(x, w, inv, gy)
+        dx2, dw2 = rn.rms_bwd(x, w, inv, gy)
         ref_dx, ref_dw = rn.rms_bwd_ref(x, w, ref_inv, gy)
         torch.cuda.synchronize()
         for got, want in ((out, ref_out), (dx, ref_dx), (dw, ref_dw)):
             assert got.dtype == want.dtype and got.shape == want.shape
             _close(got, want, dtype)
         _close(inv, ref_inv, torch.float32)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2), shape
 
 
 @pytest.mark.gpu

@@ -1,6 +1,7 @@
-"""Package boundaries of the PyTorch port: paddle_tpu_torch and chip_smoke.py
-import neither ``jax`` nor anything of ``paddle_tpu``, and the entry points
-refuse to start without a card unless the caller asks for the CPU."""
+"""Package boundaries of the PyTorch port: paddle_tpu_torch, chip_smoke.py
+and the kernel-variant scripts import neither ``jax`` nor anything of
+``paddle_tpu``, and the entry points refuse to start without a card unless
+the caller asks for the CPU."""
 
 import ast
 import os
@@ -17,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     assert len(files) > 10
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / n for n in ("chip_smoke.py", "flash_variants.py",
+                                       "int8_rms_variants.py")]
 
 
 def _imported_modules(path):

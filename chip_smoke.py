@@ -21,8 +21,12 @@
    milliseconds and are timed in a host loop. A library backward (SDPA's,
    ``F.rms_norm``'s) counts the device time of its kernels under
    ``torch.profiler``, without the autograd engine's host cost.
-   The int8 matmul and the RMSNorm backward must also repeat bit for
-   bit over two runs on the same inputs.
+   The int8 matmul, the RMSNorm backward and the GroupNorm kernels must
+   also repeat bit for bit over two runs on the same inputs. Besides six
+   GroupNorm cases with the plain version timed, each of the 17 distinct
+   (channels, HW, act) GroupNorm shapes of a bench_unet step (B 8, 32
+   groups, bf16) is checked and timed with the route it takes, and one
+   line sums kernel, torch and bound ms over the step's 61 calls.
    Tolerances, per element: f32 |err| <= 1e-4 (outputs are O(1)); bf16
    |err| <= two bf16 spacings of the element's |ref|, floored at those of
    1e-3 of its row's largest |ref|. Kernel and plain version each round
@@ -510,15 +514,19 @@ def rms_case(name, rows, H, dtype, g):
              bound_ms=b_ms, bound_by=b_by)]
 
 
-def gn_case(name, shape, G, act, dtype, g, shift=None):
+def gn_case(name, shape, G, act, dtype, g, shift=None, plain=True):
     """GroupNorm forward and backward kernels against their plain versions
     (the backward fed the plain forward's statistics), timed through CUDA
     graphs, with torch's F.group_norm (then F.silu where act is silu)
     forward and the device time of its backward kernels as the yardstick.
     f32 dw and db are sums of B x HW products per channel in another
-    order, held at 1e-4 of their largest |ref|. ``shift``: x = shift +
-    0.01 N (f32 only), judged also against the f64 truth: finite, and the
-    kernel no worse than the plain version."""
+    order, held at 1e-4 of their largest |ref|. Two runs of each kernel
+    must give the same bits (out, mean, rstd; dx, dw, db). The route each
+    direction takes (``gn.route``: clusters of K blocks, or 0 for the
+    streaming kernels) is printed as ``cluster_k``. ``shift``: x =
+    shift + 0.01 N (f32 only), judged also against the f64 truth: finite,
+    and the kernel no worse than the plain version. ``plain`` False skips
+    timing the plain version (its ``plain_ms`` is None)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import group_norm as gn
@@ -536,10 +544,15 @@ def gn_case(name, shape, G, act, dtype, g, shift=None):
         sets.append((x, w, b, gy, mean, rstd))
     x, w, b, gy, mean, rstd = sets[0]
     out, k_mean, k_rstd = gn.gn_fwd(x, w, b, G, eps, act)
+    again = gn.gn_fwd(x, w, b, G, eps, act)
     ref_out, _, _ = gn.gn_fwd_ref(x, w, b, G, eps, act)
     dx, dw, db = gn.gn_bwd(x, w, b, mean, rstd, gy, G, act)
+    again += gn.gn_bwd(x, w, b, mean, rstd, gy, G, act)
     ref_dx, ref_dw, ref_db = gn.gn_bwd_ref(x, w, b, mean, rstd, gy, G, act)
     torch.cuda.synchronize()
+    for what, a, r in zip(("out", "mean", "rstd", "dx", "dw", "db"),
+                          (out, k_mean, k_rstd, dx, dw, db), again):
+        check(torch.equal(a, r), f"{name} {what}: two runs differ")
     if dtype == torch.float32:
         sc = [t.abs().max().clamp_min(1) for t in (ref_dw, ref_db)]
         dw, ref_dw, db, ref_db = (dw / sc[0], ref_dw / sc[0], db / sc[1],
@@ -579,6 +592,7 @@ def gn_case(name, shape, G, act, dtype, g, shift=None):
 
     xl, wl, bl = (t.detach().requires_grad_() for t in (x, w, b))
     yl = lib_fwd(xl, wl, bl)
+    route = {d: gn.route(shape, G, dtype, d == "bwd") for d in ("fwd", "bwd")}
     common = dict(shape=list(shape), groups=G, act=act, **extra)
     return [
         dict(case=f"{name} fwd", kernel="group_norm_fwd",
@@ -587,18 +601,19 @@ def gn_case(name, shape, G, act, dtype, g, shift=None):
              ms=time_ms(lambda x, w, b, *_: gn.gn_fwd(x, w, b, G, eps, act),
                         sets),
              plain_ms=time_ms(lambda x, w, b, *_: gn.gn_fwd_ref(
-                 x, w, b, G, eps, act), sets, iters=20),
+                 x, w, b, G, eps, act), sets, iters=20) if plain else None,
              library_ms=time_ms(lib_fwd, sets, iters=100), bound_ms=f_ms,
-             bound_by=f_by, **common),
+             bound_by=f_by, cluster_k=route["fwd"], **common),
         dict(case=f"{name} bwd", kernel="group_norm_bwd",
              max_abs_err=max(errs[k][0] for k in ("dx", "dw", "db")),
              err_over_tol=max(errs[k][1] for k in ("dx", "dw", "db")),
              ms=time_ms(lambda x, w, b, gy, m, r: gn.gn_bwd(
                  x, w, b, m, r, gy, G, act), sets),
              plain_ms=time_ms(lambda x, w, b, gy, m, r: gn.gn_bwd_ref(
-                 x, w, b, m, r, gy, G, act), sets, iters=20),
+                 x, w, b, m, r, gy, G, act), sets, iters=20) if plain
+             else None,
              library_ms=library_backward_ms(yl, (xl, wl, bl), gy, 50),
-             bound_ms=b_ms, bound_by=b_by, **common)]
+             bound_ms=b_ms, bound_by=b_by, cluster_k=route["bwd"], **common)]
 
 
 def rope_case(name, B, S, H, D, dtype, g):
@@ -630,6 +645,37 @@ def rope_case(name, B, S, H, D, dtype, g):
                  library_ms=None, bound_ms=r_ms, bound_by=r_by)
             for what, e, fn, sign in (("fwd", e_f, rp.rope_fwd, 1),
                                       ("bwd", e_b, rp.rope_bwd, -1))]
+
+
+def gn_census_cases(g):
+    """One bf16 case (B 8, 32 groups) for each distinct (channels, HW, act)
+    GroupNorm shape of a bench_unet step (``unet_census``), the plain
+    version checked but not timed, then one line of the per-step sums over
+    the census's 61 calls: kernel, torch and bound ms, forward and
+    backward."""
+    import collections
+
+    from paddle_tpu_torch.flags import flags
+    from paddle_tpu_torch.models.unet import UNetConfig
+    census = unet_census(UNetConfig(), 8, 64, 77,
+                         flags.flash_attention_min_seq)
+    counts = collections.Counter(census["gn"])
+    cases, sums = [], {}
+    for (C, hw, act), calls in sorted(counts.items(),
+                                      key=lambda kv: (kv[0][0], kv[0][1],
+                                                      str(kv[0][2]))):
+        side = math.isqrt(hw)
+        for c in gn_case(f"group_norm census bf16 8x{C}x{side}x{side} G32 "
+                         f"{act or 'none'}", (8, C, side, side), 32, act,
+                         torch.bfloat16, g, plain=False):
+            c["calls_per_step"] = calls
+            d = c["case"].rsplit(" ", 1)[1]
+            for k in ("ms", "library_ms", "bound_ms"):
+                sums[f"{d}_{k}"] = sums.get(f"{d}_{k}", 0.0) + calls * c[k]
+            cases.append(c)
+    emit({"group_norm_census_per_step": dict(
+        calls=sum(counts.values()), shapes=len(counts), **sums)})
+    return cases
 
 
 def kernel_phase():
@@ -691,6 +737,7 @@ def kernel_phase():
             f"group_norm {tag} {'x'.join(map(str, shape))} G32 "
             f"{act or 'none'}{' shifted' if shift else ''}", shape, 32, act,
             dt, g, shift)
+    cases += gn_census_cases(g)
     # the Llama trainer's q and k with use_fused_rope (B 8, S 1024, 12
     # heads of 64)
     cases += rope_case("rope bf16 B8 S1024 H12 D64", 8, 1024, 12, 64, bf, g)
@@ -1138,7 +1185,7 @@ def unet_census(cfg, B, side, ctx_len, min_seq):
 KINDS = (("layout", ("nchwToNhwc", "nhwcToNchw")),
          ("conv_gemm", ("cudnn", "xmma", "gemm", "nvjet", "cutlass",
                         "sm90_", "implicit_convolve", "wgrad", "dgrad")),
-         ("port_kernels", ("gn_fwd_kernel", "gn_bwd_kernel", "flash_",
+         ("port_kernels", ("gn_fwd_", "gn_bwd_", "gn_dwdb_", "flash_",
                            "rope_kernel", "rms_")),
          ("elementwise_copy_reduce", ("at::native",)))
 
@@ -1234,7 +1281,7 @@ def unet_phase(card):
                 kernel_vs_plain=vs_plain)
     prof_info, prof = profiled_step(trainer, batch)
     prof_info["kernel_ms_per_step"] = kernel_ms(
-        prof, ("gn_fwd_kernel", "gn_bwd_kernel") + FLASH_KERNELS)
+        prof, ("gn_fwd_", "gn_bwd_", "gn_dwdb_") + FLASH_KERNELS)
     prof_info["ms_by_kind"] = kinds_ms(prof)
     info["profiled"] = prof_info
     emit(info)

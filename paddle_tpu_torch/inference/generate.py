@@ -424,12 +424,26 @@ class LlamaDecoder:
     # -- chunked resumable decode ------------------------------------------
     @torch.inference_mode()
     def init_decode_state(self, input_ids, eos_token_id=None,
-                          draft_model=None, adapter_idx=None) -> DecodeState:
+                          temperature: float = 1.0, seed: int = 0,
+                          draft_model=None,
+                          num_speculative_tokens: Optional[int] = None,
+                          draft_quant: Optional[str] = None,
+                          adapter_idx=None,
+                          speculative=None) -> DecodeState:
         """Prefill (one dispatch) and build the carry for
-        ``decode_chunk``; every row starts from the same prompt tensor."""
-        if draft_model is not None:
-            raise _not_ported("speculative decoding (draft_model=)",
-                              "speculative serving")
+        ``decode_chunk``; every row starts from the same prompt tensor.
+        The JAX package's signature: the greedy carry holds no per-row
+        temperature or keys, so ``temperature`` and ``seed`` other than
+        their defaults, a ``draft_model`` and ``adapter_idx`` are refused
+        as not ported; the speculative arguments without a draft model
+        raise the reference's ``ValueError``."""
+        if speculative is not None and draft_model is None:
+            raise ValueError("speculative=(B,) row mask requires a "
+                             "draft_model")
+        _check_speculative(draft_model, num_speculative_tokens, draft_quant)
+        if temperature != 1.0 or seed != 0:
+            raise _not_ported("per-row sampling state (temperature=, "
+                              "seed=)", "threefry sampling")
         if adapter_idx is not None:
             raise _not_ported("LoRA routing (adapter_idx=)", "LoRA")
         ids = self._ids(input_ids)
@@ -447,12 +461,20 @@ class LlamaDecoder:
 
     @torch.inference_mode()
     def decode_chunk(self, state: DecodeState, num_tokens: int,
-                     do_sample: bool = False, top_k=None, top_p=None):
+                     do_sample: bool = False, top_k: Optional[int] = None,
+                     top_p: Optional[float] = None,
+                     K: Optional[int] = None):
         """Advance the carry by ``num_tokens`` greedy steps in one
-        dispatch; returns ``(tokens (B, num_tokens), new_state)``."""
-        if do_sample:
-            raise _not_ported("sampling (do_sample=True)",
+        dispatch; returns ``(tokens (B, num_tokens), new_state)``. The JAX
+        package's signature: sampling (``do_sample``, ``top_k``,
+        ``top_p``) and a speculative draft length ``K`` are refused as not
+        ported."""
+        if do_sample or top_k is not None or top_p is not None:
+            raise _not_ported("sampling (do_sample=, top_k=, top_p=)",
                               "threefry sampling")
+        if K is not None:
+            raise _not_ported("speculative chunks (K=)",
+                              "speculative serving")
         return self._chunk_decode(state, int(num_tokens))
 
     def _generate_chunked(self, ids, max_new, eos, chunk_size):
@@ -510,14 +532,9 @@ class LlamaDecoder:
         every row has emitted ``eos_token_id`` (None or negative = no
         eos). ``chunk_size=T`` runs the chunked path (same tokens). The
         sampling arguments exist for the JAX package's signature;
-        ``do_sample=True`` and the speculative ones are refused."""
-        if do_sample:
-            raise _not_ported("sampling (do_sample=True)",
-                              "threefry sampling")
-        if (draft_model is not None or num_speculative_tokens is not None
-                or draft_quant is not None):
-            raise _not_ported("speculative decoding (draft_model=)",
-                              "speculative serving")
+        ``do_sample=True`` and a ``draft_model`` are refused as not
+        ported, after the reference's own checks (``max_len``, then the
+        speculative arguments without a draft model)."""
         eos = _normalize_eos(eos_token_id)
         ids_np = np.asarray(input_ids)
         B, S = ids_np.shape
@@ -526,6 +543,10 @@ class LlamaDecoder:
                              f"exceeds max_len {self.max_len}")
         if max_new_tokens <= 0:
             return ids_np
+        _check_speculative(draft_model, num_speculative_tokens, draft_quant)
+        if do_sample:
+            raise _not_ported("sampling (do_sample=True)",
+                              "threefry sampling")
         ids = self._ids(ids_np)
         if decode_fallback_active():
             level = "per_token"
@@ -544,6 +565,20 @@ class LlamaDecoder:
                                 "retries": 0, "degradations": [],
                                 "events": []}
         return GenerateResult.wrap(out, self.last_resilience)
+
+
+def _check_speculative(draft_model, num_speculative_tokens,
+                       draft_quant) -> None:
+    """The reference's checks of the speculative arguments: without a
+    draft model, ``num_speculative_tokens`` or ``draft_quant`` is a
+    ``ValueError``; a draft model itself is not ported."""
+    if draft_model is not None:
+        raise _not_ported("speculative decoding (draft_model=)",
+                          "speculative serving")
+    if num_speculative_tokens is not None:
+        raise ValueError("num_speculative_tokens requires a draft_model")
+    if draft_quant is not None:
+        raise ValueError("draft_quant requires a draft_model")
 
 
 def decode_fallback_active() -> bool:

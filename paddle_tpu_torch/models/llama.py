@@ -274,6 +274,9 @@ class LlamaForCausalLM(nn.Module):
         from paddle_tpu_torch.inference.generate import LlamaDecoder
         from paddle_tpu_torch.quantization.kv_cache import \
             resolve_decode_quant
+        if decode_strategy not in ("greedy_search", "sampling",
+                                   "beam_search"):
+            raise ValueError(f"unknown decode_strategy {decode_strategy!r}")
         if decode_strategy != "greedy_search":
             raise NotImplementedError(
                 f"decode_strategy={decode_strategy!r} is not ported yet "

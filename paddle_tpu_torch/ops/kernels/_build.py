@@ -57,9 +57,9 @@ _SIGNATURES = {
     "rms_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P],
     "group_norm_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                              _I, _I, _I, _I, _P],
-    "group_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _P],
+    "group_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rope_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -8,7 +8,10 @@ f32; ``gn_bwd`` returns ``(dx, dw, db)`` from them, dw and db summed over
 the batch from per-(b, channel) f32 partials and cast to w's dtype.
 ``act`` is None or ``"silu"``. ``supported`` is the routing rule the
 callers (``ops/fused_norm.py``) apply; the kernels themselves take any
-C / groups and any spatial size.
+C / groups and any spatial size. ``route`` picks, from the shape and
+dtype alone, which of the two CUDA routes a launch takes: clusters of K
+blocks sharing a slab through distributed shared memory, or the
+streaming kernels for slabs too large for them.
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 
-__all__ = ["supported", "gn_fwd", "gn_bwd", "gn_fwd_ref", "gn_bwd_ref",
-           "fwd_launches", "bwd_launches"]
+__all__ = ["supported", "route", "gn_fwd", "gn_bwd", "gn_fwd_ref",
+           "gn_bwd_ref", "fwd_launches", "bwd_launches"]
 
 #: kernel launches made by ``gn_fwd`` / ``gn_bwd`` (plain-version calls
 #: and direct ``*_ref`` calls do not count)
@@ -59,6 +62,60 @@ def supported(x_shape, groups: int) -> bool:
     if len(x_shape) == 4 and _padded_elems(cg, x_shape[2:]) * 4 <= _BUDGET:
         return True
     return hw % 128 == 0 and cg * hw * 4 <= _BUDGET
+
+
+# The cluster route's limits (csrc/group_norm.cu mirrors _SMEM_MAX as
+# kCSmemMax, _per as share_of, _smem as cluster_smem): blocks of 256
+# threads (8 warps) with at most 110 KB of dynamic shared memory, so two
+# blocks fit an SM.
+_SMEM_MAX = 110 * 1024
+_WARPS = 8
+# the largest share the first K may give: the fastest target at the UNet's
+# shapes over the K each shape admits (group_norm_routes.py on the H100)
+_SMEM_TARGET = 48 * 1024
+_SMS = 132                 # H100 SXM
+
+
+def _per(n: int, k: int) -> int:
+    """Elements of a block's share of an n-element slab split K ways:
+    ceil(n / K) rounded up to 8."""
+    return (-(-n // k) + 7) // 8 * 8
+
+
+def _smem(per: int, esz: int, hw: int, backward: bool) -> int:
+    """Dynamic shared memory of a cluster-route block: its x share and a
+    table of its channels' affine constants; in the backward also the
+    (dw, db) rows of its channels, one a warp and one for the block."""
+    x_bytes = (per * esz + 15) // 16 * 16
+    rows = _WARPS + 2 if backward else 1
+    return x_bytes + rows * ((per - 1) // hw + 2) * 8
+
+
+def route(x_shape, groups: int, dtype, backward: bool) -> int:
+    """K, the blocks of the cluster that takes one (b, g) slab (1, 2, 4 or
+    8), or 0, the streaming route, when no K gives a share within the
+    shared memory of two blocks an SM. The first K whose share fits
+    ``_SMEM_TARGET`` and gives the card's SMs a block each wins; else the
+    largest that fits. A pure function of the shape and dtype, decided
+    before the launch."""
+    B, C = x_shape[0], x_shape[1]
+    hw = 1
+    for d in x_shape[2:]:
+        hw *= d
+    n = C // groups * hw
+    esz = 2 if dtype == torch.bfloat16 else 4
+    fits = []
+    for k in (1, 2, 4, 8):
+        per = _per(n, k)
+        if n > 1 << 30 or per * (k - 1) >= n:
+            break
+        smem = _smem(per, esz, hw, backward)
+        if smem <= _SMEM_MAX:
+            fits.append((k, smem))
+    for k, smem in fits:
+        if smem <= _SMEM_TARGET and B * groups * k >= _SMS:
+            return k
+    return fits[-1][0] if fits else 0
 
 
 def gn_fwd_ref(x, w, b, groups: int, eps: float, act=None):
@@ -156,6 +213,7 @@ def gn_fwd(x, w, b, groups: int, eps: float, act=None):
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), B, C, groups, hw, float(eps),
         int(act == "silu"), _CODES[x.dtype], _CODES[w.dtype], vec,
+        route(x.shape, groups, x.dtype, backward=False),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"group_norm forward launch failed: "
@@ -167,9 +225,9 @@ def gn_fwd(x, w, b, groups: int, eps: float, act=None):
 def gn_bwd(x, w, b, mean, rstd, g, groups: int, act=None):
     """(dx, dw, db) given the forward's mean and rstd; ``g`` is the
     gradient of ``out``. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise. The per-(b, channel) partials are summed
-    over the batch here, as the JAX package sums its kernel's partials
-    outside the kernel."""
+    launch the kernel or raise. The library sums the per-(b, channel)
+    partials over the batch in a second kernel, where the JAX package sums
+    its kernel's partials outside the kernel."""
     global bwd_launches
     if not _on_card(x, "gn_bwd"):
         return gn_bwd_ref(x, w, b, mean, rstd, g, groups, act)
@@ -184,16 +242,18 @@ def gn_bwd(x, w, b, mean, rstd, g, groups: int, act=None):
     dx = torch.empty_like(x)
     dwp = torch.empty((B, C), dtype=torch.float32, device=x.device)
     dbp = torch.empty_like(dwp)
+    dw = torch.empty((C,), dtype=w.dtype, device=x.device)
+    db = torch.empty_like(dw)
     _check(x, w, b, mean, rstd, g)
     vec = _vec(hw, x, g, dx)
     rc = _build.library().group_norm_bwd_launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dwp.data_ptr(),
-        dbp.data_ptr(), B, C, groups, hw, int(act == "silu"),
-        _CODES[x.dtype], _CODES[w.dtype], vec,
+        dbp.data_ptr(), dw.data_ptr(), db.data_ptr(), B, C, groups, hw, int(act == "silu"), _CODES[x.dtype], _CODES[w.dtype],
+        vec, route(x.shape, groups, x.dtype, backward=True),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc:
         raise RuntimeError(f"group_norm backward launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     bwd_launches += 1
-    return dx, dwp.sum(0).to(w.dtype), dbp.sum(0).to(b.dtype)
+    return dx, dw, db

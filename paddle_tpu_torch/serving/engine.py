@@ -17,7 +17,7 @@ tensor updates outside the counted sites.
 
 Admission takes the JAX engine's host-scatter route (the one it takes
 with the device ring off): each prefilled row is copied into the carry
-with ``index_copy_`` (``admission.host_scattered`` in ``metrics()``).
+with ``index_copy_`` (counted by ``ServingEngine.host_scattered``).
 Not ported yet (ROADMAP.md queue 1), and refused with
 ``NotImplementedError`` when asked for: the admission ring, prefix cache,
 speculative serving, LoRA adapters, snapshot/restore, deadlines and SLOs,
@@ -192,7 +192,8 @@ class ServingEngine:
                    "host_scattered": 0, "corrupt_rows": 0}
         self._samples: Dict[str, List[float]] = {
             k: [] for k in ("queue_delay_s", "latency_s", "ttft_s",
-                            "tpot_s", "occupancy")}
+                            "tpot_s", "occupancy", "queue_depth")}
+        self._queue_depth_peak = 0
 
     @property
     def prefill_dispatches(self) -> int:
@@ -206,6 +207,13 @@ class ServingEngine:
     def step_dispatches(self) -> int:
         # the per-token degradation rung is not ported: always 0
         return 0
+
+    @property
+    def host_scattered(self) -> int:
+        """Admitted rows copied into the carry by the host-scatter route
+        (the JAX engine reports it under ``metrics()["admission_ring"]``,
+        which is None without the ring)."""
+        return self._n["host_scattered"]
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
@@ -237,6 +245,8 @@ class ServingEngine:
             id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
             eos_token_id=_normalize_eos(eos_token_id),
             priority=int(priority), submit_time=time.monotonic()))
+        self._queue_depth_peak = max(self._queue_depth_peak,
+                                     len(self.scheduler))
         return rid
 
     # -- the serving loop --------------------------------------------------
@@ -246,6 +256,7 @@ class ServingEngine:
         harvest finished rows. Returns ``[(request_id, result), ...]``
         finished this step (also retrievable via ``result(id)``)."""
         now = time.monotonic()
+        self._samples["queue_depth"].append(len(self.scheduler))
         admitted = self.scheduler.admissions()
         if admitted:
             self._admit_all(admitted, now)
@@ -394,10 +405,13 @@ class ServingEngine:
 
     # -- observability -----------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
-        """Serving metrics snapshot: dispatch accounting (prefills =
-        admitted requests, chunks, per-token steps), slot occupancy and
-        the slot-steps denominator, latency statistics (NaN until the
-        first sample), and the admission route's counter."""
+        """Serving metrics snapshot with the JAX engine's keys: dispatch
+        accounting (prefills = admitted requests, chunks, per-token
+        steps), slot occupancy and the slot-steps denominator, queue-delay,
+        latency, TTFT and TPOT statistics (NaN until the first sample),
+        queue depth now, at its peak and on average at step starts. Keys
+        of features not ported yet hold their off values: 0 for counters,
+        None for absent subsystems, {} for per-class maps."""
         s = self._samples
 
         def mean(k):
@@ -415,14 +429,44 @@ class ServingEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "chunk_dispatches": self.chunk_dispatches,
             "step_dispatches": self.step_dispatches,
+            "degradations": 0,   # the degradation ladder is not ported
             "occupancy_mean": mean("occupancy"),
+            "occupancy_samples": len(s["occupancy"]),
             "slot_steps_total": self._n["slot_steps"],
             "queue_delay_mean_s": mean("queue_delay_s"),
+            "queue_delay_p50_s": pct("queue_delay_s", 50),
+            "queue_delay_p99_s": pct("queue_delay_s", 99),
             "request_latency_mean_s": mean("latency_s"),
             "request_latency_p50_s": pct("latency_s", 50),
             "request_latency_p99_s": pct("latency_s", 99),
+            "queue_depth_now": len(self.scheduler),
+            "queue_depth_peak": self._queue_depth_peak,
+            "queue_depth_mean": mean("queue_depth"),
             "ttft_mean_s": mean("ttft_s"),
+            "ttft_p50_s": pct("ttft_s", 50),
+            "ttft_p99_s": pct("ttft_s", 99),
             "tpot_mean_s": mean("tpot_s"),
+            "tpot_p50_s": pct("tpot_s", 50),
+            "slo_violations": 0,
+            "shed_deadline": 0,
+            "shed_backpressure": 0,
+            "shed_queue_deadline": 0,
+            "deadline_expired_rows": 0,
             "corrupt_rows": self._n["corrupt_rows"],
-            "admission": {"host_scattered": self._n["host_scattered"]},
+            "rows_migrated_out": 0,
+            "rows_migrated_in": 0,
+            "snapshots": 0,
+            "snapshot_age_s": None,
+            "admission_dispatches_saved": 0,
+            "admission_cache_reordered": 0,
+            "batched_admission_groups": 0,
+            "prefill_tokens_saved": 0,
+            "admission_p50_s": {},
+            "admission_p99_s": {},
+            "prefix_cache": None,
+            "draft_prefill_dispatches": 0,
+            "speculative": None,
+            "admission_ring": None,
+            "adapters": None,
+            "stream_ttft_p50_s": {},
         }

@@ -162,15 +162,57 @@ def test_typed_refusals_match_jax(models, ids, jax_ref):
         LlamaDecoder(tm, max_len=MAX_LEN, quant="int4", device="cpu")
     assert issubclass(QuantMismatchError, ValueError)
     dec = LlamaDecoder(tm, max_len=MAX_LEN, device="cpu")
-    with pytest.raises(ValueError, match="exceeds max_len"):
-        jax_ref[None][0].generate(ids, MAX_LEN)
-    with pytest.raises(ValueError, match="exceeds max_len"):
-        dec.generate(ids, MAX_LEN)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.generate(ids, 4, do_sample=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.generate(ids, 4, draft_model="skip:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.init_decode_state(ids, adapter_idx=[0, 0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LlamaDecoder(tm, mesh="dp:2", device="cpu")
+    jdec = jax_ref[None][0]
+    # the same invalid asks raise the same types in both packages (each
+    # before any compile of a new program)
+    for call, match in (
+            (lambda d, m: d.generate(ids, MAX_LEN), "exceeds max_len"),
+            (lambda d, m: d.generate(ids, 4, num_speculative_tokens=2),
+             "requires a draft_model"),
+            (lambda d, m: d.generate(ids, 4, draft_quant="int8w"),
+             "requires a draft_model"),
+            (lambda d, m: d.init_decode_state(ids, None,
+                                              num_speculative_tokens=2),
+             "requires a draft_model"),
+            (lambda d, m: d.init_decode_state(ids, None,
+                                              speculative=[True, False]),
+             "requires a draft_model"),
+            (lambda d, m: m.generate(ids, 4, decode_strategy="bogus"),
+             "unknown decode_strategy")):
+        for d, m in ((jdec, jm), (dec, tm)):
+            with pytest.raises(ValueError, match=match):
+                call(d, m)
+    # valid asks the port does not take yet name their ROADMAP item
+    for call in (lambda: dec.generate(ids, 4, do_sample=True),
+                 lambda: dec.generate(ids, 4, draft_model="skip:1"),
+                 lambda: tm.generate(ids, 4, decode_strategy="sampling"),
+                 lambda: tm.generate(ids, 4, decode_strategy="beam_search"),
+                 lambda: dec.init_decode_state(ids, adapter_idx=[0, 0]),
+                 lambda: dec.init_decode_state(ids, None, 0.7),
+                 lambda: LlamaDecoder(tm, mesh="dp:2", device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_decode_chunk_signatures_match_jax(models, ids):
+    """init_decode_state and decode_chunk take the JAX package's parameters
+    with its defaults; values that leave sampling and speculation off run
+    on the CPU, others name their ROADMAP item."""
+    import inspect
+
+    def params(fn):
+        return [(p.name, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    for name in ("init_decode_state", "decode_chunk"):
+        assert params(getattr(LlamaDecoder, name)) == \
+            params(getattr(JaxDecoder, name)), name
+    _, tm = models
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, device="cpu")
+    st = dec.init_decode_state(ids, None, 1.0, 0)
+    toks, _ = dec.decode_chunk(st, 3, False, None, None, None)
+    assert tuple(toks.shape) == (ids.shape[0], 3)
+    for kw in ({"do_sample": True}, {"top_k": 4}, {"top_p": 0.9},
+               {"K": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dec.decode_chunk(st, 3, **kw)

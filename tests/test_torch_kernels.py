@@ -234,6 +234,25 @@ def test_group_norm_routing_rule_matches_jax():
     assert not gn.supported((8, 32), 8)
 
 
+def test_group_norm_routes_at_unet_shapes():
+    """``gn.route`` is a pure function of shape and dtype: the cluster size
+    K of the forward and backward of every GroupNorm shape of a bench_unet
+    step (B 8, 32 groups, bf16; the act does not enter), and the streaming
+    route (K 0) only for slabs too large for the clusters."""
+    for (C, hw), k in (((320, 1024), 1), ((320, 4096), 2), ((640, 256), 1),
+                       ((640, 1024), 1), ((640, 4096), 4), ((960, 1024), 2),
+                       ((960, 4096), 8), ((1280, 64), 1), ((1280, 256), 1),
+                       ((1280, 1024), 2), ((1920, 256), 1),
+                       ((1920, 1024), 4), ((2560, 64), 1), ((2560, 256), 1)):
+        side = int(hw ** 0.5)
+        for backward in (False, True):
+            assert gn.route((8, C, side, side), 32, torch.bfloat16,
+                            backward) == k, (C, hw, backward)
+    assert gn.route((8, 960, 64, 64), 32, torch.float32, True) == 8
+    for backward in (False, True):
+        assert gn.route((1, 8, 300, 300), 1, torch.bfloat16, backward) == 0
+
+
 def test_group_norm_mean_shifted_no_nan():
     """tests/test_fused_kernels.py's case on the port: 1000 +- 0.01 input,
     judged against the f64 truth; the pivot-shifted plain version is finite
@@ -475,26 +494,44 @@ def test_flash_attention_kernels_match_plain_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_group_norm_kernels_match_plain_on_card(dtype):
-    """The UNet's widest slab and narrowest maps, HW not a multiple of 8
-    (one element at a time), a 3D input, w in the other dtype, both acts,
-    a mean far from zero."""
+    """Every route and split of ``gn.route``: clusters of 1, 2, 4 and 8
+    blocks (cg = 10 channels over 8 blocks, so a channel spans blocks; the
+    8 x 8 maps at one block a slab), the streaming route for slabs too
+    large for the clusters (vectorized and one element at a time), HW not
+    a multiple of 8, 3D and 5D inputs, w in the other dtype, both acts, a
+    mean far from zero. Forward and backward outputs must repeat bit for
+    bit over two runs."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
-    for shape, G, act, wdt, shift in (((2, 960, 64, 64), 32, "silu", dtype, 0),
-                                      ((2, 2560, 8, 8), 32, "silu", dtype, 0),
-                                      ((2, 640, 32, 32), 32, None, dtype, 0),
-                                      ((3, 96, 7, 7), 8, "silu", other, 0),
-                                      ((2, 64, 200), 4, None, dtype, 0),
-                                      ((2, 32, 16, 16), 8, None, dtype, 50)):
+    routes = set()
+    for shape, G, act, wdt, shift in (
+            ((1, 320, 64, 64), 32, "silu", dtype, 0),
+            ((2, 320, 64, 64), 32, "silu", dtype, 0),
+            ((4, 320, 64, 64), 32, "silu", dtype, 0),
+            ((2, 960, 64, 64), 32, "silu", dtype, 0),
+            ((8, 1280, 8, 8), 32, "silu", dtype, 0),
+            ((2, 2560, 8, 8), 32, "silu", dtype, 0),
+            ((2, 640, 32, 32), 32, None, dtype, 0),
+            ((8, 640, 32, 32), 32, None, dtype, 0),
+            ((3, 96, 7, 7), 8, "silu", other, 0),
+            ((2, 64, 200), 4, None, dtype, 0),
+            ((1, 64, 3, 5, 7), 4, "silu", dtype, 0),
+            ((2, 32, 16, 16), 8, None, dtype, 50),
+            ((1, 8, 300, 300), 1, "silu", other, 0),
+            ((1, 16, 250, 250), 4, None, dtype, 0)):
         x = (torch.randn(shape, generator=g, device="cuda") + shift).to(dtype)
         C = shape[1]
         w = (1 + 0.1 * torch.randn(C, generator=g, device="cuda")).to(wdt)
         b = (0.1 * torch.randn(C, generator=g, device="cuda")).to(wdt)
         gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        routes |= {("fwd", gn.route(shape, G, dtype, False)),
+                   ("bwd", gn.route(shape, G, dtype, True))}
         out, mean, rstd = gn.gn_fwd(x, w, b, G, 1e-5, act)
+        again = gn.gn_fwd(x, w, b, G, 1e-5, act)
         ref_out, ref_mean, ref_rstd = gn.gn_fwd_ref(x, w, b, G, 1e-5, act)
         grads = gn.gn_bwd(x, w, b, ref_mean, ref_rstd, gy, G, act)
+        grads2 = gn.gn_bwd(x, w, b, ref_mean, ref_rstd, gy, G, act)
         refs = gn.gn_bwd_ref(x, w, b, ref_mean, ref_rstd, gy, G, act)
         torch.cuda.synchronize()
         for got, want in zip((out, grads[0]), (ref_out, refs[0])):
@@ -510,6 +547,10 @@ def test_group_norm_kernels_match_plain_on_card(dtype):
             _close(got, want, wdt)
         _close(mean, ref_mean, torch.float32)
         _close(rstd / ref_rstd, torch.ones_like(rstd), torch.float32)
+        for a, r in zip((out, mean, rstd) + grads, again + grads2):
+            assert torch.equal(a, r), shape
+    assert routes == {(d, k) for d in ("fwd", "bwd")
+                      for k in (0, 1, 2, 4, 8)}, sorted(routes)
 
 
 @pytest.mark.gpu

@@ -19,7 +19,8 @@ def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     assert len(files) > 10
     return files + [ROOT / n for n in ("chip_smoke.py", "flash_variants.py",
-                                       "int8_rms_variants.py")]
+                                       "int8_rms_variants.py",
+                                       "group_norm_routes.py")]
 
 
 def _imported_modules(path):

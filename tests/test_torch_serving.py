@@ -77,7 +77,8 @@ def test_engine_matches_jax_engine(models, quant):
     assert m["step_dispatches"] == 0
     assert dec.dispatch_count - d0 == \
         m["prefill_dispatches"] + m["chunk_dispatches"]
-    assert m["admission"]["host_scattered"] == len(reqs)
+    assert set(m) == set(jm_)
+    assert eng.host_scattered == len(reqs)
     assert m["requests_completed"] == len(reqs)
     rec = got[ids[0]].resilience
     assert rec["level"] == "chunked" and rec["serving"]["chunks"] >= 1

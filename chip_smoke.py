@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch port (paddle_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: DIR is another checkout of the repository (a ``git
+archive`` of the parent commit, say). Its decode-attention and rope
+kernels are built alone and timed beside this tree's on the same inputs
+in the same run (``parent_ms`` on their case lines). Without it, as the
+smoke run is made, nothing else is built.
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the versions.
 2. Builds the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc``
@@ -21,11 +27,13 @@
    milliseconds and are timed in a host loop. A library backward (SDPA's,
    ``F.rms_norm``'s) counts the device time of its kernels under
    ``torch.profiler``, without the autograd engine's host cost.
-   The int8 matmul, the RMSNorm backward and the GroupNorm kernels must
-   also repeat bit for bit over two runs on the same inputs. Besides six
-   GroupNorm cases with the plain version timed, each of the 17 distinct
-   (channels, HW, act) GroupNorm shapes of a bench_unet step (B 8, 32
-   groups, bf16) is checked and timed with the route it takes, and one
+   The int8 matmul, the RMSNorm backward, the GroupNorm and the
+   decode-attention kernels must also repeat bit for bit over two runs on
+   the same inputs (each decode-attention line names ``split``, the
+   blocks of the cluster that share a cache row, from ``split_for``).
+   Besides six GroupNorm cases with the plain version timed, each of the
+   17 distinct (channels, HW, act) GroupNorm shapes of a bench_unet step
+   (B 8, 32 groups, bf16) is checked and timed with the route it takes, and one
    line sums kernel, torch and bound ms over the step's 61 calls.
    Tolerances, per element: f32 |err| <= 1e-4 (outputs are O(1)); bf16
    |err| <= two bf16 spacings of the element's |ref|, floored at those of
@@ -52,7 +60,8 @@
    re-score's best elsewhere).
    Each run then serves the same requests again under ``torch.profiler``
    (the tokens must not change) and its line adds the device busy share,
-   the costliest kernels and the int8 kernel's summed ms.
+   the costliest kernels, the int8 kernel's summed ms and the
+   decode-attention kernel's, also per decode step.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. One backward with the kernels and
@@ -66,8 +75,9 @@
    ``torch.profiler``, the device busy share, the costliest kernels and
    the flash and RMSNorm kernels' ms.
    Then ``use_fused_rope`` on: the rope kernel against its plain version
-   in one backward, 24 + 24 rope launches a step, and the step ms with
-   the flag on beside 6 more steps with it off.
+   in one backward, 24 + 24 rope launches a step, the step ms with the
+   flag on beside 6 more steps with it off, and one profiled step with
+   the rope kernels' device ms.
 6. UNet phase: bench.py's bench_unet (``UNetConfig()``, 748 M bf16
    parameters, AdamW(1e-4, multi_precision=False), B 8, 4 x 64 x 64
    latents, context 8 x 77 x 1024) through ``ShardedTrainer``: kernel
@@ -280,9 +290,74 @@ def flash_build_info():
     return rows
 
 
+def parent_kernels(root):
+    """The decode-attention and rope kernels of the checkout at ``root``
+    (``csrc/decode_attention.cu`` and ``csrc/rope.cu`` of its
+    ``paddle_tpu_torch``), built alone by one nvcc into
+    ``build/parent_kernels/`` and bound through their own C entry points.
+    Returns callables on this tree's wrappers' arguments:
+    ``decode_attention(q, kc, vc, lens, k_scale, v_scale)`` and
+    ``rope(x, cos, sin, sign)``. A source whose decode-attention entry
+    point takes no split (the kernel before clusters) is called without
+    one."""
+    import ctypes
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import rope as rp
+    csrc = Path(root) / "paddle_tpu_torch" / "csrc"
+    out = Path(__file__).resolve().parent / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libparent_kernels.so"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([_build._nvcc(), *flags, "-shared",
+                    str(csrc / "decode_attention.cu"), str(csrc / "rope.cu"),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    split = "int P," in (csrc / "decode_attention.cu").read_text()
+    lib.decode_attention_launch.argtypes = (
+        [P_] * 7 + [I_] * (8 if split else 7) + [P_])
+    lib.rope_launch.argtypes = [P_] * 4 + [I_] * 6 + [P_]
+    lib.decode_attention_launch.restype = lib.rope_launch.restype = I_
+
+    def decode_attention(q, kc, vc, lt, ks=None, vs=None):
+        B, H, D = q.shape
+        KV, L = kc.shape[1], kc.shape[2]
+        o = torch.empty_like(q)
+        args = [q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                ks.data_ptr() if ks is not None else None,
+                vs.data_ptr() if vs is not None else None, lt.data_ptr(),
+                o.data_ptr(), B, H, KV, L, D]
+        args += [da.split_for(B, KV, L)] if split else []
+        rc = lib.decode_attention_launch(
+            *args, da._CODES[q.dtype], da._CODES[kc.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent decode_attention launch: {rc}")
+        return o
+
+    def rope(x, c, s, sign):
+        o = torch.empty_like(x)
+        rc = lib.rope_launch(x.data_ptr(), c.data_ptr(), s.data_ptr(),
+                             o.data_ptr(), *x.shape, sign,
+                             rp._CODES[x.dtype],
+                             torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"parent rope launch: {rc}")
+        return o
+
+    return dict(decode_attention=decode_attention, rope=rope)
+
+
 # -- kernel phase -------------------------------------------------------------
 
-def da_case(name, B, H, KV, L, D, lens, dtype, quant, g):
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN included)."""
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def da_case(name, B, H, KV, L, D, lens, dtype, quant, g, parent=None):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.kernels import decode_attention as da
@@ -320,20 +395,29 @@ def da_case(name, B, H, KV, L, D, lens, dtype, quant, g):
     def lib(q4, kr, vr):
         return F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask)
 
-    err, ratio, _ = err_and_tol(kern(*sets[0]), plain(*sets[0]), dtype)
+    got, again = kern(*sets[0]), kern(*sets[0])
+    err, ratio, _ = err_and_tol(got, plain(*sets[0]), dtype)
     torch.cuda.synchronize()
     check(ratio <= 1, f"{name}: max |err| {err}, {ratio} x its tolerance")
+    check(same_bits(got, again), f"{name}: two runs differ")
+    extra = {}
+    if parent is not None:
+        pfn = parent["decode_attention"]
+        _, p_ratio, _ = err_and_tol(pfn(*sets[0]), plain(*sets[0]), dtype)
+        check(p_ratio <= 1, f"{name}: the parent kernel at {p_ratio} x its "
+              f"tolerance")
+        extra["parent_ms"] = time_ms(pfn, sets)
     n = int(sum(min(x, L) for x in lens))
     moved = (2 * n * KV * (D * esz + (4 if quant else 0))
              + 2 * B * H * D * qsz + 4 * B)
     b_ms, b_by = bound(moved, 4.0 * H * D * n, BF16_FLOPS
                        if dtype == torch.bfloat16 else F32_FLOPS)
     return dict(case=name, kernel="decode_attention", max_abs_err=err,
-                err_over_tol=ratio, ms=time_ms(kern, sets),
-                eager_ms=eager_ms(kern, sets),
+                err_over_tol=ratio, split=da.split_for(B, KV, L),
+                ms=time_ms(kern, sets), eager_ms=eager_ms(kern, sets),
                 plain_ms=time_ms(plain, sets, iters=100),
                 library_ms=time_ms(lib, lib_sets), bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, **extra)
 
 
 def i8_case(name, B, K, N, dtype, g):
@@ -616,7 +700,7 @@ def gn_case(name, shape, G, act, dtype, g, shift=None, plain=True):
              bound_ms=b_ms, bound_by=b_by, cluster_k=route["bwd"], **common)]
 
 
-def rope_case(name, B, S, H, D, dtype, g):
+def rope_case(name, B, S, H, D, dtype, g, parent=None):
     """The rope kernel forward (the rotation) and backward (the same kernel
     with -sin) against the plain version, timed through CUDA graphs.
     PyTorch has no single call for rope, so there is no library time."""
@@ -637,14 +721,25 @@ def rope_case(name, B, S, H, D, dtype, g):
         check(e[1] <= 1, f"{name} {what}: max |err| {e[0]}, {e[1]} x its "
               f"tolerance")
     r_ms, r_by = bound(2 * n * esz + S * D * esz, 3.0 * n, F32_FLOPS)
-    return [dict(case=f"{name} {what}", kernel=f"rope_{what}",
-                 max_abs_err=e[0], err_over_tol=e[1],
-                 ms=time_ms(fn, sets),
-                 plain_ms=time_ms(lambda x, c, s: rp.rope_ref(x, c, s, sign),
-                                  sets, iters=50),
-                 library_ms=None, bound_ms=r_ms, bound_by=r_by)
-            for what, e, fn, sign in (("fwd", e_f, rp.rope_fwd, 1),
-                                      ("bwd", e_b, rp.rope_bwd, -1))]
+    rows = []
+    for what, e, fn, sign in (("fwd", e_f, rp.rope_fwd, 1),
+                              ("bwd", e_b, rp.rope_bwd, -1)):
+        extra = {}
+        if parent is not None:
+            def pfn(x, c, s, sign=sign):
+                return parent["rope"](x, c, s, sign)
+            _, p_ratio, _ = err_and_tol(pfn(x, c, sn),
+                                        rp.rope_ref(x, c, sn, sign), dtype)
+            check(p_ratio <= 1, f"{name} {what}: the parent kernel at "
+                  f"{p_ratio} x its tolerance")
+            extra["parent_ms"] = time_ms(pfn, sets)
+        rows.append(dict(
+            case=f"{name} {what}", kernel=f"rope_{what}", max_abs_err=e[0],
+            err_over_tol=e[1], ms=time_ms(fn, sets),
+            plain_ms=time_ms(lambda x, c, s: rp.rope_ref(x, c, s, sign),
+                             sets, iters=50),
+            library_ms=None, bound_ms=r_ms, bound_by=r_by, **extra))
+    return rows
 
 
 def gn_census_cases(g):
@@ -678,25 +773,28 @@ def gn_census_cases(g):
     return cases
 
 
-def kernel_phase():
+def kernel_phase(parent=None):
     g = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
     lens = [1, 37, 256, 100, 200, 129, 64, 255]
     long_lens = [4096, 1, 3000, 2049, 4000, 17, 1024, 4095]
     cases = [
         da_case("decode_attention f32 B8 H12 KV4 D64 L256", 8, 12, 4, 256,
-                64, lens, f32, False, g),
+                64, lens, f32, False, g, parent),
         da_case("decode_attention bf16 B8 H12 KV4 D64 L256", 8, 12, 4, 256,
-                64, lens, bf, False, g),
+                64, lens, bf, False, g, parent),
         # a row of valid length 0: NaN (0 / 0) in kernel and plain alike
         da_case("decode_attention bf16 B8 H12 KV4 D64 L256 with an empty "
-                "row", 8, 12, 4, 256, 64, [0] + lens[1:], bf, False, g),
+                "row", 8, 12, 4, 256, 64, [0] + lens[1:], bf, False, g,
+                parent),
         da_case("decode_attention bf16 int8-KV B8 H12 KV4 D64 L256", 8, 12,
-                4, 256, 64, lens, bf, True, g),
+                4, 256, 64, lens, bf, True, g, parent),
         da_case("decode_attention f32 int8-KV B8 H12 KV4 D64 L256", 8, 12,
-                4, 256, 64, lens, f32, True, g),
+                4, 256, 64, lens, f32, True, g, parent),
         da_case("decode_attention bf16 B8 H12 KV4 D64 L4096", 8, 12, 4,
-                4096, 64, long_lens, bf, False, g),
+                4096, 64, long_lens, bf, False, g, parent),
+        da_case("decode_attention bf16 int8-KV B8 H12 KV4 D64 L4096", 8, 12,
+                4, 4096, 64, long_lens, bf, True, g, parent),
         i8_case("int8_matmul f32 B8 qkv 768x1280", 8, 768, 1280, f32, g),
     ]
     # every row count the serving path gives the kernel: 8 slots decoding,
@@ -740,8 +838,10 @@ def kernel_phase():
     cases += gn_census_cases(g)
     # the Llama trainer's q and k with use_fused_rope (B 8, S 1024, 12
     # heads of 64)
-    cases += rope_case("rope bf16 B8 S1024 H12 D64", 8, 1024, 12, 64, bf, g)
-    cases += rope_case("rope f32 B8 S1024 H12 D64", 8, 1024, 12, 64, f32, g)
+    cases += rope_case("rope bf16 B8 S1024 H12 D64", 8, 1024, 12, 64, bf, g,
+                       parent)
+    cases += rope_case("rope f32 B8 S1024 H12 D64", 8, 1024, 12, 64, f32, g,
+                       parent)
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -869,8 +969,12 @@ def serve(model, quant, reqs, V, card):
               f"{tag}: request {rid} served again gave other tokens")
     info["profiled"] = device_profile(prof, pwall)
     info["profiled"]["wall_s"] = pwall
-    info["profiled"]["int8_matmul_ms"] = kernel_ms(
-        prof, ("int8_matmul",)).get("int8_matmul", 0.0)
+    k_ms = kernel_ms(prof, ("int8_matmul", "decode_attention"))
+    info["profiled"]["int8_matmul_ms"] = k_ms.get("int8_matmul", 0.0)
+    info["profiled"]["decode_attention_ms"] = k_ms.get("decode_attention",
+                                                       0.0)
+    info["profiled"]["decode_attention_ms_per_step"] = k_ms.get(
+        "decode_attention", 0.0) / steps
     emit(info)
     return info
 
@@ -1091,6 +1195,9 @@ def train_phase(card):
             trainer.train_step(*batch)
         r_losses, r_wall, r_launches = timed_steps(trainer, batch, timed,
                                                    counters)
+        r_prof, prof = profiled_step(trainer, batch)
+        r_prof["rope_kernel_ms_per_step"] = kernel_ms(
+            prof, ("rope_kernel",)).get("rope_kernel", 0.0)
     finally:
         set_flags({"use_fused_rope": False})
     for what, per in (("rope_fwd", 2 * L), ("rope_bwd", 2 * L),
@@ -1106,7 +1213,7 @@ def train_phase(card):
                 step_ms_rope_plain=1e3 * o_wall / timed,
                 launches_per_step={k: v / timed
                                    for k, v in r_launches.items()},
-                kernel_vs_plain=rope_vs_plain)
+                kernel_vs_plain=rope_vs_plain, profiled=r_prof)
     emit(rope)
     launches["rope_fwd"] = r_launches["rope_fwd"]
     launches["rope_bwd"] = r_launches["rope_bwd"]
@@ -1294,6 +1401,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    parent = None
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -1306,8 +1419,10 @@ def main() -> int:
           f"{_build.build_seconds if _build.build_seconds is not None else 0:.2f} s)",
           flush=True)
     emit({"flash_build": flash_build_info()})
+    if parent is not None:
+        parent = parent_kernels(parent)
     t1 = time.perf_counter()
-    cases = kernel_phase()
+    cases = kernel_phase(parent)
     t2 = time.perf_counter()
     runs = serving_phase(card)
     t3 = time.perf_counter()

@@ -44,7 +44,7 @@ _F = ctypes.c_float
 # pass Python ints as 32-bit C ints and cut 64-bit device pointers
 _SIGNATURES = {
     "decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "int8_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _P],

@@ -6,7 +6,8 @@ is ``paddle_tpu_torch/csrc/decode_attention.cu``. Layouts as there: q
 cache, f32/bf16 like q or int8 with (B, KV, L, 1) f32 scales; out
 (B, H, D) in q's dtype. ``pos`` is the valid length: an int or a scalar
 or (B,) int tensor (rows at different cache offsets); positions
-``>= pos[b]`` are masked. Inference only.
+``>= pos[b]`` are masked. Inference only. The kernel splits the cache
+length over a thread-block cluster of ``split_for(B, KV, L)`` blocks.
 """
 
 from __future__ import annotations
@@ -17,14 +18,29 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 
-__all__ = ["supported", "decode_attention", "decode_attention_ref",
-           "launches"]
+__all__ = ["supported", "split_for", "decode_attention",
+           "decode_attention_ref", "launches"]
 
 #: kernel launches made by ``decode_attention`` (plain-version calls and
 #: direct ``decode_attention_ref`` calls do not count)
 launches = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SMS = 132            # the H100's streaming multiprocessors
+_MIN_CHUNK = 64       # cache rows a block keeps at least: one full step
+
+
+def split_for(B: int, KV: int, L: int) -> int:
+    """P, the blocks of a thread-block cluster that split one (b, kv-head)
+    pair's cache length: doubled from 1 (up to 8) while the grid of
+    B * KV * P blocks is under one wave of the card's SMs and each block
+    keeps at least 64 cache rows (one step of its 16 row groups, 4 rows
+    each, at D 64). A function of the shapes only: the valid lengths live
+    on the device and are never read on the host."""
+    P = 1
+    while P < 8 and B * KV * P < _SMS and L >= 2 * P * _MIN_CHUNK:
+        P *= 2
+    return P
 
 
 def supported(q, kc) -> bool:
@@ -119,7 +135,7 @@ def decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
         k_scale.data_ptr() if k_scale is not None else None,
         v_scale.data_ptr() if v_scale is not None else None,
         lens.data_ptr(), out.data_ptr(), B, H, KV, L, D,
-        _CODES[q.dtype], _CODES[kc.dtype],
+        split_for(B, KV, L), _CODES[q.dtype], _CODES[kc.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"decode_attention launch failed: "

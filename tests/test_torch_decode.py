@@ -216,3 +216,93 @@ def test_decode_chunk_signatures_match_jax(models, ids):
                {"K": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dec.decode_chunk(st, 3, **kw)
+
+
+# A bf16 GQA Llama, the JAX parameters cast to bf16 as bench.py's decode
+# benchmark does on the TPU (bench.py:1069-1071), with the JAX config's
+# dtype bf16 so that its KV cache is bf16 too
+BF16_CFG = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=128)
+BF16_NEW = 32
+
+
+@pytest.fixture(scope="module")
+def bf16_models():
+    """(JAX model, port model), bf16, the same weights: Xavier-uniform
+    matrices, N(0, 1) embeddings, unit norms, drawn with numpy. The JAX
+    initializers are bypassed while the model is built (each compiles its
+    sampler for every new shape)."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.nn import initializer as init
+
+    zeros = lambda self, shape, dtype="float32": jnp.zeros(  # noqa: E731
+        shape, jnp.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in (init.XavierUniform, init.Normal, init.Constant):
+            mp.setattr(cls, "__call__", zeros)
+        jm = JaxModel(JaxConfig(**BF16_CFG, dtype="bfloat16"))
+    rng = np.random.default_rng(7)
+    state = {}
+    for name, p in jm.state_dict().items():
+        shape = tuple(p.shape)
+        if len(shape) == 1:
+            v = np.ones(shape, np.float32)
+        elif "embed_tokens" in name:
+            v = rng.standard_normal(shape)
+        else:
+            v = rng.uniform(-1, 1, shape) * np.sqrt(6 / sum(shape))
+        p._set_value(jnp.asarray(v, jnp.bfloat16))
+        state[name] = np.asarray(p.value.astype(jnp.float32))
+    tm = from_jax_state_dict(state, LlamaForCausalLM(
+        LlamaConfig(**BF16_CFG, dtype="bfloat16"), device="cpu"))
+    return jm, tm
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+def test_bf16_decode_matches_jax(bf16_models, quant):
+    """bf16 decode parity with the JAX decoder (4 prompts of 16 tokens, 32
+    new, max_len 128). Both sides round bf16 at other points (eager
+    PyTorch after each op, XLA where it fuses), so:
+    - prefill logits within 4 bf16 spacings of the largest |logit| (the
+      three recipes differ by 1.2-1.7 spacings);
+    - the port's decode steps (the decode-attention route), teacher-forced
+      on the JAX decoder's greedy tokens, pick the JAX token at >= 0.99 of
+      the decisive positions (top-1 ahead by more than 2 bf16 spacings),
+      as chip_smoke.py's serving gate does, with at least half of all
+      positions decisive."""
+    import jax.numpy as jnp
+    import torch
+
+    jm, tm = bf16_models
+    ids = np.random.default_rng(5).integers(0, 512, (4, 16))
+    jdec = JaxDecoder(jm, max_len=MAX_LEN, quant=quant)
+    kc, vc = jdec._empty_cache(ids.shape[0])
+    want, _, _ = jdec._prefill(jdec.params, jnp.asarray(ids), kc, vc)
+    want = np.asarray(want, np.float32)
+    toks = np.asarray(jdec.generate(ids, BF16_NEW))
+
+    dec = LlamaDecoder(tm, max_len=MAX_LEN, quant=quant, device="cpu")
+    kc, vc = dec._empty_cache(ids.shape[0])
+    rows = []
+    with torch.inference_mode():
+        logits = dec._prefill(dec._ids(ids), kc, vc)
+        got = logits.float().numpy()
+        for t in range(BF16_NEW):
+            rows.append(logits.float())
+            tok = torch.as_tensor(toks[:, ids.shape[1] + t])
+            logits = dec._fwd(tok[:, None], kc, vc, ids.shape[1] + t)
+    big = np.abs(want).max()
+    spacing = 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert np.abs(got - want).max() <= 4 * spacing, \
+        (np.abs(got - want).max(), big)
+
+    forced = torch.stack(rows, 1)                       # (B, NEW, V)
+    top = forced.topk(2, dim=-1).values
+    sp = torch.exp2(torch.floor(torch.log2(top[..., 0].abs())) - 7)
+    decisive = top[..., 0] - top[..., 1] > 2 * sp
+    hit = forced.argmax(-1) == torch.as_tensor(toks[:, ids.shape[1]:])
+    assert int(decisive.sum()) >= decisive.numel() // 2
+    assert hit[decisive].float().mean().item() >= 0.99, \
+        (hit[decisive].float().mean().item(), int(decisive.sum()))

@@ -234,6 +234,21 @@ def test_group_norm_routing_rule_matches_jax():
     assert not gn.supported((8, 32), 8)
 
 
+def test_decode_attention_split_rule():
+    """``split_for`` is a pure function of (B, KV, L): the served shape
+    (B 8, KV 4, L 256) splits each cache row over 4 blocks of 64 rows (128
+    blocks), L 4096 over 8; a grid that already fills the card's 132 SMs,
+    or a cache too short for two 64-row chunks, is not split."""
+    assert da.split_for(8, 4, 256) == 4
+    assert da.split_for(8, 4, 4096) == 8
+    assert da.split_for(8, 4, 200) == 2
+    for B, KV in ((33, 4), (132, 1), (66, 2), (200, 8)):
+        assert da.split_for(B, KV, 4096) == 1, (B, KV)
+    for L in (1, 64, 127):
+        assert da.split_for(8, 4, L) == 1, L
+    assert da.split_for(1, 1, 128) == 2
+
+
 def test_group_norm_routes_at_unet_shapes():
     """``gn.route`` is a pure function of shape and dtype: the cluster size
     K of the forward and backward of every GroupNorm shape of a bench_unet
@@ -354,17 +369,40 @@ def _close(got, want, dtype):
                                  (diff / tol).max().item())
 
 
+def _close_nan(got, want, dtype):
+    """``_close`` where NaN (an empty prefix's 0 / 0) must sit in the same
+    places on both sides."""
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got))
+    _close(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("quant", [False, True])
 def test_decode_attention_kernel_matches_plain_on_card(dtype, quant):
+    """Every split (``split_for`` P of 1, 2, 4 and 8), lengths of 0, 1,
+    L - 1 and L and on each side of a chunk boundary (k * ceil(L / P) +-
+    1), L not a multiple of P (200, 300, 1030), rep 1 to 16, D 8 to 256,
+    L 4096 (several steps of the cp.async ring a block); two launches
+    must give the same bits."""
     _need_card()
+    from chip_smoke import same_bits
     g = torch.Generator(device="cuda").manual_seed(0)
+    splits = set()
     for B, H, KV, L, D, lens in (
-            (8, 12, 4, 256, 64, [1, 37, 256, 100, 64, 65, 255, 128]),
-            (2, 6, 2, 300, 8, [300, 1]),
-            (3, 16, 1, 130, 256, [130, 129, 7]),
-            (2, 4, 4, 64, 128, [64, 63])):
+            (8, 12, 4, 256, 64, [1, 37, 256, 0, 63, 65, 255, 129]),
+            (4, 6, 2, 300, 8, [300, 1, 74, 151]),
+            (4, 16, 1, 130, 256, [130, 64, 66, 7]),
+            (2, 4, 4, 64, 128, [64, 63]),
+            (4, 8, 2, 200, 64, [200, 99, 101, 0]),
+            (3, 8, 8, 1030, 64, [1029, 128, 130]),
+            (34, 12, 4, 256, 64, [(37 * i) % 257 for i in range(34)]),
+            (8, 12, 4, 4096, 64, [4096, 1, 3000, 2049, 4000, 511, 513,
+                                  4095]),
+            (2, 4, 4, 4096, 64, [4096, 2049]),
+            (2, 16, 1, 4096, 128, [4095, 513])):
+        splits.add(da.split_for(B, KV, L))
         q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
         kf = torch.randn(B, KV, L, D, generator=g, device="cuda")
         vf = torch.randn(B, KV, L, D, generator=g, device="cuda")
@@ -376,8 +414,11 @@ def test_decode_attention_kernel_matches_plain_on_card(dtype, quant):
         else:
             args, kw = (q, kf.to(dtype), vf.to(dtype), lt), {}
         got = da.decode_attention(*args, **kw)
+        again = da.decode_attention(*args, **kw)
         torch.cuda.synchronize()
-        _close(got, da.decode_attention_ref(*args, **kw), dtype)
+        _close_nan(got, da.decode_attention_ref(*args, **kw), dtype)
+        assert same_bits(got, again), (B, H, KV, L, D)
+    assert splits == {1, 2, 4, 8}, splits
 
 
 @pytest.mark.gpu
@@ -556,10 +597,19 @@ def test_group_norm_kernels_match_plain_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope_kernel_matches_plain_on_card(dtype):
+    """The 16-byte path (D/2 a multiple of 8: D 16, 64, 128, 256 and H
+    not a multiple of the kernel's 4-head batches) and the element path
+    (D/2 off the 8-grid: D 8, 20, 130; and x 2 bytes off 16-byte
+    alignment), forward and backward."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for B, S, H, D in ((8, 1024, 12, 64), (2, 8, 3, 8), (1, 24, 5, 130)):
-        x = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+    for B, S, H, D, shift in ((8, 1024, 12, 64, 0), (2, 8, 3, 8, 0),
+                              (1, 24, 5, 130, 0), (2, 16, 3, 20, 0),
+                              (2, 32, 4, 128, 0), (1, 8, 7, 256, 0),
+                              (3, 16, 2, 16, 0), (2, 16, 3, 64, 1)):
+        n = B * S * H * D
+        x = torch.randn(n + shift, generator=g, device="cuda").to(dtype)
+        x = x[shift:].view(B, S, H, D)
         t = torch.randn(S, D // 2, generator=g, device="cuda")
         c, s = t.cos().to(dtype), t.sin().to(dtype)
         out, back = rp.rope_fwd(x, c, s), rp.rope_bwd(x, c, s)
@@ -571,16 +621,31 @@ def test_rope_kernel_matches_plain_on_card(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_empty_prefix_on_card(dtype):
-    """Valid length 0 gives NaN on the card as in the plain version (and
-    the JAX kernel); the other rows hold their usual tolerance."""
+    """Valid length 0 gives NaN in every head on the card as in the plain
+    version (and the JAX kernel), however many blocks split the row (P 4
+    and 8, fp and int8 K/V), and whatever a neighbouring row's length;
+    the other rows hold their usual tolerance."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn(3, 12, 64, generator=g, device="cuda").to(dtype)
-    kc, vc = (torch.randn(3, 4, 256, 64, generator=g, device="cuda").to(dtype)
-              for _ in range(2))
-    lt = torch.tensor([0, 100, 256], dtype=torch.int32, device="cuda")
-    got = da.decode_attention(q, kc, vc, lt)
-    torch.cuda.synchronize()
-    want = da.decode_attention_ref(q, kc, vc, lt)
-    assert torch.isnan(got[0]).all() and torch.isnan(want[0]).all()
-    _close(got[1:], want[1:], dtype)
+    for L, lens, quant in ((256, [0, 100, 256], False),
+                           (4096, [0, 1, 4096], False),
+                           (4096, [4095, 0, 512], True)):
+        assert da.split_for(3, 4, L) > 1
+        q = torch.randn(3, 12, 64, generator=g, device="cuda").to(dtype)
+        kf, vf = (torch.randn(3, 4, L, 64, generator=g, device="cuda")
+                  for _ in range(2))
+        lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if quant:
+            k8, v8 = quantize_kv_rows(kf), quantize_kv_rows(vf)
+            args = (q, k8["q"], v8["q"], lt)
+            kw = dict(k_scale=k8["s"], v_scale=v8["s"])
+        else:
+            args, kw = (q, kf.to(dtype), vf.to(dtype), lt), {}
+        got = da.decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        want = da.decode_attention_ref(*args, **kw)
+        empty = lens.index(0)
+        assert torch.isnan(got[empty]).all()
+        assert torch.isnan(want[empty]).all()
+        keep = [i for i in range(3) if i != empty]
+        _close(got[keep], want[keep], dtype)

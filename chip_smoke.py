@@ -51,44 +51,68 @@ smoke run is made, nothing else is built.
    32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
    bf16, random weights from a seeded generator) behind ``ServingEngine``
    (8 slots, chunk 16, max_len 256) answering 16 mixed requests, once
-   unquantized and once with ``quant="int8wk"``. Checks every request's
-   length against its budget and eos, finite logits, the dispatch
-   identity, the kernel launch counts the path implies, and teacher-forced
-   top-1 agreement >= 0.99 between the served tokens and a plain re-score
-   wherever the re-score's top-1 leads by more than 2 bf16 spacings of
-   the logits (and every served token within 4 spacings of the
-   re-score's best elsewhere).
-   Each run then serves the same requests again under ``torch.profiler``
-   (the tokens must not change) and its line adds the device busy share,
-   the costliest kernels, the int8 kernel's summed ms and the
-   decode-attention kernel's, also per decode step.
+   unquantized and once with ``quant="int8wk"``, each chunk a replay of
+   its CUDA graph (the first chunk eager, the second captured). Checks
+   every request's length against its budget and eos, finite logits, the
+   dispatch identity, one captured graph, the kernel launch counts the
+   path implies, and teacher-forced top-1 agreement >= 0.99 between the
+   served tokens and a plain re-score wherever the re-score's top-1 leads
+   by more than 2 bf16 spacings of the logits (and every served token
+   within 4 spacings of the re-score's best elsewhere). The requests are
+   served again (timed), and again under ``torch.profiler``; then by an
+   engine whose decoder runs its chunks eagerly (``eager_chunks``), timed
+   and profiled: every drain must give the same tokens request by
+   request, and the eager route the same launch counts. Each line prints
+   both routes' tokens/s, ms a chunk and device busy share, with the
+   costliest kernels and the int8 and decode-attention kernels' ms.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
-   AdamW, B 8, S 1024, one fixed batch. One backward with the kernels and
-   one with their plain versions (swapped in here only) must agree: loss
-   within two bf16 spacings, every gradient at cosine >= 0.99. Then 2
-   warm-up and 6 timed steps: finite losses, the first within 0.5 of
-   ln 32000, falling; per step 12 flash forward and 12 flash backward
-   launches and 25 + 25 RMSNorm launches. Its line prints step ms,
-   tokens/s, MFU (``flops_per_token`` against the bf16 peak), the
-   optimizer update's host ms and, from one more step under
-   ``torch.profiler``, the device busy share, the costliest kernels and
-   the flash and RMSNorm kernels' ms.
-   Then ``use_fused_rope`` on: the rope kernel against its plain version
-   in one backward, 24 + 24 rope launches a step, the step ms with the
-   flag on beside 6 more steps with it off, and one profiled step with
-   the rope kernels' device ms.
+   AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
+   plain version on fresh tensors of the model's 111 shapes (f32, bf16
+   with bf16 moments, bf16 with ``multi_precision=True``; Adam and AdamW;
+   three steps; bit for bit), and the main path's update (bf16, AdamW)
+   timed: kernel, plain version and ``torch.optim.AdamW(fused=True)``,
+   which the port never calls, beside the bound (14 bytes an element at
+   3.35 TB/s).
+   One backward with the kernels and one with their plain versions
+   (swapped in here only) must agree: loss within two bf16 spacings,
+   every gradient at cosine >= 0.99. Then 2 steps (the eager warm-up, the
+   capture of the step's CUDA graph) and 6 timed replays: finite losses,
+   the first within 0.5 of ln 32000, falling; per step 12 flash forward
+   and 12 flash backward launches, 25 + 25 RMSNorm launches and 3 Adam
+   launches. ``graph_vs_eager``: one replay against one eager forward and
+   backward from the same weights and state (the loss bit-equal, every
+   gradient at cosine >= 0.999, the eager update on the replay's
+   gradients bit-equal to the replay's parameters and state), then 3
+   replays against 3 eager steps (first loss bit-equal, later ones within
+   two bf16 spacings, the same launches); each parameter's 3-step change
+   is reported at its cosine to the eager change, not gated. 6 timed
+   eager steps with the same launch counts. Its line prints both routes'
+   step ms and tokens/s, MFU (``flops_per_token`` against the bf16 peak),
+   the replay's host ms, peak memory and, from a profiled replay and a
+   profiled eager step, each route's device busy share, the costliest
+   kernels, and the flash, RMSNorm and Adam kernels' ms (from the replay
+   where the profiler names kernels inside it).
+   Then ``use_fused_rope`` on (a key of its own: warm-up, capture): the
+   rope kernel against its plain version in one backward, 24 + 24 rope
+   launches a step, ``graph_vs_eager`` again, the step ms with the flag on
+   beside 6 more steps with it off, and one profiled step with the rope
+   kernels' device ms.
 6. UNet phase: bench.py's bench_unet (``UNetConfig()``, 748 M bf16
    parameters, AdamW(1e-4, multi_precision=False), B 8, 4 x 64 x 64
-   latents, context 8 x 77 x 1024) through ``ShardedTrainer``: kernel
-   against plain backward as above, 2 warm-up and 5 timed steps with
-   finite, falling losses and 61 + 61 GroupNorm and 5 + 5 flash launches
-   a step (``unet_census`` counts them from the config). Its line prints
-   step ms, images/s, MFU (the census's FLOPs), peak memory, the update's
-   host ms and a profiled step's busy share, kernel kinds and per-kernel
-   ms.
-7. Prints ``{"kernels": [...]}``, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   latents, context 8 x 77 x 1024) through ``ShardedTrainer``: the Adam
+   kernel against its plain version on the model's ten largest and ten
+   smallest shapes and timed over all of them, kernel against plain
+   backward as above, 2 steps and 5 timed replays with finite, falling
+   losses and 61 + 61 GroupNorm, 5 + 5 flash and 11 Adam launches a step
+   (``unet_census`` counts the first from the config),
+   ``graph_vs_eager``, 5 timed eager steps. Its line prints both routes'
+   step ms and images/s, MFU (the census's FLOPs), peak memory, the
+   replay's host ms and the profiled routes' busy shares, kernel kinds and
+   per-kernel ms.
+7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows and the Adam
+   kernel's, at the Llama's and the UNet's tensors), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
 script exits 2 before printing any result.
@@ -353,8 +377,8 @@ def parent_kernels(root):
 
 def same_bits(a, b) -> bool:
     """Equal bit for bit (NaN included)."""
-    return torch.equal(a.contiguous().view(torch.uint8),
-                       b.contiguous().view(torch.uint8))
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def da_case(name, B, H, KV, L, D, lens, dtype, quant, g, parent=None):
@@ -851,14 +875,24 @@ def kernel_phase(parent=None):
 
 # -- serving phase ------------------------------------------------------------
 
+def kernel_events(prof):
+    """(device us, name, count) of every CUDA kernel of a profiled window,
+    costliest first; averaged once per profile (a drain holds some 10^5
+    kernel events)."""
+    if not hasattr(prof, "_kernel_events"):
+        prof._kernel_events = sorted(
+            ((e.self_device_time_total, e.key, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0), reverse=True)
+    return prof._kernel_events
+
+
 def device_profile(prof, wall_s):
     """Device busy share of a profiled window and its costliest kernels:
     the summed device time of every CUDA kernel over the window's wall
     time (one stream, so kernels do not overlap)."""
-    kern = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+    kern = kernel_events(prof)
     busy_us = sum(t for t, _, _ in kern)
     return dict(device_busy_share=busy_us / (wall_s * 1e6),
                 device_busy_ms=busy_us / 1e3,
@@ -866,43 +900,80 @@ def device_profile(prof, wall_s):
                              for t, k, n in kern[:8]])
 
 
+def eager_chunks(dec):
+    """Route ``dec``'s chunks through the eager chunk body
+    (``_chunk_steps``), still one counted dispatch each: the route the
+    captured chunk is held against. Only this script does this."""
+    def chunk(st, steps):
+        dec.dispatch_count += 1
+        return dec._chunk_steps(st, steps)
+
+    dec._chunk_decode = chunk
+    return dec
+
+
+def drain(eng, reqs, profile=False):
+    """Submit ``reqs`` and drain: (served tokens per request, wall s,
+    profiler or None). With ``profile`` only the device's kernels are
+    traced (host ops untraced, so the drain keeps its pace)."""
+    torch.cuda.synchronize()
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
+        else None)
+    if prof is not None:
+        prof.__enter__()
+    try:
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+        res = eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    outs = [np.asarray(res[rid])[0] for rid in ids]
+    for (p, _, _), out in zip(reqs, outs):
+        check(np.array_equal(out[:len(p)], p), "prompt echoed")
+    return [out[len(p):] for (p, _, _), out in zip(reqs, outs)], wall, prof
+
+
 def serve(model, quant, reqs, V, card):
+    """The 16 requests through ``ServingEngine`` with the chunk as a
+    replayed CUDA graph: the first drain (its first chunk eager, the
+    second captured) checked as below, a second drain timed and a third
+    profiled, all with the same tokens. Then the same requests through an
+    engine whose decoder runs its chunks eagerly (``eager_chunks``): the
+    same tokens request by request, its drain timed and profiled."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import int8_matmul as i8
     from paddle_tpu_torch.serving import ServingEngine, bucket_length
 
+    t_start = time.perf_counter()
     cfg = model.config
     dec = LlamaDecoder(model, max_len=256, quant=quant)
     eng = ServingEngine(dec, num_slots=8, chunk_size=16)
     d0 = dec.dispatch_count
     torch.cuda.synchronize()
     da.launches = i8.launches = 0
-    t0 = time.perf_counter()
-    ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
-    res = eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    gens, first_wall, _ = drain(eng, reqs)
     n_da, n_i8 = da.launches, i8.launches
     m = eng.metrics()
     tag = quant or "none"
 
-    gens = []
-    for (p, n, e), rid in zip(reqs, ids):
-        out = np.asarray(res[rid])[0]
-        check(np.array_equal(out[:len(p)], p), f"{tag}: prompt echoed")
-        gen = out[len(p):]
+    for (p, n, e), gen in zip(reqs, gens):
         check(((gen >= 0) & (gen < V)).all(), f"{tag}: token ids in vocab")
         hit = np.flatnonzero(gen == e) if e is not None else []
         want = int(hit[0]) + 1 if len(hit) else n
-        check(len(gen) == want, f"{tag}: request {rid} produced "
-              f"{len(gen)} tokens, its budget {n} and eos {e} allow {want}")
-        gens.append(gen)
+        check(len(gen) == want, f"{tag}: a request produced {len(gen)} "
+              f"tokens, its budget {n} and eos {e} allow {want}")
     check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
     check(m["prefill_dispatches"] == len(reqs), f"{tag}: one prefill each")
     check(dec.dispatch_count - d0
           == m["prefill_dispatches"] + m["chunk_dispatches"],
           f"{tag}: dispatch identity")
+    check(sum(g is not None for g in dec._chunk_graphs.values()) == 1,
+          f"{tag}: one captured chunk")
     steps = m["chunk_dispatches"] * eng.chunk_size
     L = cfg.num_hidden_layers
     check(n_da == L * steps,
@@ -941,41 +1012,56 @@ def serve(model, quant, reqs, V, card):
           f"{rate_decisive} at decisive positions")
     check(deficit.max().item() <= 4, f"{tag}: a served token trails the "
           f"re-score's best by {deficit.max().item()} bf16 spacings")
+    del logits, rows
+
+    def same(a_gens, what):
+        for j, (a, b) in enumerate(zip(a_gens, gens)):
+            check(np.array_equal(a, b), f"{tag}: request {j} {what} gave "
+                  f"other tokens")
+
+    again, wall, _ = drain(eng, reqs)
+    same(again, "served again")
+    again, pwall, prof = drain(eng, reqs, profile=True)
+    same(again, "served under the profiler")
+    edec = eager_chunks(LlamaDecoder(model, max_len=256, quant=quant))
+    eeng = ServingEngine(edec, num_slots=8, chunk_size=16)
+    da.launches = i8.launches = 0
+    egens, ewall, _ = drain(eeng, reqs)
+    same(egens, "with the eager chunk")
+    check((da.launches, i8.launches) == (n_da, n_i8),
+          f"{tag}: eager launches {da.launches} / {i8.launches} != the "
+          f"graph route's {n_da} / {n_i8}")
+    again, epwall, eprof = drain(eeng, reqs, profile=True)
+    same(again, "with the eager chunk under the profiler")
+    chunks = m["chunk_dispatches"]
     n_tok = int(sum(len(g) for g in gens))
     info = dict(phase="serve", quant=tag, card=card, requests=len(reqs),
                 tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
-                ms_per_chunk_incl_admission=1e3 * wall
-                / m["chunk_dispatches"],
+                ms_per_chunk_incl_admission=1e3 * wall / chunks,
+                first_drain_wall_s=first_wall,
+                eager_wall_s=ewall, eager_tokens_per_s=n_tok / ewall,
+                eager_ms_per_chunk_incl_admission=1e3 * ewall / chunks,
                 prefill_dispatches=m["prefill_dispatches"],
-                chunk_dispatches=m["chunk_dispatches"], decode_steps=steps,
+                chunk_dispatches=chunks, decode_steps=steps,
                 decode_attention_launches=n_da, int8_matmul_launches=n_i8,
+                tokens_equal_eager=True,
                 teacher_forced_top1=rate,
                 teacher_forced_top1_decisive=rate_decisive,
                 decisive_positions=int(decisive.sum().item()),
                 max_deficit_bf16_spacings=deficit.max().item())
-
-    # the same requests again on the same engine, tracing the device's
-    # kernels only (host ops untraced, so the drain keeps its pace): the
-    # tokens must not change, and the trace gives the device busy share
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
-        res2 = eng.drain()
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    for (p, _, _), g, rid in zip(reqs, gens, again):
-        check(np.array_equal(np.asarray(res2[rid])[0][len(p):], g),
-              f"{tag}: request {rid} served again gave other tokens")
-    info["profiled"] = device_profile(prof, pwall)
-    info["profiled"]["wall_s"] = pwall
-    k_ms = kernel_ms(prof, ("int8_matmul", "decode_attention"))
-    info["profiled"]["int8_matmul_ms"] = k_ms.get("int8_matmul", 0.0)
-    info["profiled"]["decode_attention_ms"] = k_ms.get("decode_attention",
-                                                       0.0)
-    info["profiled"]["decode_attention_ms_per_step"] = k_ms.get(
-        "decode_attention", 0.0) / steps
+    for key, p_, w_ in (("profiled", prof, pwall),
+                        ("profiled_eager", eprof, epwall)):
+        info[key] = device_profile(p_, w_)
+        info[key]["wall_s"] = w_
+        k_ms = kernel_ms(p_, ("int8_matmul", "decode_attention"))
+        info[key]["int8_matmul_ms"] = k_ms.get("int8_matmul", 0.0)
+        info[key]["decode_attention_ms"] = k_ms.get("decode_attention", 0.0)
+        info[key]["decode_attention_ms_per_step"] = k_ms.get(
+            "decode_attention", 0.0) / steps
+    info["phase_s"] = time.perf_counter() - t_start
     emit(info)
+    del eeng, edec, eng, dec
+    torch.cuda.empty_cache()
     return info
 
 
@@ -1000,6 +1086,125 @@ def serving_phase(card):
     del ref
     return [serve(model, q, reqs, cfg.vocab_size, card)
             for q in (None, "int8wk")]
+
+
+# -- the multi-tensor Adam / AdamW kernel ------------------------------------
+
+def _adam_lists(states):
+    """The per-state lists ``adam_update`` takes after params and grads."""
+    return ([st["moment1"] for st in states], [st["moment2"] for st in states],
+            [st.get("master_weight") for st in states],
+            [st["beta1_pow"] for st in states],
+            [st["beta2_pow"] for st in states])
+
+
+def adam_compare(params, mp, decoupled, steps=3, seed=0):
+    """The Adam kernel (``update_many``) against its plain version
+    (``adam_update_ref``) over ``params`` (CUDA tensors, updated in
+    place) and clones of them, ``steps`` steps from fresh state with the
+    same random gradients and an f32 device learning rate: every
+    parameter, moment, master weight and beta pow must match bit for bit.
+    Returns the kernel launches and the largest |difference| (0)."""
+    from paddle_tpu_torch.ops.kernels import adam as ak
+    from paddle_tpu_torch.optimizer import Adam, AdamW
+    opt = (AdamW if decoupled else Adam)(1e-3, weight_decay=0.01,
+                                          multi_precision=mp)
+    kp = list(params)
+    pp = [p.clone() for p in kp]
+    ks = [opt.init_state(p) for p in kp]
+    ps = [opt.init_state(p) for p in pp]
+    lr = torch.full((), 1e-3, dtype=torch.float32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n0 = ak.launches
+    for _ in range(steps):
+        grads = [torch.randn(p.shape, generator=g, device="cuda").to(p.dtype)
+                 for p in kp]
+        opt.update_many(grads, ks, kp, lr, 0.01)
+        ak.adam_update_ref(pp, grads, *_adam_lists(ps), lr, opt._beta1,
+                           opt._beta2, opt._epsilon, 0.01, decoupled)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (a, b, sa, sb) in enumerate(zip(kp, pp, ks, ps)):
+        for what, x, y in [("param", a, b)] + [(k, sa[k], sb[k])
+                                               for k in sa]:
+            if x.numel():
+                err = max(err, (x.float() - y.float()).abs().max().item())
+            check(same_bits(x, y), f"adam ({'AdamW' if decoupled else 'Adam'}"
+                  f", {a.dtype}, multi_precision={mp}): tensor {i} "
+                  f"{tuple(a.shape)} {what} differs from the plain version")
+    return dict(launches=ak.launches - n0, max_abs_err=err)
+
+
+def adam_cases(tag, shapes):
+    """``adam_compare`` over fresh tensors of ``shapes`` (x 0.02, bf16 or
+    f32) for f32, bf16 with bf16 moments and bf16 with
+    ``multi_precision=True``, Adam and AdamW, three steps each."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    for dtype, mp in ((torch.float32, False), (torch.bfloat16, False),
+                      (torch.bfloat16, True)):
+        for decoupled in (False, True):
+            params = [(0.02 * torch.randn(s, generator=g, device="cuda")
+                       ).to(dtype) for s in shapes]
+            r = adam_compare(params, mp, decoupled)
+            del params
+            out.append(dict(case=f"adam {tag} {str(dtype)[6:]} "
+                            f"mp={mp} {'AdamW' if decoupled else 'Adam'}",
+                            kernel="adam", tensors=len(shapes),
+                            elements=sum(math.prod(s) for s in shapes),
+                            steps=3, bit_equal=True, **r))
+    torch.cuda.empty_cache()
+    return out
+
+
+def adam_case(name, shapes):
+    """The main path's update over fresh bf16 tensors of ``shapes``: AdamW
+    (lr 1e-4, weight decay 0.01) with bf16 moments, as the trainers run
+    it. The kernel timed as a CUDA graph of 20 calls (and eagerly,
+    ``eager_ms``), its plain version parameter by parameter, and
+    ``torch.optim.AdamW(fused=True)`` on the same tensors, which the port
+    never calls. The bound moves 14 bytes an element (p, g, m1, m2 read;
+    p, m1, m2 written) at 3.35 TB/s."""
+    from paddle_tpu_torch.ops.kernels import adam as ak
+    from paddle_tpu_torch.optimizer import AdamW
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    params = [(0.02 * torch.randn(s, generator=g, device="cuda")).to(bf)
+              for s in shapes]
+    grads = [torch.randn(s, generator=g, device="cuda").to(bf)
+             for s in shapes]
+    opt = AdamW(1e-4, weight_decay=0.01, multi_precision=False)
+    states = [opt.init_state(p) for p in params]
+    lr = torch.full((), 1e-4, dtype=torch.float32, device="cuda")
+
+    def kern():
+        opt.update_many(grads, states, params, lr, 0.01)
+
+    def plain():
+        ak.adam_update_ref(params, grads, *_adam_lists(states), lr,
+                           opt._beta1, opt._beta2, opt._epsilon, 0.01, True)
+
+    n0 = ak.launches
+    kern()
+    per_call = ak.launches - n0
+    n = sum(math.prod(s) for s in shapes)
+    b_ms, b_by = bound(14.0 * n, 20.0 * n, F32_FLOPS)
+    row = dict(case=name, kernel="adam", tensors=len(shapes), elements=n,
+               launches_per_call=per_call, ms=time_ms(kern, [()], iters=20),
+               eager_ms=eager_ms(kern, [()], iters=20),
+               plain_ms=eager_ms(plain, [()], iters=2))
+    tp = [p.detach().clone().requires_grad_() for p in params]
+    for t, gr in zip(tp, grads):
+        t.grad = gr.clone()
+    del params, grads, states
+    lib = torch.optim.AdamW(tp, lr=1e-4, weight_decay=0.01, fused=True)
+    row.update(library_ms=eager_ms(lambda: lib.step(), [()], iters=20),
+               bound_ms=b_ms, bound_by=b_by)
+    del lib, tp
+    torch.cuda.empty_cache()
+    row["bound_us"] = 1e3 * b_ms
+    row["share_of_bound"] = b_ms / row["ms"]
+    return row
 
 
 # -- training phase -----------------------------------------------------------
@@ -1067,26 +1272,31 @@ def llama_loss(m, ids, labels):
     return m.loss(ids, labels)
 
 
-def timed_steps(trainer, batch, timed, counters):
+def timed_steps(trainer, batch, timed, counters, eager=False):
     """``timed`` steps after every count in ``counters`` (module, attribute
-    pairs) is set to 0; returns (losses, wall seconds, {name: launches})."""
+    pairs) is set to 0; returns (losses, wall seconds, {name: launches}).
+    The steps replay the trainer's CUDA graph, or with ``eager`` run the
+    eager step (``_eager_step``)."""
+    step = trainer._eager_step if eager else trainer.train_step
     torch.cuda.synchronize()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    losses = [trainer.train_step(*batch) for _ in range(timed)]
+    losses = [step(*batch) for _ in range(timed)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return ([x.item() for x in losses], wall,
             {k: getattr(mod, attr) for k, (mod, attr) in counters.items()})
 
 
-def profiled_step(trainer, batch):
-    """One more step under the profiler (device kernels only)."""
+def profiled_step(trainer, batch, eager=False):
+    """One more step under the profiler (device kernels only): a replay of
+    the trainer's graph, or with ``eager`` an eager step."""
+    step = trainer._eager_step if eager else trainer.train_step
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(*batch)
+        step(*batch)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
     info = device_profile(prof, pwall)
@@ -1094,36 +1304,199 @@ def profiled_step(trainer, batch):
     return info, prof
 
 
+def profiled_routes(trainer, batch, names):
+    """A profiled replay and a profiled eager step: the busy share of
+    each, and the named kernels' ms a step (with the Adam kernels') from
+    the replay where the profiler names the kernels inside it, else from
+    the eager step (``kernel_ms_from``)."""
+    names = tuple(names) + ADAM_KERNELS
+    g_info, g_prof = profiled_step(trainer, batch)
+    e_info, e_prof = profiled_step(trainer, batch, eager=True)
+    g_ms = kernel_ms(g_prof, names)
+    named = "adam_kernel" in g_ms
+    k_ms = g_ms if named else kernel_ms(e_prof, names)
+    return dict(graph=g_info, eager=e_info, kernel_ms_per_step=k_ms,
+                kernel_ms_from="graph replay" if named else "eager step",
+                update_kernel_ms_per_step=sum(
+                    v for k, v in k_ms.items() if k in ADAM_KERNELS)), \
+        g_prof, e_prof, named
+
+
+def graph_vs_eager(tag, trainer, batch, steps=3):
+    """The captured step against the eager step from the same weights and
+    optimizer state (the graph for this batch is captured already; the
+    weights and state are put back before each route). Gates:
+
+    - one replay against one eager forward and backward: the loss bit for
+      bit, every parameter's gradient at cosine >= 0.999;
+    - the eager update (``update_many``) applied to the replay's own
+      gradients gives the replay's parameters and optimizer state bit for
+      bit;
+    - ``steps`` replays against ``steps`` eager steps (``_eager_step``):
+      the first loss bit-equal, later losses within two bf16 spacings, the
+      same kernel launches a step.
+
+    Each parameter's change over the ``steps`` steps is reported at its
+    cosine to the eager change, beside the same cosine between two eager
+    runs. The flash backward sums dq in arrival order (ROADMAP.md section
+    3), so the eager route does not repeat itself bit for bit, and bf16
+    rounding of the small updates turns that into whole-spacing flips of
+    a few per cent of the weights."""
+    from paddle_tpu_torch.ops import kernels as K
+    dev_batch = [trainer._put(b) for b in batch]
+    graph = trainer._graphs.get(trainer._key(dev_batch))
+    check(graph is not None, f"{tag}: no captured step for this batch")
+    params = trainer.params
+    p0 = {n: p.detach().clone() for n, p in params.items()}
+    s0 = {n: {k: v.clone() for k, v in st.items()}
+          for n, st in trainer.opt_state.items()}
+    c0 = trainer.optimizer._step_count
+
+    def restore():
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(p0[n])
+            for n, st in trainer.opt_state.items():
+                for k, v in st.items():
+                    v.copy_(s0[n][k])
+        trainer.optimizer._step_count = c0
+
+    def state():
+        return ({n: p.detach().clone() for n, p in params.items()},
+                {n: {k: v.clone() for k, v in st.items()}
+                 for n, st in trainer.opt_state.items()})
+
+    # one replay, then one eager forward and backward from the same weights
+    l_graph = trainer.train_step(*batch).item()
+    g_graph = {n: g.clone() for n, g in graph.grads.items()}
+    p_graph, s_graph = state()
+    restore()
+    for p in params.values():
+        p.grad = None
+    loss = trainer.loss_fn(trainer.model, *dev_batch)
+    loss.backward()
+    check(same_bits(loss.detach(), torch.tensor(l_graph, device="cuda")),
+          f"{tag}: replay loss {l_graph} != eager {loss.item()}")
+    g_cos = {}
+    for n, p in params.items():
+        a, b = g_graph[n].float().reshape(-1), p.grad.float().reshape(-1)
+        na, nb = a.norm().item(), b.norm().item()
+        g_cos[n] = 1.0 if na == nb == 0 else (
+            (a @ b).item() / (na * nb) if na and nb else 0.0)
+    worst_g = min(g_cos, key=g_cos.get)
+    check(g_cos[worst_g] >= 0.999, f"{tag}: gradient of {worst_g} at "
+          f"cosine {g_cos[worst_g]} to the eager one")
+    # the eager update on the replay's gradients
+    with torch.no_grad():
+        for n, p in params.items():
+            p.grad = g_graph[n]
+        trainer._update(trainer._lr_tensor())
+        for p in params.values():
+            p.grad = None
+    for n, p in params.items():
+        check(same_bits(p.detach(), p_graph[n]), f"{tag}: the eager update "
+              f"of {n} on the replay's gradients differs from the replay's")
+        for k, v in trainer.opt_state[n].items():
+            check(same_bits(v, s_graph[n][k]), f"{tag}: optimizer state "
+                  f"{k} of {n} differs from the replay's")
+    del g_graph, p_graph, s_graph
+
+    def run(step):
+        restore()
+        torch.cuda.synchronize()
+        before = K.launch_counts()
+        losses = [step(*batch).item() for _ in range(steps)]
+        after = K.launch_counts()
+        moved = {n: (p.detach().float() - p0[n].float()).reshape(-1)
+                 for n, p in params.items()}
+        return losses, moved, {
+            f"{m}.{a}": (after[m, a] - before[m, a]) / steps
+            for m, a in after if after[m, a] != before[m, a]}
+
+    def change_cos(x, y):
+        worst, name = 1.0, None
+        for n in x:
+            na, nb = x[n].norm().item(), y[n].norm().item()
+            if na == nb == 0:
+                continue
+            c = (x[n] @ y[n]).item() / (na * nb) if na and nb else 0.0
+            if c < worst:
+                worst, name = c, n
+        return worst, name
+
+    g_losses, g_moved, g_launch = run(trainer.train_step)
+    e_losses, e_moved, e_launch = run(trainer._eager_step)
+    c_graph = change_cos(g_moved, e_moved)
+    del g_moved
+    e2_losses, e2_moved, _ = run(trainer._eager_step)
+    c_eager = change_cos(e2_moved, e_moved)
+    del e_moved, e2_moved, p0, s0
+    check(same_bits(torch.tensor(g_losses[0]), torch.tensor(e_losses[0])),
+          f"{tag}: first loss of the graph {g_losses[0]} != eager "
+          f"{e_losses[0]}")
+    for i, (a, b) in enumerate(zip(g_losses, e_losses)):
+        spacing = 2.0 ** (math.floor(math.log2(abs(b))) - 7)
+        check(abs(a - b) <= 2 * spacing, f"{tag}: step {i} loss of the "
+              f"graph {a} vs eager {b}")
+    check(g_launch == e_launch, f"{tag}: launches a step, graph {g_launch} "
+          f"vs eager {e_launch}")
+    return dict(losses_graph=g_losses, losses_eager=e_losses,
+                losses_eager_again=e2_losses,
+                min_grad_cosine=g_cos[worst_g], min_grad_cosine_param=worst_g,
+                update_on_replay_grads_bit_equal=True,
+                min_change_cosine=c_graph[0],
+                min_change_cosine_param=c_graph[1],
+                min_change_cosine_eager_vs_eager=c_eager[0],
+                min_change_cosine_eager_vs_eager_param=c_eager[1],
+                launches_graph=g_launch, launches_eager=e_launch)
+
+
 # the flash and RMSNorm kernels by name: the profiled steps report each
 # one's ms
 FLASH_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
                  "flash_bwd_wgmma_kernel", "flash_bwd_dq_convert_kernel")
 RMS_KERNELS = ("rms_fwd_kernel", "rms_bwd_vec_kernel", "rms_dw_reduce_kernel")
+ADAM_KERNELS = ("adam_kernel", "adam_pow_kernel")
 
 
 def kernel_ms(prof, names):
     """Device ms of a profiled window per kernel whose name holds one of
     ``names``."""
     out = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0):
-            for k in names:
-                if k in e.key:
-                    out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+    for t, key, _ in kernel_events(prof):
+        for k in names:
+            if k in key:
+                out[k] = out.get(k, 0.0) + t / 1e3
     return out
+
+
+def adam_launches_per_step(trainer) -> int:
+    """Update-kernel launches one step makes: a launch for every 40 (the
+    table's size) trainable tensors of one kind."""
+    from paddle_tpu_torch.ops.kernels import _build
+    cap = _build.library().adam_max_tensors()
+    kinds = {}
+    for n, p in trainer.params.items():
+        st = trainer.opt_state[n]
+        k = (p.dtype, st["moment1"].dtype, "master_weight" in st)
+        kinds[k] = kinds.get(k, 0) + 1
+    return sum(-(-c // cap) for c in kinds.values())
 
 
 def train_phase(card):
     """bench.py's bench_llama on the card: the 134M Llama (vocab 32000,
     hidden 768, intermediate 2048, 12 layers, 12 heads, MHA, bf16) through
     ShardedTrainer with AdamW(1e-4, multi_precision=False), B 8, S 1024,
-    the fixed batch of numpy seed 0, weights from a seeded generator. Then
-    the same with use_fused_rope on: the rope kernel against its plain
-    version in one backward, and the step time with rope's kernel beside
-    the step time without it, in this one run."""
+    the fixed batch of numpy seed 0, weights from a seeded generator. The
+    Adam kernel against its plain version on the model's tensors; the
+    step as a replayed CUDA graph against the eager step; the launches,
+    times and profiles of both routes. Then the same with use_fused_rope
+    on: the rope kernel against its plain version in one backward, the
+    rope key's own graph against the eager step, and the step time with
+    rope's kernel beside the step time without it, in this one run."""
     from paddle_tpu_torch.flags import set_flags
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import adam as ak
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.ops.kernels import rope as rp
@@ -1136,6 +1509,11 @@ def train_phase(card):
                       max_position_embeddings=1024, dtype="bfloat16")
     B, S = 8, 1024
     model = LlamaForCausalLM(cfg, seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters() if p.requires_grad]
+    adam_rows = adam_cases("bench_llama", shapes)
+    adam_rows.append(adam_case("adam bf16 AdamW bench_llama", shapes))
+    for r in adam_rows:
+        emit(r)
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                           device="cuda")
@@ -1147,6 +1525,7 @@ def train_phase(card):
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 multi_precision=False)
     trainer = ShardedTrainer(model, opt, llama_loss)
+    # the eager warm-up step, then the capture and its first replay
     losses = [trainer.train_step(*batch).item() for _ in range(2)]
     timed = 6
     counters = dict(flash_attention_fwd=(fa, "fwd_launches"),
@@ -1154,15 +1533,18 @@ def train_phase(card):
                     rms_norm_fwd=(rn, "fwd_launches"),
                     rms_norm_bwd=(rn, "bwd_launches"),
                     rope_fwd=(rp, "fwd_launches"),
-                    rope_bwd=(rp, "bwd_launches"))
+                    rope_bwd=(rp, "bwd_launches"),
+                    adam=(ak, "launches"))
     step_losses, wall, launches = timed_steps(trainer, batch, timed,
                                               counters)
+    replay_host_ms = 1e3 * trainer.update_host_s
     losses += step_losses
     L = cfg.num_hidden_layers
-    for what, per in (("flash_attention_fwd", L), ("flash_attention_bwd", L),
-                      ("rms_norm_fwd", 2 * L + 1),
-                      ("rms_norm_bwd", 2 * L + 1), ("rope_fwd", 0),
-                      ("rope_bwd", 0)):
+    per_step = dict(flash_attention_fwd=L, flash_attention_bwd=L,
+                    rms_norm_fwd=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                    rope_fwd=0, rope_bwd=0,
+                    adam=adam_launches_per_step(trainer))
+    for what, per in per_step.items():
         check(launches[what] == per * timed, f"train: {what} launches "
               f"{launches[what]} != {per} x {timed} steps")
     check(all(math.isfinite(x) for x in losses), f"train: losses {losses}")
@@ -1170,23 +1552,34 @@ def train_phase(card):
           f"train: first loss {losses[0]} not within 0.5 of ln V")
     check(losses[-1] < losses[0], f"train: loss did not fall over "
           f"{len(losses)} steps: {losses}")
+    vs_eager = graph_vs_eager("train", trainer, batch)
+    e_losses, e_wall, e_launches = timed_steps(trainer, batch, timed,
+                                               counters, eager=True)
+    eager_update_host_ms = 1e3 * trainer.update_host_s
+    check(e_launches == launches, f"train: eager launches {e_launches} "
+          f"!= the graph's {launches}")
+    check(all(math.isfinite(x) for x in e_losses),
+          f"train: eager losses {e_losses}")
     step_s = wall / timed
     flops = model.flops_per_token(S) * B * S
     info = dict(phase="train", card=card, batch=B, seq=S,
                 params=model.num_params(), steps=len(losses),
                 losses=losses, step_ms=1e3 * step_s,
+                step_ms_eager=1e3 * e_wall / timed,
                 tokens_per_s=B * S / step_s,
+                tokens_per_s_eager=B * S * timed / e_wall,
                 mfu=flops / step_s / BF16_FLOPS,
-                update_host_ms=1e3 * trainer.update_host_s,
+                replay_host_ms=replay_host_ms,
+                eager_update_host_ms=eager_update_host_ms,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches_per_step={k: v / timed for k, v in launches.items()},
-                kernel_vs_plain=vs_plain)
-    info["profiled"], prof = profiled_step(trainer, batch)
-    info["profiled"]["kernel_ms_per_step"] = kernel_ms(
-        prof, FLASH_KERNELS + RMS_KERNELS)
+                kernel_vs_plain=vs_plain, graph_vs_eager=vs_eager)
+    info["profiled"] = profiled_routes(trainer, batch,
+                                       FLASH_KERNELS + RMS_KERNELS)[0]
     emit(info)
 
-    # use_fused_rope on: 24 rope forward and 24 backward launches a step
+    # use_fused_rope on: 24 rope forward and 24 backward launches a step,
+    # under a graph of its own key
     set_flags({"use_fused_rope": True})
     try:
         rope_vs_plain = kernel_vs_plain("train rope", model, llama_loss,
@@ -1195,31 +1588,39 @@ def train_phase(card):
             trainer.train_step(*batch)
         r_losses, r_wall, r_launches = timed_steps(trainer, batch, timed,
                                                    counters)
+        r_vs_eager = graph_vs_eager("train rope", trainer, batch)
         r_prof, prof = profiled_step(trainer, batch)
-        r_prof["rope_kernel_ms_per_step"] = kernel_ms(
-            prof, ("rope_kernel",)).get("rope_kernel", 0.0)
+        r_ms = kernel_ms(prof, ("rope_kernel",))
+        if "rope_kernel" not in r_ms:
+            r_prof["rope_kernel_ms_from"] = "eager step"
+            r_ms = kernel_ms(profiled_step(trainer, batch, eager=True)[1],
+                             ("rope_kernel",))
+        r_prof["rope_kernel_ms_per_step"] = r_ms.get("rope_kernel", 0.0)
     finally:
         set_flags({"use_fused_rope": False})
     for what, per in (("rope_fwd", 2 * L), ("rope_bwd", 2 * L),
-                      ("flash_attention_fwd", L)):
+                      ("flash_attention_fwd", L),
+                      ("adam", per_step["adam"])):
         check(r_launches[what] == per * timed, f"train rope: {what} "
               f"launches {r_launches[what]} != {per} x {timed} steps")
     check(all(math.isfinite(x) for x in r_losses),
           f"train rope: losses {r_losses}")
-    # the same number of steps with the flag off again, in this run
+    # the same number of steps with the flag off again (its first graph),
+    # in this run
     o_losses, o_wall, _ = timed_steps(trainer, batch, timed, counters)
     rope = dict(phase="train_rope", card=card, steps=timed,
                 losses=r_losses, step_ms_rope_kernel=1e3 * r_wall / timed,
                 step_ms_rope_plain=1e3 * o_wall / timed,
                 launches_per_step={k: v / timed
                                    for k, v in r_launches.items()},
-                kernel_vs_plain=rope_vs_plain, profiled=r_prof)
+                kernel_vs_plain=rope_vs_plain, graph_vs_eager=r_vs_eager,
+                profiled=r_prof)
     emit(rope)
     launches["rope_fwd"] = r_launches["rope_fwd"]
     launches["rope_bwd"] = r_launches["rope_bwd"]
     del trainer, opt, model
     torch.cuda.empty_cache()
-    return info, launches
+    return info, launches, adam_rows
 
 
 def unet_census(cfg, B, side, ctx_len, min_seq):
@@ -1293,7 +1694,7 @@ KINDS = (("layout", ("nchwToNhwc", "nhwcToNchw")),
          ("conv_gemm", ("cudnn", "xmma", "gemm", "nvjet", "cutlass",
                         "sm90_", "implicit_convolve", "wgrad", "dgrad")),
          ("port_kernels", ("gn_fwd_", "gn_bwd_", "gn_dwdb_", "flash_",
-                           "rope_kernel", "rms_")),
+                           "rope_kernel", "rms_", "adam_")),
          ("elementwise_copy_reduce", ("at::native",)))
 
 
@@ -1301,13 +1702,10 @@ def kinds_ms(prof):
     """Device ms of a profiled window by kind of kernel (``KINDS``; the
     rest is ``other``)."""
     out = {}
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.self_device_time_total <= 0):
-            continue
+    for t, key, _ in kernel_events(prof):
         kind = next((k for k, pats in KINDS
-                     if any(p in e.key for p in pats)), "other")
-        out[kind] = out.get(kind, 0.0) + e.self_device_time_total / 1e3
+                     if any(p in key for p in pats)), "other")
+        out[kind] = out.get(kind, 0.0) + t / 1e3
     return out
 
 
@@ -1322,9 +1720,14 @@ def unet_phase(card):
     context 1024, 32 groups), bf16 parameters from a seeded generator,
     ShardedTrainer with AdamW(1e-4, multi_precision=False), B 8 latents
     4 x 64 x 64, timesteps in [0, 1000), context 8 x 77 x 1024, one batch
-    from numpy seed 0 reused every step."""
+    from numpy seed 0 reused every step. The Adam kernel against its
+    plain version on fresh tensors of the model's ten largest and ten
+    smallest shapes, and timed over all its shapes; the step as a
+    replayed CUDA graph against the eager step, and both routes' times
+    and profiles."""
     from paddle_tpu_torch.flags import flags
     from paddle_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.ops.kernels import adam as ak
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import group_norm as gn
     from paddle_tpu_torch.optimizer import AdamW
@@ -1337,6 +1740,13 @@ def unet_phase(card):
     n_gn, n_flash = len(census["gn"]), census["flash"]
     check((n_gn, n_flash) == (61, 5), f"unet: census {n_gn} GroupNorms, "
           f"{n_flash} flash calls")
+    shapes = [tuple(p.shape) for p in model.parameters() if p.requires_grad]
+    by_size = sorted(shapes, key=math.prod)
+    adam_rows = adam_cases("bench_unet 10 largest + 10 smallest",
+                           by_size[:10] + by_size[-10:])
+    adam_rows.append(adam_case("adam bf16 AdamW bench_unet", shapes))
+    for r in adam_rows:
+        emit(r)
     rng = np.random.default_rng(0)
     bf = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
                                    device="cuda").to(torch.bfloat16)
@@ -1352,23 +1762,36 @@ def unet_phase(card):
                 multi_precision=False)
     trainer = ShardedTrainer(model, opt, unet_loss)
     torch.cuda.reset_peak_memory_stats()
+    # the eager warm-up step, then the capture and its first replay
     losses = [trainer.train_step(*batch).item() for _ in range(2)]
     timed = 5
     counters = dict(group_norm_fwd=(gn, "fwd_launches"),
                     group_norm_bwd=(gn, "bwd_launches"),
                     flash_attention_fwd=(fa, "fwd_launches"),
-                    flash_attention_bwd=(fa, "bwd_launches"))
+                    flash_attention_bwd=(fa, "bwd_launches"),
+                    adam=(ak, "launches"))
     step_losses, wall, launches = timed_steps(trainer, batch, timed,
                                               counters)
+    replay_host_ms = 1e3 * trainer.update_host_s
+    peak = torch.cuda.max_memory_allocated() / 1e9
     losses += step_losses
     for what, per in (("group_norm_fwd", n_gn), ("group_norm_bwd", n_gn),
                       ("flash_attention_fwd", n_flash),
-                      ("flash_attention_bwd", n_flash)):
+                      ("flash_attention_bwd", n_flash),
+                      ("adam", adam_launches_per_step(trainer))):
         check(launches[what] == per * timed, f"unet: {what} launches "
               f"{launches[what]} != {per} x {timed} steps")
     check(all(math.isfinite(v) for v in losses), f"unet: losses {losses}")
     check(losses[-1] < losses[0], f"unet: loss did not fall over "
           f"{len(losses)} steps: {losses}")
+    vs_eager = graph_vs_eager("unet", trainer, batch)
+    e_losses, e_wall, e_launches = timed_steps(trainer, batch, timed,
+                                               counters, eager=True)
+    eager_update_host_ms = 1e3 * trainer.update_host_s
+    check(e_launches == launches, f"unet: eager launches {e_launches} "
+          f"!= the graph's {launches}")
+    check(all(math.isfinite(v) for v in e_losses),
+          f"unet: eager losses {e_losses}")
     step_s = wall / timed
     flops = 3 * 2 * (census["macs"] + census["attn_macs"])
     gn_elems = sum(B * ch_ * hw for ch_, hw, _ in census["gn"])
@@ -1378,23 +1801,25 @@ def unet_phase(card):
         bwd_ms=1e3 * 3 * gn_elems * esz / HBM_BYTES_PER_S)
     info = dict(phase="unet_train", card=card, batch=B, latent=side,
                 params=model.num_params(), steps=len(losses), losses=losses,
-                step_ms=1e3 * step_s, images_per_s=B / step_s,
+                step_ms=1e3 * step_s, step_ms_eager=1e3 * e_wall / timed,
+                images_per_s=B / step_s, images_per_s_eager=B * timed / e_wall,
                 step_tflop=flops / 1e12, mfu=flops / step_s / BF16_FLOPS,
-                update_host_ms=1e3 * trainer.update_host_s,
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                replay_host_ms=replay_host_ms,
+                eager_update_host_ms=eager_update_host_ms,
+                peak_memory_gb=peak,
                 launches_per_step={k: v / timed for k, v in launches.items()},
                 group_norm_elements_per_step=gn_elems,
                 group_norm_bound_ms_per_step=gn_bound,
-                kernel_vs_plain=vs_plain)
-    prof_info, prof = profiled_step(trainer, batch)
-    prof_info["kernel_ms_per_step"] = kernel_ms(
-        prof, ("gn_fwd_", "gn_bwd_", "gn_dwdb_") + FLASH_KERNELS)
-    prof_info["ms_by_kind"] = kinds_ms(prof)
+                kernel_vs_plain=vs_plain, graph_vs_eager=vs_eager)
+    prof_info, g_prof, e_prof, named = profiled_routes(
+        trainer, batch, ("gn_fwd_", "gn_bwd_", "gn_dwdb_") + FLASH_KERNELS)
+    prof_info["ms_by_kind"] = kinds_ms(g_prof if named else e_prof)
+    prof_info["ms_by_kind_eager"] = kinds_ms(e_prof)
     info["profiled"] = prof_info
     emit(info)
     del trainer, opt, model
     torch.cuda.empty_cache()
-    return info, launches
+    return info, launches, adam_rows
 
 
 def main() -> int:
@@ -1426,9 +1851,9 @@ def main() -> int:
     t2 = time.perf_counter()
     runs = serving_phase(card)
     t3 = time.perf_counter()
-    _, launches = train_phase(card)
+    _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
-    _, unet_launches = unet_phase(card)
+    _, unet_launches, adam_unet = unet_phase(card)
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"serving {t3 - t2:.1f} s, llama training {t4 - t3:.1f} s, unet "
           f"training {time.perf_counter() - t4:.1f} s", flush=True)
@@ -1438,9 +1863,11 @@ def main() -> int:
         group_norm_fwd=unet_launches["group_norm_fwd"],
         group_norm_bwd=unet_launches["group_norm_bwd"],
         flash_attention_fwd_d80=unet_launches["flash_attention_fwd"],
-        flash_attention_bwd_d80=unet_launches["flash_attention_bwd"])
+        flash_attention_bwd_d80=unet_launches["flash_attention_bwd"],
+        adam_unet=unet_launches["adam"])
     for k, n in launches.items():
         check(n > 0, f"{k} never launched on its path")
+    cases += adam_llama + adam_unet
     flash = "flash_attention bf16 B8 H12 S1024 D64 causal"
     flash80 = "flash_attention bf16 B8 H8 S1024 D80"
     rms = "rms_norm bf16 8192x768"
@@ -1450,6 +1877,10 @@ def main() -> int:
     fa_bwd_src = "paddle_tpu_torch/csrc/flash_bwd.cu"
     fa_fwd = "paddle_tpu/ops/pallas/flash_attention.py:142 and :163"
     fa_bwd = "paddle_tpu/ops/pallas/flash_attention.py:304 and :325"
+    # no pallas_call: the JAX trainer's jit fuses AdamW.update into the
+    # step (paddle_tpu/parallel/train.py:234)
+    adam_src = "paddle_tpu_torch/csrc/adam.cu"
+    adam_jax = "paddle_tpu/optimizer/adam.py:116 (AdamW.update)"
     rows = []
     for name, kernel, src, replaces, case in (
             ("decode_attention", "decode_attention",
@@ -1483,13 +1914,18 @@ def main() -> int:
              "paddle_tpu/ops/pallas/group_norm.py:139", f"{gn_case_} fwd"),
             ("group_norm_bwd", "group_norm_bwd",
              "paddle_tpu_torch/csrc/group_norm.cu",
-             "paddle_tpu/ops/pallas/group_norm.py:196", f"{gn_case_} bwd")):
+             "paddle_tpu/ops/pallas/group_norm.py:196", f"{gn_case_} bwd"),
+            ("adam", "adam", adam_src, adam_jax,
+             "adam bf16 AdamW bench_llama"),
+            ("adam_unet", "adam", adam_src, adam_jax,
+             "adam bf16 AdamW bench_unet")):
         c = next(c for c in cases if c["case"] == case)
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in cases
-                            if x["kernel"] == kernel),
+                            if x["kernel"] == kernel
+                            and "max_abs_err" in x),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"], case=case))
     emit({"kernels": rows})

@@ -80,6 +80,12 @@ class _Flags:
                                   else _parse(name, env))
         return self._values[name]
 
+    def snapshot(self) -> tuple:
+        """Every declared flag's current value, as (name, value) pairs in
+        declaration order: what a captured CUDA graph is keyed on, since a
+        replay runs whatever route the flags chose at its capture."""
+        return tuple((n, getattr(self, n)) for n in _DEFAULTS)
+
 
 flags = _Flags()
 

@@ -5,10 +5,12 @@ The forward over a statically shaped KV cache is the same: token-major
 ``(layers, B, max_len, KV, D)`` for MHA, head-major ``(layers, B, KV,
 max_len, D)`` for GQA (the decode-attention kernel's layout). Where the
 JAX package compiles a ``lax.scan`` into one program, the port runs a
-Python loop of eager launches; each prefill, admission prefill or chunk
-call still counts as one dispatch (``dispatch_count``), so the serving
-accounting matches the JAX package's. The caches are updated in place:
-the carry is never copied between steps.
+Python loop of eager launches, except for the chunk: on a card,
+``decode_chunk`` replays its T steps as one CUDA graph (``_ChunkGraph``).
+Each prefill, admission prefill or chunk call counts as one dispatch
+(``dispatch_count``), so the serving accounting matches the JAX
+package's. The caches are updated in place: the carry is never copied
+between steps.
 
 Routing, as in the JAX package: a GQA single-token step (S == 1) with
 ``flags.use_decode_attention`` goes to the decode-attention kernel
@@ -30,11 +32,12 @@ parameters are trainable, and decoding records no autograd graph.
 Not ported yet (ROADMAP.md queue 1): sampling (``do_sample=True`` needs a
 threefry2x32 matching ``jax.random`` bit for bit), speculative decoding
 (``draft_model=``), LoRA (``adapter_idx=``), meshes, the retry and
-degradation ladder, CUDA graphs.
+degradation ladder, CUDA graphs of the fused loop and of prefills.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Any, Optional
@@ -46,6 +49,7 @@ import torch.nn.functional as F
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.models.llama import LlamaConfig, _rope_tables
+from paddle_tpu_torch.ops import kernels as _kernels
 from paddle_tpu_torch.ops.kernels import decode_attention as _da
 from paddle_tpu_torch.ops.kernels import int8_matmul as _i8
 from paddle_tpu_torch.quantization import weight_quantize
@@ -178,8 +182,8 @@ def _dense_attention(q, kc_l, vc_l, pos, max_len: int, head_major: bool):
         scores = torch.einsum("bqhd,bhkd->bhqk", q, kk)
     else:
         scores = torch.einsum("bqhd,bkhd->bhqk", q, kk)
-    scores = scores / torch.sqrt(torch.tensor(
-        float(D), dtype=torch.float32, device=dev)).to(q.dtype)
+    scores = scores / torch.sqrt(torch.full(
+        (), float(D), dtype=torch.float32, device=dev)).to(q.dtype)
     scores = torch.where(mask, scores.float(), float("-inf"))
     attn = torch.softmax(scores, dim=-1).to(q.dtype)
     if head_major:
@@ -326,6 +330,10 @@ class LlamaDecoder:
                                     self.device)
         self.dispatch_count = 0
         self.last_resilience = None
+        # chunk key -> its _ChunkGraph, or None after the key's eager
+        # warm-up chunk; the oldest keys go first past _CHUNK_GRAPHS
+        self._chunk_graphs: "collections.OrderedDict[tuple, Any]" = \
+            collections.OrderedDict()
 
     # -- buffers -----------------------------------------------------------
     def _empty_cache(self, B: int):
@@ -403,12 +411,11 @@ class LlamaDecoder:
         toks.append(pick(logits, done)[0])
         return torch.stack(toks, 1)
 
-    def _chunk_decode(self, st: DecodeState, steps: int):
+    def _chunk_steps(self, st: DecodeState, steps: int):
         """T steps of the greedy loop over the per-row carry. Done rows
         emit their eos (0 without one); rows past their budget keep
         stepping to the chunk boundary with ``pos`` clamped to the last
         cache slot, so their discarded writes stay inside the buffer."""
-        self.dispatch_count += 1
         logits, pos, done, eos = st.logits, st.pos, st.done, st.eos
         fill = torch.where(eos >= 0, eos, 0)
         toks = []
@@ -420,6 +427,28 @@ class LlamaDecoder:
             pos = torch.clamp(pos + 1, max=self.max_len - 1)
         return torch.stack(toks, 1), dataclasses.replace(
             st, logits=logits, pos=pos, done=done)
+
+    def _chunk_decode(self, st: DecodeState, steps: int):
+        """One counted dispatch of ``_chunk_steps``. On a card, the first
+        chunk of a key (batch, T, quant recipe, the caches' addresses,
+        every flag's value) runs eagerly; the second captures the chunk
+        into a CUDA graph and every later one replays it. A failed capture
+        raises."""
+        self.dispatch_count += 1
+        if self.device.type != "cuda":
+            return self._chunk_steps(st, steps)
+        key = (st.logits.shape[0], steps, self.quant, _addresses(st.kc),
+               _addresses(st.vc), flags.snapshot())
+        graphs = self._chunk_graphs
+        if key not in graphs:
+            graphs[key] = None
+            while len(graphs) > _CHUNK_GRAPHS:
+                graphs.popitem(last=False)
+            return self._chunk_steps(st, steps)
+        graphs.move_to_end(key)
+        if graphs[key] is None:
+            graphs[key] = _ChunkGraph(self, st, steps)
+        return graphs[key].run(st)
 
     # -- chunked resumable decode ------------------------------------------
     @torch.inference_mode()
@@ -565,6 +594,45 @@ class LlamaDecoder:
                                 "retries": 0, "degradations": [],
                                 "events": []}
         return GenerateResult.wrap(out, self.last_resilience)
+
+
+# captured chunks a decoder keeps (each holds its own memory pool)
+_CHUNK_GRAPHS = 4
+
+
+def _addresses(cache) -> tuple:
+    if is_quantized_kv(cache):
+        return cache["q"].data_ptr(), cache["s"].data_ptr()
+    return (cache.data_ptr(),)
+
+
+class _ChunkGraph:
+    """``_chunk_steps`` captured once as a CUDA graph over static copies
+    of the small carry (logits, pos, done, eos) and the caller's KV caches
+    themselves, which it updates in place as the eager chunk does (the
+    serving engine writes admitted rows into them between chunks). ``run``
+    copies a carry in, replays, and returns clones of the outputs, so an
+    earlier ``DecodeState`` keeps its values when a later chunk
+    replays."""
+
+    def __init__(self, dec: LlamaDecoder, st: DecodeState, steps: int):
+        self.inputs = dataclasses.replace(
+            st, logits=st.logits.clone(), pos=st.pos.clone(),
+            done=st.done.clone(), eos=st.eos.clone())
+        self.graph = torch.cuda.CUDAGraph()
+        before = _kernels.launch_counts()
+        with torch.cuda.graph(self.graph):
+            self.toks, self.out = dec._chunk_steps(self.inputs, steps)
+        self.launches = _kernels.captured_launches(before)
+
+    def run(self, st: DecodeState):
+        for name in ("logits", "pos", "done", "eos"):
+            getattr(self.inputs, name).copy_(getattr(st, name))
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
+        return self.toks.clone(), dataclasses.replace(
+            st, logits=self.out.logits.clone(), pos=self.out.pos.clone(),
+            done=self.out.done.clone())
 
 
 def _check_speculative(draft_model, num_speculative_tokens,

@@ -89,14 +89,18 @@ class _FusedLinearCE(torch.autograd.Function):
         # mean over non-ignored tokens; ignored and out-of-range rows get
         # no gradient
         scale = (g / not_ignored.sum().clamp_min(1.0)) * active
-        rows = torch.arange(hidden.shape[0], device=hidden.device)
         dh = torch.zeros(hidden.shape, device=hidden.device)
         dws = []
         for base in range(0, V, chunk):
             w = head[:, base:base + chunk]
             p = _f32_matmul(hidden, w).sub_(lse[:, None]).exp_()
-            hit = (labels >= base) & (labels < base + p.shape[1])
-            p[rows[hit], labels[hit] - base] -= 1.0     # softmax - onehot
+            c = p.shape[1]
+            hit = (labels >= base) & (labels < base + c)
+            # softmax - onehot: -1 at each row's label in this chunk, -0
+            # (no change) elsewhere; no data-dependent shapes, so a CUDA
+            # graph can capture it
+            p.scatter_add_(1, (labels - base).clamp(0, c - 1)[:, None],
+                           hit.float().neg()[:, None])
             dlogits = p.mul_(scale[:, None]).to(hidden.dtype)
             dh += _f32_matmul(dlogits, w.t())
             dws.append(_f32_matmul(hidden.t(), dlogits))

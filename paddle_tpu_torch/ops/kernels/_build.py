@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 OUT_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_fwd.cu",
-           "flash_bwd.cu", "rms_norm.cu", "group_norm.cu", "rope.cu")
+           "flash_bwd.cu", "rms_norm.cu", "group_norm.cu", "rope.cu",
+           "adam.cu")
 # headers the sources include: part of the library's hash
 HEADERS = ("flash_common.cuh", "flash_f32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,6 +62,9 @@ _SIGNATURES = {
     "group_norm_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rope_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "adam_launch": [_P, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _F, _F,
+                    _P],
+    "adam_max_tensors": [],
 }
 
 _lock = threading.Lock()

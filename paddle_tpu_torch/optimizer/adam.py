@@ -4,19 +4,26 @@ Counterpart of ``paddle_tpu/optimizer/adam.py``: the update math in f32,
 then one cast to the parameter's dtype; f32 ``beta1_pow``/``beta2_pow``;
 moments in f32, or in the parameter's dtype for a low-precision
 parameter with ``multi_precision=False``; an f32 ``master_weight`` for a
-low-precision parameter with ``multi_precision=True``.
+low-precision parameter with ``multi_precision=True``. The arithmetic
+lives in ``ops/kernels/adam.py``: ``update`` is its ``adam_ref`` on one
+parameter, ``update_many`` its multi-tensor kernel on CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.ops.kernels import adam as _adam
 from paddle_tpu_torch.optimizer.optimizer import Optimizer, _not_ported
 
 __all__ = ["Adam", "AdamW"]
 
 
 class Adam(Optimizer):
+    # False: L2 regularization folded into the gradient (paddle's Adam);
+    # True: decoupled decay of the weight (AdamW)
+    _decoupled = False
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=True,
@@ -40,40 +47,32 @@ class Adam(Optimizer):
             st["master_weight"] = p.detach().float().clone()
         return st
 
-    def _decayed_grad(self, g, p32, wd):
-        # Adam: L2 regularization folded into the gradient (paddle)
-        return g + wd * p32
-
-    def _apply_decay(self, p32, lr, wd):
-        return p32
-
     def update(self, g, st, p, lr, wd):
-        p32 = st.get("master_weight")
-        if p32 is None:
-            p32 = p.float()
-        g = self._decayed_grad(g.float(), p32, wd)
-        b1, b2 = self._beta1, self._beta2
-        b1p = st["beta1_pow"] * b1
-        b2p = st["beta2_pow"] * b2
-        mdt = st["moment1"].dtype
-        m1 = b1 * st["moment1"].float() + (1 - b1) * g
-        m2 = b2 * st["moment2"].float() + (1 - b2) * g.square()
-        m1_hat = m1 / (1 - b1p)
-        m2_hat = m2 / (1 - b2p)
-        p32 = self._apply_decay(p32, lr, wd)
-        new_p32 = p32 - lr * m1_hat / (m2_hat.sqrt() + self._epsilon)
-        new_st = {"moment1": m1.to(mdt), "moment2": m2.to(mdt),
-                  "beta1_pow": b1p, "beta2_pow": b2p}
-        if "master_weight" in st:
-            new_st["master_weight"] = new_p32
-        return new_p32.to(p.dtype), new_st
+        new_p, m1, m2, w, b1p, b2p = _adam.adam_ref(
+            p, g, st["moment1"], st["moment2"], st.get("master_weight"),
+            st["beta1_pow"], st["beta2_pow"], lr, self._beta1, self._beta2,
+            self._epsilon, wd, self._decoupled)
+        new_st = {"moment1": m1, "moment2": m2, "beta1_pow": b1p,
+                  "beta2_pow": b2p}
+        if w is not None:
+            new_st["master_weight"] = w
+        return new_p, new_st
+
+    @torch.no_grad()
+    def update_many(self, grads, states, params, lr, wd) -> None:
+        """``update`` over lists, in place, as ``ops/kernels/adam.py``
+        ``adam_update``: one multi-tensor kernel pass for CUDA tensors, the
+        per-parameter update for CPU tensors."""
+        _adam.adam_update(
+            list(params), list(grads), [st["moment1"] for st in states],
+            [st["moment2"] for st in states],
+            [st.get("master_weight") for st in states],
+            [st["beta1_pow"] for st in states],
+            [st["beta2_pow"] for st in states], lr, self._beta1,
+            self._beta2, self._epsilon, wd, self._decoupled)
 
 
 class AdamW(Adam):
     """Decoupled weight decay."""
 
-    def _decayed_grad(self, g, p32, wd):
-        return g
-
-    def _apply_decay(self, p32, lr, wd):
-        return p32 * (1.0 - lr * wd)
+    _decoupled = True

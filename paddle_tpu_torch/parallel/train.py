@@ -1,32 +1,69 @@
-"""The training step: model + optimizer -> one eager step on the card.
+"""The training step: model + optimizer -> one step on the card.
 
-Counterpart of ``paddle_tpu/parallel/train.py`` on one device. Where the
-JAX package lifts the model to a pure function and compiles forward,
-``jax.grad`` and the optimizer's functional update into one SPMD program
-over a mesh, the port runs the loss forward eagerly, takes the gradients
-with ``torch.autograd``, and applies the same functional update
-(``optimizer.update``) parameter by parameter, writing the results into
-the parameters in place. The optimizer state lives on the trainer, keyed
-by parameter name, as in the JAX trainer; every trainable parameter takes
-``optimizer._weight_decay``. Meshes of more than one device and AMP are
-not ported yet (ROADMAP.md section 1, items 13 and 14).
+Counterpart of ``paddle_tpu/parallel/train.py`` on one device. The JAX
+package lifts the model to a pure function and compiles forward,
+``jax.grad`` and the optimizer's functional update into one jitted program
+with donated buffers. The port runs the loss forward, takes the gradients
+with ``torch.autograd`` and applies the update with
+``optimizer.update_many`` (one multi-tensor kernel for ``Adam``/``AdamW``
+on the card), writing parameters and optimizer state in place. On a CUDA
+model that whole step becomes one CUDA graph, replayed once a step:
+
+- the first ``train_step`` of a key (the batch's shapes and dtypes, the
+  weight decay and every flag's value, ``flags.snapshot()``) runs the
+  step eagerly on a side stream; this warm-up is a real step;
+- the second captures forward, ``loss.backward()`` and ``update_many``
+  into one ``torch.cuda.CUDAGraph`` over static batch buffers and
+  replays it once; the gradients are the graph's own tensors from then
+  on;
+- later calls copy the batch into the static buffers and replay.
+
+A key not seen before captures again, so turning a flag on in mid-run
+takes effect (the JAX trainer keeps its first trace: ROADMAP.md section
+3). The trainer keeps the ``_STEP_GRAPHS`` most recently used keys and
+drops the oldest past that, with its graph and the graph's memory pool
+(a whole step's activations and gradients). A failed capture raises; the
+step never falls back to eager on the card. The kernel writes the
+parameters through raw pointers, so the update and each replay bump the
+parameters' version counters, as an in-place op would (a ``LlamaDecoder``
+that ``model.generate`` cached rebuilds after it). The learning rate lives in an f32 device tensor that is refilled
+when ``optimizer.get_lr()`` changes (the JAX trainer's ``_scalars``), so a
+replay reads the current rate. Kernel launch counters keep counting
+through replays (``ops.kernels.add_launches``). On the CPU every step runs
+eagerly.
+
+The optimizer state lives on the trainer, keyed by parameter name, as in
+the JAX trainer; every trainable parameter takes
+``optimizer._weight_decay``. Meshes of more than one device, AMP and
+checkpoint files are not ported yet (ROADMAP.md section 1, items 13 and
+14).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
+
+from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.ops import kernels as _kernels
 
 __all__ = ["ShardedTrainer"]
 
+# step keys a trainer keeps (a captured step holds its own memory pool)
+_STEP_GRAPHS = 2
 
-def _not_ported(what: str) -> NotImplementedError:
+
+def _not_ported(what: str, items: str = "items 13 and 14") -> \
+        NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md section "
-        f"1, items 13 and 14)")
+        f"1, {items})")
 
 
 def _mesh_size(mesh) -> int:
@@ -39,6 +76,15 @@ def _mesh_size(mesh) -> int:
     return int(size() if callable(size) else size)
 
 
+@dataclasses.dataclass
+class _StepGraph:
+    graph: torch.cuda.CUDAGraph
+    inputs: List[torch.Tensor]   # static batch buffers
+    loss: torch.Tensor           # static loss
+    grads: Dict[str, torch.Tensor]   # static gradients, by parameter name
+    launches: dict               # kernel launches one replay makes
+
+
 class ShardedTrainer:
     """One-device trainer with the JAX ``ShardedTrainer``'s surface.
 
@@ -47,9 +93,10 @@ class ShardedTrainer:
     ``train_step(*batch)`` runs one step and returns the loss;
     ``train_steps(*stacked)`` runs K steps over (K, ...) inputs and
     returns the (K,) losses. Both advance ``optimizer._step_count``. The
-    step runs on the model's device; batches are moved there. ``mesh``
-    may be None or one device; ``plan`` (placements per parameter name)
-    is then a no-op, as the JAX trainer's is on a one-device mesh."""
+    step runs on the model's device, as one replayed CUDA graph on a card
+    (module docstring); batches are moved there. ``mesh`` may be None or
+    one device; ``plan`` (placements per parameter name) is then a no-op,
+    as the JAX trainer's is on a one-device mesh."""
 
     def __init__(self, model: torch.nn.Module, optimizer, loss_fn: Callable,
                  mesh=None, plan: Optional[Dict[str, Sequence]] = None,
@@ -65,9 +112,14 @@ class ShardedTrainer:
                        if p.requires_grad}
         self.opt_state = {n: optimizer.init_state(p)
                           for n, p in self.params.items()}
-        #: host seconds the last step spent issuing the optimizer update
-        #: (about a dozen eager ops per parameter; the device may still be
-        #: running them when the step returns)
+        self._lr: Optional[tuple] = None     # (host value, f32 tensor)
+        # step key -> its _StepGraph, or None after the key's eager
+        # warm-up step; the oldest keys go first past _STEP_GRAPHS
+        self._graphs: "collections.OrderedDict[tuple, Optional[_StepGraph]]" \
+            = collections.OrderedDict()
+        #: host seconds the last step spent issuing its update: on a card,
+        #: the whole step's graph replay (the device may still be running
+        #: it when the step returns); on the CPU, the eager update
         self.update_host_s = 0.0
 
     @property
@@ -85,33 +137,141 @@ class ShardedTrainer:
                 torch.bfloat16).to(self.device)
         return torch.as_tensor(a, device=self.device)
 
-    def _step(self, batch) -> torch.Tensor:
+    def _lr_tensor(self) -> torch.Tensor:
+        """The learning rate as an f32 0-dim tensor on the device, refilled
+        in place when ``optimizer.get_lr()`` changes (a captured step reads
+        it from there)."""
+        lr = float(self.optimizer.get_lr())
+        if self._lr is None:
+            self._lr = (lr, torch.full((), lr, dtype=torch.float32,
+                                       device=self.device))
+        elif self._lr[0] != lr:
+            self._lr[1].fill_(lr)
+            self._lr = (lr, self._lr[1])
+        return self._lr[1]
+
+    def _update(self, lr: torch.Tensor) -> None:
+        opt = self.optimizer
+        names = list(self.params)
+        opt.update_many([self.params[n].grad for n in names],
+                        [self.opt_state[n] for n in names],
+                        [self.params[n] for n in names], lr,
+                        getattr(opt, "_weight_decay", 0.0) or 0.0)
+
+    def _eager(self, batch, lr) -> torch.Tensor:
         for p in self.params.values():
             p.grad = None
         loss = self.loss_fn(self.model, *batch)
         loss.backward()
-        opt = self.optimizer
-        lr = float(opt.get_lr())
-        wd = getattr(opt, "_weight_decay", 0.0) or 0.0
         t0 = time.perf_counter()
-        with torch.no_grad():
-            for name, p in self.params.items():
-                new_p, self.opt_state[name] = opt.update(
-                    p.grad, self.opt_state[name], p, lr, wd)
-                p.copy_(new_p)
-                p.grad = None
+        self._update(lr)
         self.update_host_s = time.perf_counter() - t0
-        opt._step_count += 1
+        for p in self.params.values():
+            p.grad = None
+        self.optimizer._step_count += 1
         return loss.detach()
+
+    def _eager_step(self, *batch) -> torch.Tensor:
+        """One step run eagerly on the current stream, on any device: the
+        route the captured step is held against (no graph is made or
+        used). Returns the loss."""
+        return self._eager([self._put(b) for b in batch], self._lr_tensor())
+
+    def _key(self, batch) -> tuple:
+        return (tuple((tuple(b.shape), b.dtype) for b in batch),
+                getattr(self.optimizer, "_weight_decay", 0.0),
+                flags.snapshot())
+
+    def _capture(self, batch, lr) -> _StepGraph:
+        inputs = [b.clone() for b in batch]
+        for p in self.params.values():
+            p.grad = None       # backward allocates them inside the graph
+        graph = torch.cuda.CUDAGraph()
+        before = _kernels.launch_counts()
+        with torch.cuda.graph(graph):
+            loss = self.loss_fn(self.model, *inputs)
+            loss.backward()
+            self._update(lr)
+        return _StepGraph(graph, inputs, loss.detach(),
+                          {n: p.grad for n, p in self.params.items()},
+                          _kernels.captured_launches(before))
+
+    def _step(self, batch) -> torch.Tensor:
+        """One step; returns the loss, which on a card may be the graph's
+        static loss (the caller copies it out)."""
+        lr = self._lr_tensor()
+        if self.device.type != "cuda":
+            return self._eager(batch, lr)
+        key = self._key(batch)
+        graphs = self._graphs
+        if key not in graphs:
+            # warm-up: the first step of this key, eager on a side stream
+            graphs[key] = None
+            while len(graphs) > _STEP_GRAPHS:
+                graphs.popitem(last=False)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                loss = self._eager(batch, lr)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            return loss
+        graphs.move_to_end(key)
+        g = graphs[key]
+        if g is None:
+            g = graphs[key] = self._capture(batch, lr)
+        else:
+            for dst, src in zip(g.inputs, batch):
+                dst.copy_(src)
+        t0 = time.perf_counter()
+        g.graph.replay()
+        _kernels.add_launches(g.launches)
+        for p in self.params.values():
+            increment_version(p)    # the replay wrote them in place
+        self.update_host_s = time.perf_counter() - t0
+        self.optimizer._step_count += 1
+        return g.loss
 
     def train_step(self, *batch) -> torch.Tensor:
         """One step; updates the parameters and optimizer state in place.
         Returns the loss (a 0-dim tensor on the device)."""
-        return self._step([self._put(b) for b in batch])
+        return self._step([self._put(b) for b in batch]).clone()
 
     def train_steps(self, *stacked_batch) -> torch.Tensor:
         """K steps; input i of step k is ``stacked_batch[i][k]``. Returns
-        the (K,) losses."""
+        the (K,) losses. On a card each step replays the step's graph (from
+        the third step of a new key on), with no host sync between
+        steps."""
         vals = [self._put(b) for b in stacked_batch]
-        return torch.stack([self._step([v[k] for v in vals])
-                            for k in range(vals[0].shape[0])])
+        out = None
+        for k in range(vals[0].shape[0]):
+            loss = self._step([v[k] for v in vals])
+            if out is None:
+                out = loss.new_empty((vals[0].shape[0],))
+            out[k] = loss
+        return out
+
+    # -- checkpoint ---------------------------------------------------------
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The JAX trainer's keys: ``model.<name>`` for every tensor of the
+        model's state dict, ``opt.<name>.<state>`` for every optimizer
+        state of a trainable parameter. The tensors are copies, on the
+        model's device: a later step leaves them as they were, as the JAX
+        trainer's immutable arrays are."""
+        out = {f"model.{n}": t.clone()
+               for n, t in self.model.state_dict().items()}
+        for n, st in self.opt_state.items():
+            for k, v in st.items():
+                out[f"opt.{n}.{k}"] = v.clone()
+        return out
+
+    def save(self, path: str) -> None:
+        raise _not_ported("ShardedTrainer.save (the distributed checkpoint "
+                          "format)", "item 14")
+
+    def load(self, path: str) -> None:
+        raise _not_ported("ShardedTrainer.load (the distributed checkpoint "
+                          "format)", "item 14")
+
+    def compile_lowered(self, *batch_shapes_dtypes):
+        raise _not_ported("ShardedTrainer.compile_lowered (AOT lowering of "
+                          "the step)", "item 14")

@@ -47,15 +47,23 @@ smoke run is made, nothing else is built.
    another order each run). f32 GroupNorm dw and db are held at 1e-4 of
    their largest |ref|; the shifted 1000 +- 0.01 GroupNorm case must also be
    finite and no further from the f64 truth than the plain version.
+   The threefry kernel (the sampler's counter hashing) must equal its
+   plain version bit for bit at 8 keys x 32000 counters (one draw of a
+   served sampling step) and 1 key x 2^20, and split and fold_in of the
+   sampled line's 16 row keys on the card must equal the CPU's.
 4. Serving phase: the GQA Llama of bench.py's decode-quant config (vocab
    32000, hidden 768, intermediate 2048, 12 layers, 12 heads, 4 KV heads,
    bf16, random weights from a seeded generator) behind ``ServingEngine``
    (8 slots, chunk 16, max_len 256) answering 16 mixed requests, once
-   unquantized and once with ``quant="int8wk"``, each chunk a replay of
-   its CUDA graph (the first chunk eager, the second captured). Checks
-   every request's length against its budget and eos, finite logits, the
-   dispatch identity, one captured graph, the kernel launch counts the
-   path implies, and teacher-forced top-1 agreement >= 0.99 between the
+   unquantized and once with ``quant="int8wk"``, admitting through the
+   device admission ring, each chunk a replay of its CUDA graph and each
+   prompt bucket's admission prefill a replay of its own (a key's first
+   call eager, its second captured). Checks every request's length
+   against its budget and eos, finite logits, the dispatch identity, one
+   captured chunk graph, at most one captured prefill graph per bucket,
+   the ring's accounting (16 rows staged and spliced, none host-
+   scattered), the kernel launch counts the path implies, and
+   teacher-forced top-1 agreement >= 0.99 between the
    served tokens and a plain re-score wherever the re-score's top-1 leads
    by more than 2 bf16 spacings of the logits (and every served token
    within 4 spacings of the re-score's best elsewhere). The requests are
@@ -65,6 +73,24 @@ smoke run is made, nothing else is built.
    request, and the eager route the same launch counts. Each line prints
    both routes' tokens/s, ms a chunk and device busy share, with the
    costliest kernels and the int8 and decode-attention kernels' ms.
+   Then the sampled line: the same 16 requests, unquantized, through
+   ``ServingEngine(do_sample=True, top_k=50, top_p=0.9)`` with seeds
+   1000 + j and temperatures 0.7-1.0 (request 0: 1e-4): lengths,
+   dispatch identity, one captured chunk, the ring, two threefry
+   launches a decode step; every sampled token inside the re-score's top
+   50 or within 4 bf16 spacings of its 50th logit; request 0 equal to the
+   greedy tokens up to a first difference where the re-score's top two
+   logits are exactly equal (the gap is printed); the same tokens served
+   again, under the profiler and by the eager-chunk engine. One more
+   drain copies, before each chunk, the card's carry logits, keys and
+   temperatures of the rows the chunk does not splice in, and redraws
+   each such row's first token on the CPU from plain versions (threefry
+   in int64, the uniform's mantissa trick, gumbel, the temperature /
+   top-k / top-p filter): the served token must be the redraw's, or a
+   near tie of it (within 4 f32 spacings of max(|best perturbed logit|,
+   1)). Its
+   line prints tokens/s, ms a chunk, the busy share and the threefry
+   kernel's ms a decode step.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -110,8 +136,9 @@ smoke run is made, nothing else is built.
    step ms and images/s, MFU (the census's FLOPs), peak memory, the
    replay's host ms and the profiled routes' busy shares, kernel kinds and
    per-kernel ms.
-7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows and the Adam
-   kernel's, at the Llama's and the UNet's tensors), the card line, and
+7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows, the Adam
+   kernel's at the Llama's and the UNet's tensors, and the threefry
+   kernel's, launched by the sampled line), the card line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
@@ -766,6 +793,55 @@ def rope_case(name, B, S, H, D, dtype, g, parent=None):
     return rows
 
 
+def served_keys():
+    """The 16 keys the sampled serving line's rows start from: request j
+    has seed 1000 + j, and its row key is split(PRNGKey(seed), 1)[0],
+    made on the CPU as the engine makes it."""
+    from paddle_tpu_torch import random as rnd
+    return torch.stack([rnd.split(rnd.PRNGKey(1000 + j, device="cpu"), 1)[0]
+                        for j in range(16)])
+
+
+def threefry_case(name, R, n):
+    """The threefry kernel against its plain version, bit for bit, on R
+    keys split from the served keys, timed as a CUDA graph beside its
+    bound: 8 bytes written a counter (the integer operations are not
+    counted). No single PyTorch call computes these bits."""
+    from paddle_tpu_torch import random as rnd
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    base = served_keys().cuda()
+    sets = [(rnd.split(base[j % 16], R).contiguous(), n) for j in range(4)]
+    for keys, _ in sets:
+        got = tf.threefry_words(keys, n)
+        torch.cuda.synchronize()
+        check(torch.equal(got, tf.threefry_words_ref(keys, n)),
+              f"{name}: kernel and plain version differ")
+    b_ms, b_by = bound(8.0 * R * n + 8 * R, 0.0, F32_FLOPS)
+    iters = 200 if R * n <= 2**18 else 50
+    return dict(case=name, kernel="threefry", max_abs_err=0.0,
+                err_over_tol=0.0, ms=time_ms(tf.threefry_words, sets, iters),
+                eager_ms=eager_ms(tf.threefry_words, sets, iters),
+                plain_ms=time_ms(tf.threefry_words_ref, sets, iters=10),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def threefry_cases():
+    """R 8 x n 32000 (one draw of a served sampling step), R 1 x 2^20,
+    and the served keys' split (the chunk's per-step split, two counters
+    a key) and fold_in on the card against the CPU's plain version."""
+    from paddle_tpu_torch import random as rnd
+    keys = served_keys()
+    got = rnd.split_rows(keys.cuda())
+    check(torch.equal(got.cpu(), rnd.split_rows(keys)),
+          "threefry: split of the served keys differs from the CPU's")
+    for j in (0, 7, 15):
+        check(torch.equal(rnd.fold_in(keys[j].cuda(), 31 * j).cpu(),
+                          rnd.fold_in(keys[j], 31 * j)),
+              "threefry: fold_in of a served key differs from the CPU's")
+    return [threefry_case("threefry R8 n32000", 8, 32000),
+            threefry_case("threefry R1 n1048576", 1, 2**20)]
+
+
 def gn_census_cases(g):
     """One bf16 case (B 8, 32 groups) for each distinct (channels, HW, act)
     GroupNorm shape of a bench_unet step (``unet_census``), the plain
@@ -866,6 +942,8 @@ def kernel_phase(parent=None):
                        parent)
     cases += rope_case("rope f32 B8 S1024 H12 D64", 8, 1024, 12, 64, f32, g,
                        parent)
+    # the sampler's counter hashing (a served step: 8 rows x 32000)
+    cases += threefry_cases()
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -902,20 +980,22 @@ def device_profile(prof, wall_s):
 
 def eager_chunks(dec):
     """Route ``dec``'s chunks through the eager chunk body
-    (``_chunk_steps``), still one counted dispatch each: the route the
-    captured chunk is held against. Only this script does this."""
-    def chunk(st, steps):
+    (``_chunk_steps``, the ring's splice and the sampler included), still
+    one counted dispatch each: the route the captured chunk is held
+    against. Only this script does this."""
+    def chunk(st, steps, *args):
         dec.dispatch_count += 1
-        return dec._chunk_steps(st, steps)
+        return dec._chunk_steps(st, steps, *args)
 
     dec._chunk_decode = chunk
     return dec
 
 
-def drain(eng, reqs, profile=False):
+def drain(eng, reqs, profile=False, sampling=None):
     """Submit ``reqs`` and drain: (served tokens per request, wall s,
     profiler or None). With ``profile`` only the device's kernels are
-    traced (host ops untraced, so the drain keeps its pace)."""
+    traced (host ops untraced, so the drain keeps its pace).
+    ``sampling``: a (seed, temperature) per request."""
     torch.cuda.synchronize()
     prof = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
@@ -924,7 +1004,10 @@ def drain(eng, reqs, profile=False):
         prof.__enter__()
     try:
         t0 = time.perf_counter()
-        ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+        kws = ([{}] * len(reqs) if sampling is None else
+               [dict(seed=sd, temperature=t) for sd, t in sampling])
+        ids = [eng.submit(p, n, eos_token_id=e, **kw)
+               for (p, n, e), kw in zip(reqs, kws)]
         res = eng.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -937,13 +1020,79 @@ def drain(eng, reqs, profile=False):
     return [out[len(p):] for (p, _, _), out in zip(reqs, outs)], wall, prof
 
 
+def rescore(dec, reqs, gens):
+    """Teacher-forced logits of each served sequence through the plain
+    prefill path (S > 1: masked dense attention, > 64 rows: no int8
+    kernel): per request, the (len(gen), V) f32 logits that predicted its
+    served tokens."""
+    from paddle_tpu_torch.serving import bucket_length
+    seqs = [np.concatenate([p, g]) for (p, _, _), g in zip(reqs, gens)]
+    W = bucket_length(max(len(s) for s in seqs))
+    ids_np = np.zeros((len(seqs), W), np.int64)
+    for j, s in enumerate(seqs):
+        ids_np[j, :len(s)] = s
+    logits, _, _ = dec.admit_prefill(ids_np, [len(s) for s in seqs],
+                                     np.zeros(len(seqs), np.int64),
+                                     return_all=True)
+    return [logits[j, len(p) - 1:len(p) - 1 + len(g)]
+            for j, ((p, _, _), g) in enumerate(zip(reqs, gens))]
+
+
+def bf16_spacing(x):
+    """One bf16 spacing at |x| (f32 tensor)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs())) - 7)
+
+
+def check_lengths(tag, reqs, gens, V):
+    for (p, n, e), gen in zip(reqs, gens):
+        check(((gen >= 0) & (gen < V)).all(), f"{tag}: token ids in vocab")
+        hit = np.flatnonzero(gen == e) if e is not None else []
+        want = int(hit[0]) + 1 if len(hit) else n
+        check(len(gen) == want, f"{tag}: a request produced {len(gen)} "
+              f"tokens, its budget {n} and eos {e} allow {want}")
+
+
+def check_ring(tag, m, n_reqs):
+    """Every admission went through the device ring: staged and spliced
+    in once each, none by host scatter."""
+    ring = m["admission_ring"]
+    check(ring["host_scattered"] == 0, f"{tag}: host-scattered admissions")
+    check(ring["staged"] == ring["scattered"] == n_reqs,
+          f"{tag}: ring staged {ring['staged']}, scattered "
+          f"{ring['scattered']}, {n_reqs} requests")
+
+
+def prefill_graph_widths(dec, reqs, tag):
+    """The buckets of the decoder's captured admission-prefill graphs: at
+    most one graph per bucket the requests use."""
+    from paddle_tpu_torch.serving import bucket_length
+    widths = [k[1] for k, g in dec._prefill_graphs.items() if g is not None]
+    used = {bucket_length(len(p)) for p, _, _ in reqs}
+    check(len(widths) == len(set(widths)) and set(widths) <= used,
+          f"{tag}: captured prefill graphs at buckets {widths}, the "
+          f"requests use {sorted(used)}")
+    return sorted(widths)
+
+
+def profiled_info(info, prof, wall, steps, names):
+    info.update(device_profile(prof, wall))
+    info["wall_s"] = wall
+    k_ms = kernel_ms(prof, names)
+    for k in names:
+        info[f"{k}_ms"] = k_ms.get(k, 0.0)
+        info[f"{k}_ms_per_step"] = k_ms.get(k, 0.0) / steps
+    return info
+
+
 def serve(model, quant, reqs, V, card):
-    """The 16 requests through ``ServingEngine`` with the chunk as a
-    replayed CUDA graph: the first drain (its first chunk eager, the
-    second captured) checked as below, a second drain timed and a third
-    profiled, all with the same tokens. Then the same requests through an
-    engine whose decoder runs its chunks eagerly (``eager_chunks``): the
-    same tokens request by request, its drain timed and profiled."""
+    """The 16 requests through ``ServingEngine`` with the chunk and each
+    prompt bucket's admission prefill as replayed CUDA graphs: the first
+    drain (a key's first call eager, its second captured) checked as
+    below, a second drain timed and a third profiled, all with the same
+    tokens. Then the same requests through an engine whose decoder runs
+    its chunks eagerly (``eager_chunks``; its prefills are graphed too):
+    the same tokens request by request, its drain timed and profiled.
+    Returns the line and the served tokens."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import int8_matmul as i8
@@ -961,12 +1110,7 @@ def serve(model, quant, reqs, V, card):
     m = eng.metrics()
     tag = quant or "none"
 
-    for (p, n, e), gen in zip(reqs, gens):
-        check(((gen >= 0) & (gen < V)).all(), f"{tag}: token ids in vocab")
-        hit = np.flatnonzero(gen == e) if e is not None else []
-        want = int(hit[0]) + 1 if len(hit) else n
-        check(len(gen) == want, f"{tag}: a request produced {len(gen)} "
-              f"tokens, its budget {n} and eos {e} allow {want}")
+    check_lengths(tag, reqs, gens, V)
     check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
     check(m["prefill_dispatches"] == len(reqs), f"{tag}: one prefill each")
     check(dec.dispatch_count - d0
@@ -974,6 +1118,7 @@ def serve(model, quant, reqs, V, card):
           f"{tag}: dispatch identity")
     check(sum(g is not None for g in dec._chunk_graphs.values()) == 1,
           f"{tag}: one captured chunk")
+    check_ring(tag, m, len(reqs))
     steps = m["chunk_dispatches"] * eng.chunk_size
     L = cfg.num_hidden_layers
     check(n_da == L * steps,
@@ -983,26 +1128,16 @@ def serve(model, quant, reqs, V, card):
     check(n_i8 == want_i8,
           f"{tag}: int8_matmul launches {n_i8} != {want_i8}")
 
-    # teacher-forced re-score of the served sequences through the plain
-    # prefill path (S > 1: masked dense attention, > 64 rows: no int8
-    # kernel). The logits are bf16 products: where the re-score's top two
-    # sit within one bf16 spacing of each other, which of them wins is
-    # rounding, so agreement is required where the re-score is decisive
-    # (top-1 ahead by more than 2 bf16 spacings) and every served token
-    # must be within 4 spacings of the re-score's best.
-    seqs = [np.concatenate([p, g]) for (p, _, _), g in zip(reqs, gens)]
-    W = bucket_length(max(len(s) for s in seqs))
-    ids_np = np.zeros((len(seqs), W), np.int64)
-    for j, s in enumerate(seqs):
-        ids_np[j, :len(s)] = s
-    logits, _, _ = dec.admit_prefill(ids_np, [len(s) for s in seqs],
-                                     np.zeros(len(seqs), np.int64),
-                                     return_all=True)
-    rows = torch.cat([logits[j, len(p) - 1:len(p) - 1 + len(g)]
-                      for j, ((p, _, _), g) in enumerate(zip(reqs, gens))])
+    # teacher-forced re-score of the served sequences. The logits are
+    # bf16 products: where the re-score's top two sit within one bf16
+    # spacing of each other, which of them wins is rounding, so agreement
+    # is required where the re-score is decisive (top-1 ahead by more
+    # than 2 bf16 spacings) and every served token must be within 4
+    # spacings of the re-score's best.
+    rows = torch.cat(rescore(dec, reqs, gens))
     served = torch.as_tensor(np.concatenate(gens), device=rows.device)
     top = rows.topk(2, dim=-1).values
-    spacing = torch.exp2(torch.floor(torch.log2(top[:, 0].abs())) - 7)
+    spacing = bf16_spacing(top[:, 0])
     hit = rows.argmax(-1) == served
     decisive = top[:, 0] - top[:, 1] > 2 * spacing
     deficit = (top[:, 0] - rows.gather(1, served[:, None])[:, 0]) / spacing
@@ -1012,7 +1147,7 @@ def serve(model, quant, reqs, V, card):
           f"{rate_decisive} at decisive positions")
     check(deficit.max().item() <= 4, f"{tag}: a served token trails the "
           f"re-score's best by {deficit.max().item()} bf16 spacings")
-    del logits, rows
+    del rows
 
     def same(a_gens, what):
         for j, (a, b) in enumerate(zip(a_gens, gens)):
@@ -1023,6 +1158,7 @@ def serve(model, quant, reqs, V, card):
     same(again, "served again")
     again, pwall, prof = drain(eng, reqs, profile=True)
     same(again, "served under the profiler")
+    widths = prefill_graph_widths(dec, reqs, tag)
     edec = eager_chunks(LlamaDecoder(model, max_len=256, quant=quant))
     eeng = ServingEngine(edec, num_slots=8, chunk_size=16)
     da.launches = i8.launches = 0
@@ -1043,21 +1179,200 @@ def serve(model, quant, reqs, V, card):
                 eager_ms_per_chunk_incl_admission=1e3 * ewall / chunks,
                 prefill_dispatches=m["prefill_dispatches"],
                 chunk_dispatches=chunks, decode_steps=steps,
+                admission_ring=m["admission_ring"],
+                prefill_graph_buckets=widths,
                 decode_attention_launches=n_da, int8_matmul_launches=n_i8,
                 tokens_equal_eager=True,
                 teacher_forced_top1=rate,
                 teacher_forced_top1_decisive=rate_decisive,
                 decisive_positions=int(decisive.sum().item()),
                 max_deficit_bf16_spacings=deficit.max().item())
-    for key, p_, w_ in (("profiled", prof, pwall),
-                        ("profiled_eager", eprof, epwall)):
-        info[key] = device_profile(p_, w_)
-        info[key]["wall_s"] = w_
-        k_ms = kernel_ms(p_, ("int8_matmul", "decode_attention"))
-        info[key]["int8_matmul_ms"] = k_ms.get("int8_matmul", 0.0)
-        info[key]["decode_attention_ms"] = k_ms.get("decode_attention", 0.0)
-        info[key]["decode_attention_ms_per_step"] = k_ms.get(
-            "decode_attention", 0.0) / steps
+    names = ("int8_matmul", "decode_attention")
+    info["profiled"] = profiled_info({}, prof, pwall, steps, names)
+    info["profiled_eager"] = profiled_info({}, eprof, epwall, steps, names)
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    del eeng, edec, eng, dec
+    torch.cuda.empty_cache()
+    return info, gens
+
+
+def redraw_chunks(eng, top_k, top_p):
+    """Hook ``eng``'s chunk dispatch to redraw, on the CPU and from plain
+    versions, the first token of every row the chunk does not splice in
+    (live, not done, not staged in the ring): the row's key split once,
+    the second half's threefry bits over the vocabulary, uniforms on
+    [tiny, 1) by the mantissa trick, gumbel noise plus the filtered
+    logits, argmax. The carry's logits, keys and temperatures are copied
+    off the card just before the chunk. A served token must be the
+    redraw's or within 4 f32 spacings of its best perturbed logit.
+    Returns the tally it fills in."""
+    from paddle_tpu_torch.inference.generate import _filter_logits
+    from paddle_tpu_torch.ops.kernels.threefry import threefry_words_ref
+    tiny = float(np.finfo(np.float32).tiny)
+    tally = dict(rows=0, differ=0, max_near_tie=0)
+    dispatch = eng._dispatch_chunk
+
+    def redrawn():
+        st = eng.state
+        staged = {m["slot"] for m in eng._ring_meta if m is not None}
+        done = st.done.cpu().numpy()
+        rows = [i for i, _ in eng.scheduler.slots.occupied()
+                if i not in staged and not done[i]]
+        if not rows:
+            return dispatch()
+        idx = torch.as_tensor(rows, device=st.logits.device)
+        lg, keys, temp = (t[idx].cpu() for t in (st.logits, st.keys,
+                                                 st.temp))
+        toks = dispatch()
+        sub = threefry_words_ref(keys, 2)[:, 1].contiguous()
+        w = threefry_words_ref(sub, lg.shape[-1])
+        bits = w[..., 0] ^ w[..., 1]
+        u = ((((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32)
+             - 1.0 + tiny).clamp(min=tiny)
+        pert = -torch.log(-torch.log(u)) + _filter_logits(
+            lg, temp[:, None], top_k, top_p)
+        served = torch.as_tensor(toks[rows, 0])
+        best = pert.max(-1).values
+        got = pert.gather(1, served[:, None])[:, 0]
+        # the card's logs and the CPU's may differ by an ulp: a gap of an
+        # ulp of 1 in the noise, so ties are measured in f32 spacings of
+        # max(|best|, 1)
+        ulps = (best - got) / torch.from_numpy(np.spacing(
+            np.maximum(best.abs().numpy(), 1.0).astype(np.float32)))
+        differ = pert.argmax(-1) != served
+        tally["rows"] += len(rows)
+        tally["differ"] += int(differ.sum())
+        if differ.any():
+            worst = ulps[differ].max().item()
+            tally["max_near_tie"] = max(tally["max_near_tie"],
+                                             worst)
+            check(worst <= 4, f"sampled: a served token is not the plain "
+                  f"redraw's ({worst} f32 spacings below its best "
+                  f"perturbed logit)")
+        return toks
+
+    eng._dispatch_chunk = redrawn
+    return tally
+
+
+def serve_sampled(model, reqs, greedy, V, card):
+    """The 16 requests, unquantized, through ``ServingEngine(do_sample=True,
+    top_k=50, top_p=0.9)``: request j has seed 1000 + j and temperature
+    0.7-1.0, request 0 temperature 1e-4. The first drain is checked
+    (lengths, dispatch identity, one captured chunk, the ring, launches:
+    two threefry a decode step), then every sampled token against a
+    teacher-forced re-score (inside its top 50, or within 4 bf16 spacings
+    of its 50th logit) and request 0 against the greedy drain's tokens (at
+    a first difference the re-score's top two logits must be exactly
+    equal). Served again, under the profiler, with every chunk's first
+    draws redrawn on the CPU (``redraw_chunks``) and by an eager-chunk
+    engine: the same tokens request by request."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    from paddle_tpu_torch.serving import ServingEngine
+
+    t_start = time.perf_counter()
+    tag = "sampled"
+    sampling = [(1000 + j, 1e-4 if j == 0 else 0.7 + 0.3 * j / 15)
+                for j in range(len(reqs))]
+    kw = dict(num_slots=8, chunk_size=16, do_sample=True, top_k=50,
+              top_p=0.9)
+    dec = LlamaDecoder(model, max_len=256)
+    eng = ServingEngine(dec, **kw)
+    d0 = dec.dispatch_count
+    torch.cuda.synchronize()
+    da.launches = i8.launches = tf.launches = 0
+    gens, first_wall, _ = drain(eng, reqs, sampling=sampling)
+    n_da, n_tf = da.launches, tf.launches
+    m = eng.metrics()
+    check_lengths(tag, reqs, gens, V)
+    check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
+    check(dec.dispatch_count - d0
+          == m["prefill_dispatches"] + m["chunk_dispatches"],
+          f"{tag}: dispatch identity")
+    check(sum(g is not None for g in dec._chunk_graphs.values()) == 1,
+          f"{tag}: one captured chunk")
+    check_ring(tag, m, len(reqs))
+    steps = m["chunk_dispatches"] * eng.chunk_size
+    L = model.config.num_hidden_layers
+    check(n_tf == 2 * steps, f"{tag}: threefry launches {n_tf} != 2 x "
+          f"{steps}")
+    check(n_da == L * steps, f"{tag}: decode_attention launches {n_da}")
+
+    logits = rescore(dec, reqs, gens)
+    worst = -math.inf
+    for j, (rows, g) in enumerate(zip(logits, gens)):
+        tok = torch.as_tensor(g, device=rows.device)
+        kth = rows.topk(50, dim=-1).values[:, -1]
+        gap = (kth - rows.gather(1, tok[:, None])[:, 0]) / bf16_spacing(kth)
+        worst = max(worst, gap.max().item())
+        check(gap.max().item() <= 4, f"{tag}: request {j} drew a token "
+              f"{gap.max().item()} bf16 spacings below the re-score's "
+              f"50th logit")
+    g0, s0 = greedy[0], gens[0]
+    n = min(len(g0), len(s0))
+    diff = np.flatnonzero(g0[:n] != s0[:n])
+    first_diff = None
+    if len(diff):
+        i = int(diff[0])
+        top, top_ids = logits[0][i].topk(2)
+        gap = ((top[0] - top[1]) / bf16_spacing(top[0])).item()
+        first_diff = dict(position=i, greedy=int(g0[i]), sampled=int(s0[i]),
+                          rescore_top2=top_ids.tolist(),
+                          rescore_gap_bf16_spacings=gap)
+        check(top[0].item() == top[1].item(), f"{tag}: temperature 1e-4 "
+              f"left the greedy tokens at position {i}, where the "
+              f"re-score's top two logits differ ({gap} bf16 spacings)")
+    else:
+        check(len(g0) == len(s0), f"{tag}: temperature 1e-4 gave "
+              f"{len(s0)} tokens, greedy {len(g0)}")
+    del logits
+
+    def same(a_gens, what):
+        for j, (a, b) in enumerate(zip(a_gens, gens)):
+            check(np.array_equal(a, b), f"{tag}: request {j} {what} gave "
+                  f"other tokens")
+
+    again, wall, _ = drain(eng, reqs, sampling=sampling)
+    same(again, "served again")
+    again, pwall, prof = drain(eng, reqs, profile=True, sampling=sampling)
+    same(again, "served under the profiler")
+    tally = redraw_chunks(eng, kw["top_k"], kw["top_p"])
+    again, _, _ = drain(eng, reqs, sampling=sampling)
+    same(again, "with its draws redrawn")
+    check(tally["rows"] >= len(reqs), f"{tag}: only {tally['rows']} draws "
+          f"were redrawn")
+    edec = eager_chunks(LlamaDecoder(model, max_len=256))
+    eeng = ServingEngine(edec, **kw)
+    tf.launches = 0
+    egens, ewall, _ = drain(eeng, reqs, sampling=sampling)
+    same(egens, "with the eager chunk")
+    check(tf.launches == n_tf, f"{tag}: eager threefry launches "
+          f"{tf.launches} != the graph route's {n_tf}")
+    chunks = m["chunk_dispatches"]
+    n_tok = int(sum(len(g) for g in gens))
+    info = dict(phase="serve_sampled", quant="none", card=card,
+                requests=len(reqs), top_k=50, top_p=0.9, tokens=n_tok,
+                wall_s=wall, tokens_per_s=n_tok / wall,
+                ms_per_chunk_incl_admission=1e3 * wall / chunks,
+                first_drain_wall_s=first_wall, eager_wall_s=ewall,
+                eager_tokens_per_s=n_tok / ewall,
+                prefill_dispatches=m["prefill_dispatches"],
+                chunk_dispatches=chunks, decode_steps=steps,
+                admission_ring=m["admission_ring"],
+                threefry_launches=n_tf, decode_attention_launches=n_da,
+                tokens_equal_eager=True,
+                temp_1e4_equals_greedy=not len(diff),
+                temp_1e4_first_difference=first_diff,
+                max_top50_gap_bf16_spacings=worst,
+                redrawn_draws=tally["rows"],
+                redrawn_near_ties=tally["differ"],
+                redrawn_max_near_tie_f32_spacings=tally["max_near_tie"])
+    info["profiled"] = profiled_info({}, prof, pwall, steps,
+                                     ("threefry", "decode_attention"))
     info["phase_s"] = time.perf_counter() - t_start
     emit(info)
     del eeng, edec, eng, dec
@@ -1084,8 +1399,12 @@ def serving_phase(card):
         out = np.asarray(ref.generate(p[None], n))[0]
         reqs[j] = (p, n, int(out[len(p) + n // 2]))
     del ref
-    return [serve(model, q, reqs, cfg.vocab_size, card)
-            for q in (None, "int8wk")]
+    runs, greedy = [], None
+    for q in (None, "int8wk"):
+        info, gens = serve(model, q, reqs, cfg.vocab_size, card)
+        runs.append(info)
+        greedy = gens if q is None else greedy
+    return runs, serve_sampled(model, reqs, greedy, cfg.vocab_size, card)
 
 
 # -- the multi-tensor Adam / AdamW kernel ------------------------------------
@@ -1849,7 +2168,7 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs = serving_phase(card)
+    runs, sampled = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
@@ -1859,6 +2178,7 @@ def main() -> int:
           f"training {time.perf_counter() - t4:.1f} s", flush=True)
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in runs),
+        threefry=sampled["threefry_launches"],
         int8_matmul=sum(r["int8_matmul_launches"] for r in runs),
         group_norm_fwd=unet_launches["group_norm_fwd"],
         group_norm_bwd=unet_launches["group_norm_bwd"],
@@ -1881,6 +2201,10 @@ def main() -> int:
     # step (paddle_tpu/parallel/train.py:234)
     adam_src = "paddle_tpu_torch/csrc/adam.cu"
     adam_jax = "paddle_tpu/optimizer/adam.py:116 (AdamW.update)"
+    # no pallas_call: jax.random's threefry2x32_p, lowered by XLA, under
+    # the sampler (paddle_tpu/inference/generate.py:2097 _sample_from)
+    threefry_jax = ("paddle_tpu/inference/generate.py:2097 "
+                    "(jax.random.categorical in _sample_from)")
     rows = []
     for name, kernel, src, replaces, case in (
             ("decode_attention", "decode_attention",
@@ -1918,7 +2242,9 @@ def main() -> int:
             ("adam", "adam", adam_src, adam_jax,
              "adam bf16 AdamW bench_llama"),
             ("adam_unet", "adam", adam_src, adam_jax,
-             "adam bf16 AdamW bench_unet")):
+             "adam bf16 AdamW bench_unet"),
+            ("threefry", "threefry", "paddle_tpu_torch/csrc/threefry.cu",
+             threefry_jax, "threefry R8 n32000")):
         c = next(c for c in cases if c["case"] == case)
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -25,14 +25,30 @@ Positions are a Python int (the whole batch at one offset: prefill, the
 fused loop) or a per-row ``(B,)`` tensor (the chunked serving carry,
 where rows admitted at different times sit at different offsets).
 
-Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
-``decode_chunk``) runs under ``torch.inference_mode()``: the model's
-parameters are trainable, and decoding records no autograd graph.
+Sampling (``do_sample``, ``temperature``, ``top_k``, ``top_p``, ``seed``)
+draws from the JAX package's key streams (``paddle_tpu_torch/random.py``,
+whose threefry hashing is a CUDA kernel on the card): the fused loop and
+the per-token path split ONE batch key per step, the chunk splits each
+row's own key (``DecodeState.keys``), so a row's draws depend only on its
+seed. The temperature clamp, top-k and top-p filter are
+``_filter_logits``, the JAX package's.
 
-Not ported yet (ROADMAP.md queue 1): sampling (``do_sample=True`` needs a
-threefry2x32 matching ``jax.random`` bit for bit), speculative decoding
+The serving engine's device admission ring (``AdmissionRing``): an
+admission prefill stages its rows' logits and K/V into ring rows
+(``ring_admit_prefill``), and the next chunk splices them into the carry
+at their slots before its T steps (``_ring_splice``), inside the same
+chunk graph. On a card each admission-prefill key (rows, bucket, quant,
+ring buffers, every flag's value) runs eagerly once, then replays one
+CUDA graph (``_PrefillGraph``).
+
+Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
+``decode_chunk``, ``ring_admit_prefill``) runs under
+``torch.inference_mode()``: the model's parameters are trainable, and
+decoding records no autograd graph.
+
+Not ported yet (ROADMAP.md queue 1): speculative decoding
 (``draft_model=``), LoRA (``adapter_idx=``), meshes, the retry and
-degradation ladder, CUDA graphs of the fused loop and of prefills.
+degradation ladder, a CUDA graph of the fused loop.
 """
 
 from __future__ import annotations
@@ -46,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch import random as rnd
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.models.llama import LlamaConfig, _rope_tables
@@ -60,7 +77,7 @@ from paddle_tpu_torch.quantization.kv_cache import (dequantize_kv,
                                                     resolve_decode_quant)
 from paddle_tpu_torch.runtime.resilience import GenerateResult
 
-__all__ = ["LlamaDecoder", "DecodeState"]
+__all__ = ["LlamaDecoder", "DecodeState", "AdmissionRing"]
 
 
 def _not_ported(what: str, item: str):
@@ -73,16 +90,70 @@ def _not_ported(what: str, item: str):
 class DecodeState:
     """The re-enterable carry of the chunked decode loop: next-token
     ``logits``, both KV caches (stacked tensors, or ``{"q", "s"}`` dicts
-    under ``int8wk``), PER-ROW cache positions, the done mask and per-row
-    eos ids (``-1`` = none). ``decode_chunk`` advances it by T tokens in
-    one dispatch; the serving engine copies admitted rows into it."""
+    under ``int8wk``), PER-ROW cache positions, PER-ROW threefry keys
+    (each row's draws depend only on its own key), the done mask, per-row
+    eos ids (``-1`` = none) and temperatures. ``decode_chunk`` advances it
+    by T tokens in one dispatch; the serving engine admits rows into it."""
 
     logits: torch.Tensor  # (B, V) f32
     kc: Any
     vc: Any
     pos: torch.Tensor     # (B,) int64 — per-row next cache write position
+    keys: torch.Tensor    # (B, 2) int32 — per-row uint32 key words
     done: torch.Tensor    # (B,) bool — frozen rows (eos hit / slot free)
     eos: torch.Tensor     # (B,) int64 — per-row eos id, -1 = none
+    temp: torch.Tensor    # (B,) f32 — per-row sampling temperature
+
+
+def _filter_logits(logits, temperature=1.0, top_k=None, top_p=None):
+    """Temperature / top-k / top-p filtering over the last axis, the JAX
+    package's ``_filter_logits``: the temperature (a float, or a tensor
+    that broadcasts, e.g. (B, 1)) clamped at 1e-6 divides the logits;
+    entries below the k-th largest, then those outside the smallest
+    nucleus of mass ``top_p``, go to -inf."""
+    if isinstance(temperature, torch.Tensor):
+        t = temperature.to(logits.dtype)
+    else:
+        # a device tensor, never a host scalar: CUDA divides by a host
+        # scalar through its reciprocal
+        t = torch.full((), float(np.float32(temperature)),
+                       dtype=logits.dtype, device=logits.device)
+    lg = logits / torch.clamp(t, min=float(np.float32(1e-6)))
+    if top_k is not None:
+        k, V = int(top_k), lg.shape[-1]
+        if 0 < k <= V:
+            kth = torch.topk(lg, k, dim=-1).values[..., -1:]
+        else:    # JAX's clamped index into the ascending sort
+            at = min(max(V - k if k > 0 else -k, 0), V - 1)
+            kth = torch.sort(lg, dim=-1).values[..., at:at + 1]
+        lg = torch.where(lg < kth, float("-inf"), lg)
+    if top_p is not None:
+        sorted_lg = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_lg, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # smallest logit still inside the nucleus
+        keep_n = ((cum - probs) < float(top_p)).sum(-1, keepdim=True)
+        cutoff = sorted_lg.gather(-1, torch.clamp(keep_n - 1, min=0))
+        lg = torch.where(lg < cutoff, float("-inf"), lg)
+    return lg
+
+
+def _sample_rows(logits, keys, temp, top_k, top_p):
+    """The chunk programs' per-row pick: each row splits its own key
+    (``jax.vmap(split)``), keeps the first half and draws from the
+    filtered logits with the second. Returns ``(new keys, tokens)``."""
+    kk = rnd.split_rows(keys)                       # (B, 2, 2)
+    flt = _filter_logits(logits, temp[:, None], top_k, top_p)
+    return kk[:, 0], rnd.categorical_rows(kk[:, 1].contiguous(), flt)
+
+
+def _sample_batch(logits, key, temperature, top_k, top_p):
+    """The fused loop's and the per-token path's pick: one batch key,
+    split once; a categorical over the whole (B, V) under the second
+    half. Returns ``(new key, tokens)``."""
+    kk = rnd.split(key)
+    return kk[0], rnd.categorical(
+        kk[1], _filter_logits(logits, temperature, top_k, top_p))
 
 
 def _rms(x, w, eps):
@@ -157,6 +228,37 @@ def _cache_update(buf, t, pos, head_major: bool) -> None:
         buf[:, :, pos:pos + S] = t
     else:
         buf[:, pos:pos + S] = t
+
+
+def _row_scatter(dst, src, idx) -> None:
+    """Copy whole batch rows ``src[j] -> dst[idx[j]]`` along the cache
+    batch axis (``ndim - 4``: 1 for the stacked caches), in place, over
+    both leaves of a quantized cache. The JAX package's ``_row_scatter``
+    drops indices past the batch (``mode="drop"``); torch has none, so a
+    caller that must drop a row points it at a dump row of ``dst``
+    (``AdmissionRing``). Outside a dump row the indices must be distinct:
+    ``index_copy_`` with repeated indices is nondeterministic on CUDA."""
+    if is_quantized_kv(dst):
+        _row_scatter(dst["q"], src["q"], idx)
+        _row_scatter(dst["s"], src["s"], idx)
+        return
+    dst.index_copy_(dst.dim() - 4, idx, src.to(dst.dtype))
+
+
+def _batch_rows(cache, n: int):
+    """The first ``n`` batch rows of a stacked cache, as a view: each
+    layer's rows stay contiguous."""
+    if is_quantized_kv(cache):
+        return {k: v.narrow(1, 0, n) for k, v in cache.items()}
+    return cache.narrow(1, 0, n)
+
+
+def _zero_cache(cache) -> None:
+    if is_quantized_kv(cache):
+        for v in cache.values():
+            v.zero_()
+    else:
+        cache.zero_()
 
 
 def _dense_attention(q, kc_l, vc_l, pos, max_len: int, head_major: bool):
@@ -294,12 +396,14 @@ def _build_params(model, max_len: int, weight_dtype: Optional[str],
 
 
 class LlamaDecoder:
-    """Greedy decoder over a static KV cache.
+    """Greedy and sampled decoder over a static KV cache.
 
     ``generate`` runs prefill plus one fused decode loop (2 dispatches),
     or with ``chunk_size=T`` prefill plus ceil(N/T) re-enterable chunks
     (``init_decode_state`` / ``decode_chunk``, the serving substrate);
-    greedy tokens are identical either way. ``dispatch_count`` counts
+    greedy tokens are identical either way, sampled ones come from the
+    JAX package's streams (one batch key on the fused and per-token
+    paths, per-row keys in the chunks). ``dispatch_count`` counts
     prefill, admission-prefill and chunk calls, one each.
 
     ``quant``: ``"int8w"`` quantizes the projection matrices and a copy
@@ -330,9 +434,12 @@ class LlamaDecoder:
                                     self.device)
         self.dispatch_count = 0
         self.last_resilience = None
-        # chunk key -> its _ChunkGraph, or None after the key's eager
-        # warm-up chunk; the oldest keys go first past _CHUNK_GRAPHS
+        # chunk / admission-prefill key -> its captured graph, or None
+        # after the key's eager warm-up; the oldest keys go first past
+        # _CHUNK_GRAPHS / _PREFILL_GRAPHS
         self._chunk_graphs: "collections.OrderedDict[tuple, Any]" = \
+            collections.OrderedDict()
+        self._prefill_graphs: "collections.OrderedDict[tuple, Any]" = \
             collections.OrderedDict()
 
     # -- buffers -----------------------------------------------------------
@@ -388,66 +495,119 @@ class LlamaDecoder:
                             true_len - 1]
         return logits, kc, vc
 
+    def _ring_prefill(self, ids, true_len, pos0, kc, vc, ring, idx):
+        """``ring_admit_prefill``'s body: prefill ``ids`` into the fresh
+        batch-N caches ``kc``/``vc``, then stage each row's logits at
+        position ``true_len - 1`` and its K/V into ring rows ``idx``."""
+        logits = self._fwd(ids, kc, vc, pos0, return_all=True)
+        logits = logits[torch.arange(ids.shape[0], device=ids.device),
+                        true_len - 1]
+        ring.logits.index_copy_(0, idx, logits)
+        _row_scatter(ring.kc, kc, idx)
+        _row_scatter(ring.vc, vc, idx)
+
+    @torch.inference_mode()
+    def ring_admit_prefill(self, ids, true_len, pos0, ring: "AdmissionRing",
+                           ring_idx) -> None:
+        """``admit_prefill`` that stages its results on the device: each
+        row's logits and K/V land in ring rows ``ring_idx`` (distinct free
+        rows) of ``ring`` in the same dispatch, and the next chunk splices
+        them into the carry. On a card the first call of a key (rows,
+        bucket, quant, the ring's buffers, every flag's value) runs
+        eagerly, the second captures a CUDA graph and later ones replay
+        it: the JAX package's one compiled program per (rows, bucket)."""
+        ids = self._ids(ids)
+        as_long = lambda a: torch.as_tensor(     # noqa: E731
+            np.asarray(a), dtype=torch.long, device=self.device)
+        args = (ids, as_long(true_len), as_long(pos0), as_long(ring_idx))
+        self.dispatch_count += 1
+        N, w = ids.shape
+        key = (N, w, self.quant, ring.addresses(), flags.snapshot())
+        if self.device.type != "cuda" or _warm_up(self._prefill_graphs,
+                                                  key, _PREFILL_GRAPHS):
+            kc, vc = self._empty_cache(N)
+            self._ring_prefill(args[0], args[1], args[2], kc, vc, ring,
+                               args[3])
+            return
+        graphs = self._prefill_graphs
+        if graphs[key] is None:
+            graphs[key] = _PrefillGraph(self, ring, N, w)
+        graphs[key].run(*args)
+
     def _fused_decode(self, logits, kc, vc, pos0: int, eos: Optional[int],
-                      steps: int):
-        """The whole greedy token loop (steps forwards, steps + 1 picks);
-        rows that emitted ``eos`` stay pinned to it."""
+                      steps: int, sample, temperature: float, seed: int):
+        """The whole token loop (steps forwards, steps + 1 picks); rows
+        that emitted ``eos`` stay pinned to it. ``sample`` is ``(top_k,
+        top_p)`` for a sampled loop, whose one batch key splits once a
+        pick, or None for greedy."""
         self.dispatch_count += 1
         done = torch.zeros(logits.shape[0], dtype=torch.bool,
                            device=self.device)
+        key = None if sample is None else rnd.PRNGKey(seed,
+                                                      device=self.device)
 
-        def pick(logits, done):
-            tok = torch.argmax(logits, -1)
+        def pick(logits, key, done):
+            if sample is None:
+                tok = torch.argmax(logits, -1)
+            else:
+                key, tok = _sample_batch(logits, key, temperature, *sample)
             if eos is not None:
                 tok = torch.where(done, eos, tok)
                 done = done | (tok == eos)
-            return tok, done
+            return tok, key, done
 
         toks = []
         for i in range(steps):
-            tok, done = pick(logits, done)
+            tok, key, done = pick(logits, key, done)
             toks.append(tok)
             logits = self._fwd(tok[:, None], kc, vc, pos0 + i)
-        toks.append(pick(logits, done)[0])
+        toks.append(pick(logits, key, done)[0])
         return torch.stack(toks, 1)
 
-    def _chunk_steps(self, st: DecodeState, steps: int):
-        """T steps of the greedy loop over the per-row carry. Done rows
-        emit their eos (0 without one); rows past their budget keep
-        stepping to the chunk boundary with ``pos`` clamped to the last
-        cache slot, so their discarded writes stay inside the buffer."""
-        logits, pos, done, eos = st.logits, st.pos, st.done, st.eos
+    def _chunk_steps(self, st: DecodeState, steps: int, sample=None,
+                     ring: Optional["AdmissionRing"] = None):
+        """T steps of the token loop over the per-row carry, after the
+        ring's splice when ``ring`` is given. Done rows emit their eos (0
+        without one); rows past their budget keep stepping to the chunk
+        boundary with ``pos`` clamped to the last cache slot, so their
+        discarded writes stay inside the buffer. ``sample``: ``(top_k,
+        top_p)`` draws each row from its own key; None is greedy."""
+        if ring is not None:
+            st = _ring_splice(st, ring)
+        logits, pos, keys, done, eos = (st.logits, st.pos, st.keys,
+                                        st.done, st.eos)
         fill = torch.where(eos >= 0, eos, 0)
         toks = []
         for _ in range(steps):
-            tok = torch.where(done, fill, torch.argmax(logits, -1))
+            if sample is None:
+                tok = torch.argmax(logits, -1)
+            else:
+                keys, tok = _sample_rows(logits, keys, st.temp, *sample)
+            tok = torch.where(done, fill, tok)
             done = done | (tok == eos)
             toks.append(tok)
             logits = self._fwd(tok[:, None], st.kc, st.vc, pos)
             pos = torch.clamp(pos + 1, max=self.max_len - 1)
         return torch.stack(toks, 1), dataclasses.replace(
-            st, logits=logits, pos=pos, done=done)
+            st, logits=logits, pos=pos, keys=keys, done=done)
 
-    def _chunk_decode(self, st: DecodeState, steps: int):
+    def _chunk_decode(self, st: DecodeState, steps: int, sample=None,
+                      ring: Optional["AdmissionRing"] = None):
         """One counted dispatch of ``_chunk_steps``. On a card, the first
-        chunk of a key (batch, T, quant recipe, the caches' addresses,
-        every flag's value) runs eagerly; the second captures the chunk
-        into a CUDA graph and every later one replays it. A failed capture
-        raises."""
+        chunk of a key (batch, T, quant recipe, the caches' addresses, the
+        sampling statics, the ring's buffers, every flag's value) runs
+        eagerly; the second captures the chunk into a CUDA graph and every
+        later one replays it. A failed capture raises."""
         self.dispatch_count += 1
-        if self.device.type != "cuda":
-            return self._chunk_steps(st, steps)
         key = (st.logits.shape[0], steps, self.quant, _addresses(st.kc),
-               _addresses(st.vc), flags.snapshot())
+               _addresses(st.vc), sample,
+               None if ring is None else ring.addresses(), flags.snapshot())
+        if self.device.type != "cuda" or _warm_up(self._chunk_graphs, key,
+                                                  _CHUNK_GRAPHS):
+            return self._chunk_steps(st, steps, sample, ring)
         graphs = self._chunk_graphs
-        if key not in graphs:
-            graphs[key] = None
-            while len(graphs) > _CHUNK_GRAPHS:
-                graphs.popitem(last=False)
-            return self._chunk_steps(st, steps)
-        graphs.move_to_end(key)
         if graphs[key] is None:
-            graphs[key] = _ChunkGraph(self, st, steps)
+            graphs[key] = _ChunkGraph(self, st, steps, sample, ring)
         return graphs[key].run(st)
 
     # -- chunked resumable decode ------------------------------------------
@@ -461,18 +621,15 @@ class LlamaDecoder:
                           speculative=None) -> DecodeState:
         """Prefill (one dispatch) and build the carry for
         ``decode_chunk``; every row starts from the same prompt tensor.
-        The JAX package's signature: the greedy carry holds no per-row
-        temperature or keys, so ``temperature`` and ``seed`` other than
-        their defaults, a ``draft_model`` and ``adapter_idx`` are refused
-        as not ported; the speculative arguments without a draft model
-        raise the reference's ``ValueError``."""
+        Per-row keys are ``split(PRNGKey(seed), B)``, per-row
+        temperatures ``temperature``. The JAX package's signature: a
+        ``draft_model`` and ``adapter_idx`` are refused as not ported; the
+        speculative arguments without a draft model raise the reference's
+        ``ValueError``."""
         if speculative is not None and draft_model is None:
             raise ValueError("speculative=(B,) row mask requires a "
                              "draft_model")
         _check_speculative(draft_model, num_speculative_tokens, draft_quant)
-        if temperature != 1.0 or seed != 0:
-            raise _not_ported("per-row sampling state (temperature=, "
-                              "seed=)", "threefry sampling")
         if adapter_idx is not None:
             raise _not_ported("LoRA routing (adapter_idx=)", "LoRA")
         ids = self._ids(input_ids)
@@ -484,59 +641,73 @@ class LlamaDecoder:
         return DecodeState(
             logits=logits, kc=kc, vc=vc,
             pos=torch.full((B,), S, dtype=torch.long, device=dev),
+            keys=rnd.split(rnd.PRNGKey(seed, device=dev), B),
             done=torch.zeros((B,), dtype=torch.bool, device=dev),
             eos=torch.full((B,), -1 if eos is None else eos,
-                           dtype=torch.long, device=dev))
+                           dtype=torch.long, device=dev),
+            temp=torch.full((B,), float(np.float32(temperature)),
+                            dtype=torch.float32, device=dev))
 
     @torch.inference_mode()
     def decode_chunk(self, state: DecodeState, num_tokens: int,
                      do_sample: bool = False, top_k: Optional[int] = None,
                      top_p: Optional[float] = None,
                      K: Optional[int] = None):
-        """Advance the carry by ``num_tokens`` greedy steps in one
-        dispatch; returns ``(tokens (B, num_tokens), new_state)``. The JAX
-        package's signature: sampling (``do_sample``, ``top_k``,
-        ``top_p``) and a speculative draft length ``K`` are refused as not
+        """Advance the carry by ``num_tokens`` steps in one dispatch;
+        returns ``(tokens (B, num_tokens), new_state)``. ``do_sample``
+        draws each row from its own key at its temperature, filtered by
+        ``top_k`` / ``top_p`` (which act only when sampling, as in the JAX
+        package). A speculative draft length ``K`` is refused as not
         ported."""
-        if do_sample or top_k is not None or top_p is not None:
-            raise _not_ported("sampling (do_sample=, top_k=, top_p=)",
-                              "threefry sampling")
         if K is not None:
             raise _not_ported("speculative chunks (K=)",
                               "speculative serving")
-        return self._chunk_decode(state, int(num_tokens))
+        return self._chunk_decode(state, int(num_tokens),
+                                  _sample_spec(do_sample, top_k, top_p))
 
-    def _generate_chunked(self, ids, max_new, eos, chunk_size):
+    def _generate_chunked(self, ids, max_new, eos, sample, temperature,
+                          seed, chunk_size):
         T = int(chunk_size)
         if T < 1:
             raise ValueError(f"chunk_size must be >= 1, got {T}")
-        state = self.init_decode_state(ids, eos_token_id=eos)
+        state = self.init_decode_state(ids, eos_token_id=eos,
+                                       temperature=temperature, seed=seed)
         out, got = [], 0
         while got < max_new:
-            toks, state = self.decode_chunk(state, min(T, max_new - got))
+            toks, state = self._chunk_decode(state, min(T, max_new - got),
+                                             sample)
             out.append(toks.cpu().numpy())
             got += out[-1].shape[1]
             if eos is not None and bool(state.done.all()):
                 break
         return np.concatenate(out, axis=1)
 
-    def _generate_fused(self, ids, max_new, eos):
+    def _generate_fused(self, ids, max_new, eos, sample, temperature,
+                        seed):
         B, S = ids.shape
         kc, vc = self._empty_cache(B)
         logits = self._prefill(ids, kc, vc)
-        return self._fused_decode(logits, kc, vc, S, eos,
-                                  max_new - 1).cpu().numpy()
+        return self._fused_decode(logits, kc, vc, S, eos, max_new - 1,
+                                  sample, temperature, seed).cpu().numpy()
 
-    def _generate_per_token(self, ids, max_new, eos):
+    def _generate_per_token(self, ids, max_new, eos, sample, temperature,
+                            seed):
         """One counted dispatch and one host sync per token (the
-        ``decode_fallback`` debugging path); returns the new tokens."""
+        ``decode_fallback`` debugging path); returns the new tokens. The
+        sampled stream is the fused loop's."""
         B, S = ids.shape
         kc, vc = self._empty_cache(B)
         logits = self._prefill(ids, kc, vc)
+        key = None if sample is None else rnd.PRNGKey(seed,
+                                                      device=self.device)
         done = np.zeros((B,), bool)
         out = []
         for i in range(max_new):
-            nxt = torch.argmax(logits, -1).cpu().numpy()
+            if sample is None:
+                nxt = torch.argmax(logits, -1)
+            else:
+                key, nxt = _sample_batch(logits, key, temperature, *sample)
+            nxt = nxt.cpu().numpy()
             if eos is not None:
                 nxt = np.where(done, eos, nxt)
                 done |= nxt == eos
@@ -556,13 +727,15 @@ class LlamaDecoder:
                  num_speculative_tokens: Optional[int] = None,
                  draft_quant: Optional[str] = None,
                  chunk_size: Optional[int] = None):
-        """Greedy decode. input_ids: (B, S) ints. Returns a
-        ``GenerateResult`` (B, S + new), trimmed after the step where
-        every row has emitted ``eos_token_id`` (None or negative = no
-        eos). ``chunk_size=T`` runs the chunked path (same tokens). The
-        sampling arguments exist for the JAX package's signature;
-        ``do_sample=True`` and a ``draft_model`` are refused as not
-        ported, after the reference's own checks (``max_len``, then the
+        """Decode. input_ids: (B, S) ints. Returns a ``GenerateResult``
+        (B, S + new), trimmed after the step where every row has emitted
+        ``eos_token_id`` (None or negative = no eos). Greedy by default;
+        ``do_sample=True`` draws from the temperature / top-k / top-p
+        filtered distribution with the JAX package's key stream for
+        ``seed``. ``chunk_size=T`` runs the chunked path (greedy: the same
+        tokens; sampled: per-row keys ``split(PRNGKey(seed), B)``, the
+        JAX chunked stream). A ``draft_model`` is refused as not ported,
+        after the reference's own checks (``max_len``, then the
         speculative arguments without a draft model)."""
         eos = _normalize_eos(eos_token_id)
         ids_np = np.asarray(input_ids)
@@ -573,20 +746,20 @@ class LlamaDecoder:
         if max_new_tokens <= 0:
             return ids_np
         _check_speculative(draft_model, num_speculative_tokens, draft_quant)
-        if do_sample:
-            raise _not_ported("sampling (do_sample=True)",
-                              "threefry sampling")
+        sample = _sample_spec(do_sample, top_k, top_p)
         ids = self._ids(ids_np)
         if decode_fallback_active():
             level = "per_token"
-            toks = self._generate_per_token(ids, max_new_tokens, eos)
+            toks = self._generate_per_token(ids, max_new_tokens, eos,
+                                            sample, temperature, seed)
         elif chunk_size is not None:
             level = "chunked"
-            toks = self._generate_chunked(ids, max_new_tokens, eos,
-                                          chunk_size)
+            toks = self._generate_chunked(ids, max_new_tokens, eos, sample,
+                                          temperature, seed, chunk_size)
         else:
             level = "fused"
-            toks = self._generate_fused(ids, max_new_tokens, eos)
+            toks = self._generate_fused(ids, max_new_tokens, eos, sample,
+                                        temperature, seed)
         if eos is not None:
             toks = _trim_after_eos(toks, eos)
         out = np.concatenate([ids_np, toks.astype(ids_np.dtype)], axis=1)
@@ -596,8 +769,31 @@ class LlamaDecoder:
         return GenerateResult.wrap(out, self.last_resilience)
 
 
-# captured chunks a decoder keeps (each holds its own memory pool)
+# captured graphs a decoder keeps (each holds its own memory pool): chunk
+# keys, and admission-prefill keys (one per prompt bucket in serving)
 _CHUNK_GRAPHS = 4
+_PREFILL_GRAPHS = 8
+
+
+def _sample_spec(do_sample: bool, top_k, top_p):
+    """The sampling statics of a chunk or loop: ``(top_k, top_p)`` when
+    sampling, None for greedy (the filter acts only when sampling)."""
+    if not do_sample:
+        return None
+    return (None if top_k is None else int(top_k),
+            None if top_p is None else float(top_p))
+
+
+def _warm_up(graphs: "collections.OrderedDict", key, keep: int) -> bool:
+    """Mark ``key`` used in the LRU ``graphs``; True the first time it is
+    seen (its call runs eagerly, the warm-up; the next one captures)."""
+    if key not in graphs:
+        graphs[key] = None
+        while len(graphs) > keep:
+            graphs.popitem(last=False)
+        return True
+    graphs.move_to_end(key)
+    return False
 
 
 def _addresses(cache) -> tuple:
@@ -606,33 +802,145 @@ def _addresses(cache) -> tuple:
     return (cache.data_ptr(),)
 
 
+@dataclasses.dataclass
+class AdmissionRing:
+    """The device admission ring of a serving carry (the JAX engine's
+    ring buffers and splice arguments): R staging rows of logits and K/V,
+    which ``LlamaDecoder.ring_admit_prefill`` writes; the per-row splice
+    metadata (destination slot, -1 for an empty row; resume position,
+    key, eos, temperature), which the host ``load``s before each chunk;
+    and the carry's caches with one extra batch row, row B, the dump row
+    that empty ring rows write into (``_ring_splice``)."""
+
+    logits: torch.Tensor   # (R, V) f32
+    kc: Any
+    vc: Any
+    slot: torch.Tensor     # (R,) int64, -1 = empty
+    pos: torch.Tensor      # (R,) int64
+    keys: torch.Tensor     # (R, 2) int32
+    eos: torch.Tensor      # (R,) int64
+    temp: torch.Tensor     # (R,) f32
+    carry_kc: Any          # the carry's caches, B + 1 batch rows
+    carry_vc: Any
+
+    @classmethod
+    def allocate(cls, dec: LlamaDecoder, R: int, carry_kc, carry_vc):
+        dev = dec.device
+        kc, vc = dec._empty_cache(R)
+        long = dict(dtype=torch.long, device=dev)
+        return cls(
+            logits=torch.zeros((R, dec.cfg.vocab_size), dtype=torch.float32,
+                               device=dev),
+            kc=kc, vc=vc, slot=torch.full((R,), -1, **long),
+            pos=torch.zeros((R,), **long),
+            keys=torch.zeros((R, 2), dtype=torch.int32, device=dev),
+            eos=torch.full((R,), -1, **long),
+            temp=torch.ones((R,), dtype=torch.float32, device=dev),
+            carry_kc=carry_kc, carry_vc=carry_vc)
+
+    def load(self, slot, pos, keys, eos, temp) -> None:
+        """Copy the host's splice metadata (numpy arrays) into the device
+        buffers the chunk reads."""
+        host = (np.asarray(slot, np.int64), np.asarray(pos, np.int64),
+                np.asarray(keys, np.uint32).view(np.int32),
+                np.asarray(eos, np.int64), np.asarray(temp, np.float32))
+        for dst, a in zip((self.slot, self.pos, self.keys, self.eos,
+                           self.temp), host):
+            dst.copy_(torch.from_numpy(a))
+
+    def addresses(self) -> tuple:
+        return (self.logits.data_ptr(), *_addresses(self.kc),
+                *_addresses(self.vc), self.slot.data_ptr(),
+                *_addresses(self.carry_kc), *_addresses(self.carry_vc))
+
+
+def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
+    """The ring prologue of the JAX package's ``ring_chunk_decode``: each
+    staged ring row lands in the carry at its slot (K/V, logits, pos,
+    key, eos, temperature; ``done`` cleared). torch has no dropping
+    scatter, so the K/V rows go through ``index_copy_`` with empty ring
+    rows pointed at the carry caches' dump row B (never read: the carry
+    is the first B rows), and the per-row fields through a select over a
+    (B, R) match of slots, which leaves unmatched rows as they were. Both
+    are capturable and exact."""
+    B = st.logits.shape[0]
+    slot = ring.slot
+    tgt = torch.where(slot >= 0, slot, B)
+    _row_scatter(ring.carry_kc, ring.kc, tgt)
+    _row_scatter(ring.carry_vc, ring.vc, tgt)
+    match = slot[None, :] == torch.arange(B, device=slot.device)[:, None]
+    has = match.any(1)
+    src = match.to(torch.int32).argmax(1)
+
+    def put(carry, staged):
+        sel = has.view(-1, *([1] * (carry.dim() - 1)))
+        return torch.where(sel, staged[src], carry)
+
+    return dataclasses.replace(
+        st, logits=put(st.logits, ring.logits), pos=put(st.pos, ring.pos),
+        keys=put(st.keys, ring.keys), done=st.done & ~has,
+        eos=put(st.eos, ring.eos), temp=put(st.temp, ring.temp))
+
+
+# the carry fields a captured chunk copies in and clones out
+_CARRY = ("logits", "pos", "keys", "done", "eos", "temp")
+
+
 class _ChunkGraph:
     """``_chunk_steps`` captured once as a CUDA graph over static copies
-    of the small carry (logits, pos, done, eos) and the caller's KV caches
-    themselves, which it updates in place as the eager chunk does (the
-    serving engine writes admitted rows into them between chunks). ``run``
-    copies a carry in, replays, and returns clones of the outputs, so an
-    earlier ``DecodeState`` keeps its values when a later chunk
-    replays."""
+    of the small carry (``_CARRY``) and the caller's KV caches themselves,
+    which it updates in place as the eager chunk does (the serving engine
+    writes admitted rows into them between chunks). ``run`` copies a
+    carry in, replays, and returns clones of the outputs, so an earlier
+    ``DecodeState`` keeps its values when a later chunk replays."""
 
-    def __init__(self, dec: LlamaDecoder, st: DecodeState, steps: int):
+    def __init__(self, dec: LlamaDecoder, st: DecodeState, steps: int,
+                 sample, ring: Optional[AdmissionRing]):
         self.inputs = dataclasses.replace(
-            st, logits=st.logits.clone(), pos=st.pos.clone(),
-            done=st.done.clone(), eos=st.eos.clone())
+            st, **{n: getattr(st, n).clone() for n in _CARRY})
         self.graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
         with torch.cuda.graph(self.graph):
-            self.toks, self.out = dec._chunk_steps(self.inputs, steps)
+            self.toks, self.out = dec._chunk_steps(self.inputs, steps,
+                                                   sample, ring)
         self.launches = _kernels.captured_launches(before)
 
     def run(self, st: DecodeState):
-        for name in ("logits", "pos", "done", "eos"):
+        for name in _CARRY:
             getattr(self.inputs, name).copy_(getattr(st, name))
         self.graph.replay()
         _kernels.add_launches(self.launches)
         return self.toks.clone(), dataclasses.replace(
-            st, logits=self.out.logits.clone(), pos=self.out.pos.clone(),
-            done=self.out.done.clone())
+            st, **{n: getattr(self.out, n).clone() for n in _CARRY})
+
+
+class _PrefillGraph:
+    """``ring_admit_prefill`` for one (rows, bucket) captured as a CUDA
+    graph over static inputs (ids, true lengths, start positions, ring
+    rows) and its own batch-N caches, zeroed inside the graph as a fresh
+    prefill's are. ``run`` copies the inputs in and replays."""
+
+    def __init__(self, dec: LlamaDecoder, ring: AdmissionRing, N: int,
+                 w: int):
+        long = dict(dtype=torch.long, device=dec.device)
+        self.args = (torch.zeros((N, w), **long), torch.ones((N,), **long),
+                     torch.zeros((N,), **long), torch.zeros((N,), **long))
+        ids, true_len, pos0, idx = self.args
+        # held for the graph's lifetime: it reads and writes them
+        self.caches = kc, vc = dec._empty_cache(N)
+        self.graph = torch.cuda.CUDAGraph()
+        before = _kernels.launch_counts()
+        with torch.cuda.graph(self.graph):
+            _zero_cache(kc)
+            _zero_cache(vc)
+            dec._ring_prefill(ids, true_len, pos0, kc, vc, ring, idx)
+        self.launches = _kernels.captured_launches(before)
+
+    def run(self, *args) -> None:
+        for dst, src in zip(self.args, args):
+            dst.copy_(src)
+        self.graph.replay()
+        _kernels.add_launches(self.launches)
 
 
 def _check_speculative(draft_model, num_speculative_tokens,

@@ -268,23 +268,27 @@ class LlamaForCausalLM(nn.Module):
     def generate(self, input_ids, max_new_tokens: int = 32,
                  max_len: Optional[int] = None,
                  decode_strategy: str = "greedy_search", **kwargs):
-        """Greedy decode through a ``LlamaDecoder`` cached on the model
-        (rebuilt when a parameter changed or the quant recipe differs),
-        on the model's device."""
+        """Decode through a ``LlamaDecoder`` cached on the model (rebuilt
+        when a parameter changed or the quant recipe differs), on the
+        model's device. ``decode_strategy="sampling"`` samples
+        (``do_sample`` defaults to True); ``"beam_search"`` routes to the
+        no-cache beam decoder (``nn/generation.py``)."""
         from paddle_tpu_torch.inference.generate import LlamaDecoder
         from paddle_tpu_torch.quantization.kv_cache import \
             resolve_decode_quant
         if decode_strategy not in ("greedy_search", "sampling",
                                    "beam_search"):
             raise ValueError(f"unknown decode_strategy {decode_strategy!r}")
-        if decode_strategy != "greedy_search":
-            raise NotImplementedError(
-                f"decode_strategy={decode_strategy!r} is not ported yet "
-                f"(ROADMAP queue 1: threefry sampling, beam search)")
         need = int(np.asarray(input_ids).shape[1]) + max_new_tokens
         if max_len is not None and max_len < need:
             raise ValueError(f"max_len {max_len} < prompt + new tokens "
                              f"({need})")
+        if decode_strategy == "beam_search":
+            from paddle_tpu_torch.nn.generation import beam_search
+            return beam_search(self, input_ids,
+                               max_new_tokens=max_new_tokens, **kwargs)
+        if decode_strategy == "sampling":
+            kwargs.setdefault("do_sample", True)
         ml = max(64, need) if max_len is None else max_len
         quant = resolve_decode_quant(kwargs.pop("quant", None))
         version = (tuple((id(p), p._version) for p in self.parameters()),

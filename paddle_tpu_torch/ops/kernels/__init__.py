@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 __all__ = ["launch_counts", "captured_launches", "add_launches"]
 
 _WRAPPERS = ("adam", "decode_attention", "flash_attention", "group_norm",
-             "int8_matmul", "rms_norm", "rope")
+             "int8_matmul", "rms_norm", "rope", "threefry")
 _COUNTERS = ("launches", "fwd_launches", "bwd_launches")
 
 Counts = Dict[Tuple[str, str], int]

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 OUT_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("decode_attention.cu", "int8_matmul.cu", "flash_fwd.cu",
            "flash_bwd.cu", "rms_norm.cu", "group_norm.cu", "rope.cu",
-           "adam.cu")
+           "adam.cu", "threefry.cu")
 # headers the sources include: part of the library's hash
 HEADERS = ("flash_common.cuh", "flash_f32.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "adam_launch": [_P, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _F, _F,
                     _P],
     "adam_max_tensors": [],
+    "threefry_launch": [_P, _I, _I, ctypes.c_uint, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -2,42 +2,57 @@
 
 Counterpart of ``paddle_tpu/serving/engine.py``: ``ServingEngine`` runs
 the Orca-style loop — admit queued requests into freed slots (one
-length-bucketed admission-prefill dispatch each, the row state copied
-into the batch carry on the device), run ONE ``decode_chunk`` dispatch of
-T tokens across all slots, harvest finished rows on the host, repeat.
+length-bucketed admission-prefill dispatch each), run ONE
+``decode_chunk`` dispatch of T tokens across all slots, harvest finished
+rows on the host, repeat.
+
+Admission goes through the device admission ring, the JAX engine's
+default route: each prefill stages its row (logits, K/V) into a free ring
+row on the device (``LlamaDecoder.ring_admit_prefill``, one CUDA graph
+per prompt bucket on a card), and the next chunk splices the staged rows
+into the carry at their slots inside its own graph. A round that admits
+more rows than the ring has free re-queues the rest at the head of their
+tier (``metrics()["admission_ring"]["full"]``). The JAX engine's
+host-scatter route serves only its prefix cache's slab admissions and
+comes with that cache (ROADMAP [5]).
 
 Dispatch accounting is part of the contract: one admission prefill per
 admitted request plus one chunk dispatch per step with live rows, so the
 decoder's ``dispatch_count`` moves by exactly ``prefill_dispatches +
-chunk_dispatches``. Admission copies and row retirement are in-place
-tensor updates outside the counted sites.
+chunk_dispatches``. The ring metadata copies and row retirement are
+in-place tensor updates outside the counted sites.
+
+Sampling (``do_sample``, ``top_k``, ``top_p`` engine-wide; ``temperature``
+and ``seed`` per request) draws each row from its own key,
+``split(PRNGKey(seed), 1)[0]`` at admission, so a request's tokens depend
+only on its seed, not on the engine's shape or its batch neighbours.
 
 ``step`` (admission, the chunk dispatch, harvest) runs under
 ``torch.inference_mode()``, so serving records no autograd graph.
 
-Admission takes the JAX engine's host-scatter route (the one it takes
-with the device ring off): each prefilled row is copied into the carry
-with ``index_copy_`` (counted by ``ServingEngine.host_scattered``).
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: the admission ring, prefix cache,
-speculative serving, LoRA adapters, snapshot/restore, deadlines and SLOs,
-the obs exporter, meshes, AOT bundle backends, the HTTP front-end,
-sampling, and the per-token degradation rung.
+``NotImplementedError`` when asked for: prefix cache, speculative
+serving, LoRA adapters, snapshot/restore, deadlines and SLOs, the obs
+exporter, meshes, AOT bundle backends, the HTTP front-end, request-keyed
+keys (router) and the per-token degradation rung.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.inference.generate import (DecodeState, LlamaDecoder,
-                                                 _normalize_eos, _not_ported)
+from paddle_tpu_torch import random as rnd
+from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
+                                                 LlamaDecoder, _batch_rows,
+                                                 _normalize_eos, _not_ported,
+                                                 _sample_spec)
 from paddle_tpu_torch.quantization.kv_cache import (QuantMismatchError,
-                                                    canonical_quant,
-                                                    is_quantized_kv)
+                                                    canonical_quant)
 from paddle_tpu_torch.runtime.resilience import GenerateResult
 from paddle_tpu_torch.serving.scheduler import Request, Scheduler
 
@@ -60,11 +75,9 @@ _LATER_ENGINE = {
     "num_speculative_tokens": ("speculative serving", None),
     "draft_quant": ("speculative serving", None),
     "adaptive_k": ("speculative serving", False),
-    "ring_slots": ("admission ring", None), "adapter_store": ("LoRA", None),
+    "adapter_store": ("LoRA", None),
 }
 _LATER_SUBMIT = {
-    "temperature": ("threefry sampling", 1.0),
-    "seed": ("threefry sampling", 0),
     "latency_class": ("deadlines and SLOs", "default"),
     "slo_ttft_s": ("deadlines and SLOs", None),
     "slo_latency_s": ("deadlines and SLOs", None),
@@ -85,27 +98,12 @@ def _refuse_later(kwargs: dict, table: dict, where: str) -> None:
             raise _not_ported(f"{where}({name}=)", item)
 
 
-def _admit_row(st: DecodeState, logits1, kc1, vc1, slot: int, src: int,
-               pos1: int, eos1: int) -> None:
-    """Copy row ``src`` of a freshly prefilled row state into carry row
-    ``slot``, in place (``index_copy_`` along the stacked caches' batch
-    axis 1; both leaves of a quantized cache). Not a counted dispatch."""
-    dev = st.logits.device
-    si = torch.tensor([slot], device=dev)
-
-    def put(dst, rows):
-        dst.index_copy_(1, si, rows.narrow(1, src, 1).to(dst.dtype))
-
-    for dst, rows in ((st.kc, kc1), (st.vc, vc1)):
-        if is_quantized_kv(dst):
-            put(dst["q"], rows["q"])
-            put(dst["s"], rows["s"])
-        else:
-            put(dst, rows)
-    st.logits[slot] = logits1[src]
-    st.pos[slot] = pos1
-    st.done[slot] = False
-    st.eos[slot] = eos1
+def _row_key(seed: int) -> np.ndarray:
+    """An admitted row's key, ``split(PRNGKey(seed), 1)[0]`` as on both of
+    the JAX engine's admission routes; host bookkeeping, so a key on the
+    CPU and the plain version."""
+    return rnd.split(rnd.PRNGKey(seed, device="cpu"), 1)[0].numpy() \
+        .view(np.uint32)
 
 
 def _check_quant_ask(quant, have, what: str) -> None:
@@ -122,36 +120,58 @@ def _check_quant_ask(quant, have, what: str) -> None:
 
 
 class _DecoderBackend:
-    """In-process backend: a ``LlamaDecoder``'s admission-prefill and
-    chunk entries."""
+    """In-process backend: a ``LlamaDecoder``'s ring-staged admission
+    prefill and ring chunk entries over the device admission ring. The
+    carry's caches hold one batch row more than the slots: the ring's
+    dump row."""
 
-    def __init__(self, dec: LlamaDecoder, num_slots: int, quant=None):
+    def __init__(self, dec: LlamaDecoder, num_slots: int, do_sample,
+                 top_k, top_p, quant=None):
         _check_quant_ask(quant, dec.quant, "this LlamaDecoder")
         self.dec = dec
         self.quant = dec.quant
         self.num_slots = int(num_slots)
         self.max_len = dec.max_len
+        self.sample = _sample_spec(do_sample, top_k, top_p)
+        self.ring: Optional[AdmissionRing] = None
+        self._carry = None
 
     def new_state(self) -> DecodeState:
         B, dev = self.num_slots, self.dec.device
-        kc, vc = self.dec._empty_cache(B)
+        self._carry = self.dec._empty_cache(B + 1)
+        kc, vc = (_batch_rows(c, B) for c in self._carry)
         return DecodeState(
             logits=torch.zeros((B, self.dec.cfg.vocab_size),
                                dtype=torch.float32, device=dev),
             kc=kc, vc=vc,
             pos=torch.zeros((B,), dtype=torch.long, device=dev),
+            keys=torch.zeros((B, 2), dtype=torch.int32, device=dev),
             done=torch.ones((B,), dtype=torch.bool, device=dev),  # all free
-            eos=torch.full((B,), -1, dtype=torch.long, device=dev))
+            eos=torch.full((B,), -1, dtype=torch.long, device=dev),
+            temp=torch.ones((B,), dtype=torch.float32, device=dev))
 
-    def admit_prefill(self, ids, true_len, pos0):
-        return self.dec.admit_prefill(ids, true_len, pos0)
+    # -- device admission ring ---------------------------------------------
+    def ring_init(self, R: int) -> None:
+        """Allocate the R-row ring over the carry ``new_state`` made."""
+        self.ring = AdmissionRing.allocate(self.dec, R, *self._carry)
 
-    def decode_chunk(self, st: DecodeState, chunk_size: int):
-        return self.dec.decode_chunk(st, chunk_size)
+    def ring_admit(self, ids, true_len, pos0, ring_idx) -> None:
+        """ONE counted admission-prefill dispatch whose rows stage
+        straight into ring rows ``ring_idx``."""
+        self.dec.ring_admit_prefill(ids, true_len, pos0, self.ring,
+                                    ring_idx)
+
+    def decode_chunk_ring(self, st: DecodeState, chunk_size: int, splice):
+        """Load the splice metadata (``ServingEngine._ring_args``), then
+        one chunk dispatch that splices the staged rows in before its
+        steps."""
+        self.ring.load(*splice)
+        return self.dec._chunk_decode(st, int(chunk_size), self.sample,
+                                      self.ring)
 
 
 class ServingEngine:
-    """Slot-admission continuous-batching engine (greedy).
+    """Slot-admission continuous-batching engine.
 
     ``submit`` queues a request and returns its id; ``step`` runs one
     admit-dispatch-harvest iteration and returns the requests it
@@ -160,19 +180,25 @@ class ServingEngine:
     the request's eos / budget) whose ``.resilience`` record carries the
     serving stats of that request (queue delay, latency, chunks, slot).
 
-    Tokens equal a solo ``LlamaDecoder.generate`` of the same request:
-    admission, chunk slicing and batch neighbours cannot change them. The
-    engine runs on its decoder's device."""
+    Greedy tokens equal a solo ``LlamaDecoder.generate`` of the same
+    request: admission, chunk slicing and batch neighbours cannot change
+    them. Sampled tokens depend only on the request's seed and
+    temperature (per-row keys), so they are the same across engine
+    configurations and equal ``generate(chunk_size=T, seed=)`` of the
+    request alone. ``do_sample`` / ``top_k`` / ``top_p`` are
+    engine-wide; eos id, temperature and seed are per request.
+
+    ``ring_slots``: rows in the device admission ring (default
+    ``num_slots``, at least 1). The engine runs on its decoder's
+    device."""
 
     def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  policy: str = "fifo",
                  prompt_buckets: Optional[Sequence[int]] = None,
-                 quant: Optional[str] = None, **later):
-        if do_sample or top_k is not None or top_p is not None:
-            raise _not_ported("sampled serving (do_sample=, top_k=, "
-                              "top_p=)", "threefry sampling")
+                 quant: Optional[str] = None,
+                 ring_slots: Optional[int] = None, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
         if not isinstance(backend, LlamaDecoder):
             raise TypeError(
@@ -182,14 +208,24 @@ class ServingEngine:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.num_slots = int(num_slots)
         self.chunk_size = int(chunk_size)
-        self._b = _DecoderBackend(backend, num_slots, quant=quant)
+        self._b = _DecoderBackend(backend, num_slots, do_sample, top_k,
+                                  top_p, quant=quant)
         self.scheduler = Scheduler(num_slots, policy=policy,
                                    prompt_buckets=prompt_buckets)
         self.state = self._b.new_state()
+        # the device admission ring: always on here (the prefix cache,
+        # which keeps the JAX engine on host scatter, is not ported)
+        R = int(ring_slots if ring_slots is not None else num_slots)
+        if R < 1:
+            raise ValueError(f"ring_slots must be >= 1, got {R}")
+        self._ring_slots = R
+        self._ring_meta: List[Optional[dict]] = [None] * R
+        self._b.ring_init(R)
         self._next_id = 0
         self._results: Dict[int, Any] = {}
         self._n = {"prefill": 0, "chunk": 0, "slot_steps": 0,
-                   "host_scattered": 0, "corrupt_rows": 0}
+                   "corrupt_rows": 0,
+                   "ring_staged": 0, "ring_scattered": 0, "ring_full": 0}
         self._samples: Dict[str, List[float]] = {
             k: [] for k in ("queue_delay_s", "latency_s", "ttft_s",
                             "tpot_s", "occupancy", "queue_depth")}
@@ -211,15 +247,19 @@ class ServingEngine:
     @property
     def host_scattered(self) -> int:
         """Admitted rows copied into the carry by the host-scatter route
-        (the JAX engine reports it under ``metrics()["admission_ring"]``,
-        which is None without the ring)."""
-        return self._n["host_scattered"]
+        (also ``metrics()["admission_ring"]["host_scattered"]``): always 0
+        here, where the ring serves every admission (the JAX engine's
+        host scatter serves only the prefix cache, ROADMAP [5])."""
+        return 0
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
-               eos_token_id: Optional[int] = None, priority: int = 0,
-               **later) -> int:
-        """Queue one greedy request; returns its id (results key)."""
+               eos_token_id: Optional[int] = None,
+               temperature: float = 1.0, seed: int = 0,
+               priority: int = 0, **later) -> int:
+        """Queue one request; returns its id (results key).
+        ``temperature`` and ``seed`` act on a sampling engine: the row's
+        key is ``split(PRNGKey(seed), 1)[0]``."""
         _refuse_later(later, _LATER_SUBMIT, "submit")
         prompt = np.asarray(prompt)
         if prompt.ndim == 2:
@@ -244,6 +284,7 @@ class ServingEngine:
         self.scheduler.push(Request(
             id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
             eos_token_id=_normalize_eos(eos_token_id),
+            temperature=float(temperature), seed=int(seed),
             priority=int(priority), submit_time=time.monotonic()))
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.scheduler))
@@ -332,37 +373,71 @@ class ServingEngine:
 
     # -- admission ---------------------------------------------------------
     def _admit_all(self, admitted, now: float) -> None:
-        """One admission round: one prefill dispatch per request, padded
-        to its prompt bucket, each row then copied into its slot."""
+        """One ring admission round: a free ring row per admitted request
+        and one ring-staged prefill dispatch each, padded to its prompt
+        bucket. Admissions beyond the ring's free rows are un-admitted
+        (slot released, request re-queued at its tier's head with its
+        submit time, ``ring_full``) and retry next step, once the chunk
+        has drained the ring."""
+        free = collections.deque(
+            r for r, m in enumerate(self._ring_meta) if m is None)
+        if len(admitted) > len(free):
+            admitted, spill = admitted[:len(free)], admitted[len(free):]
+            for slot_idx, req in reversed(spill):
+                self.scheduler.slots.release(slot_idx)
+                self.scheduler.push_front(req)
+                self._n["ring_full"] += 1
         for slot_idx, req in admitted:
-            w = self.scheduler.bucket(len(req.prompt))
-            self._admit_group(w, [(slot_idx, req)], now)
+            self._admit_group_ring(self.scheduler.bucket(len(req.prompt)),
+                                   [(slot_idx, req)], free, now)
 
-    def _admit_group(self, w: int, grp, now: float) -> None:
-        """ONE admission-prefill dispatch for the group: batch-N ids
-        right-padded to width ``w`` with per-row true lengths, then one
-        row copy per admitted request."""
+    def _admit_group_ring(self, w: int, grp, free, now: float) -> None:
+        """ONE ring-staged admission-prefill dispatch for the group: the
+        prefilled rows land in device ring rows, with the splice metadata
+        the next chunk reads recorded on the host."""
         N = len(grp)
         ids = np.zeros((N, w), np.int64)
         true_len = np.zeros((N,), np.int64)
+        rows = [free.popleft() for _ in range(N)]
         for j, (_, req) in enumerate(grp):
             ids[j, :len(req.prompt)] = req.prompt
             true_len[j] = len(req.prompt)
-        logitsN, kcN, vcN = self._b.admit_prefill(
-            ids, true_len, np.zeros((N,), np.int64))
+        self._b.ring_admit(ids, true_len, np.zeros((N,), np.int64), rows)
         self._n["prefill"] += 1
         for j, (slot_idx, req) in enumerate(grp):
-            self._scatter(slot_idx, req, logitsN, kcN, vcN, src=j,
-                          pos1=len(req.prompt))
+            self._ring_meta[rows[j]] = {
+                "slot": slot_idx, "pos": len(req.prompt),
+                "key": _row_key(req.seed),
+                "eos": (-1 if req.eos_token_id is None
+                        else req.eos_token_id),
+                "temp": req.temperature}
+            self._n["ring_staged"] += 1
             self._note_admit(slot_idx, req, now)
 
-    def _scatter(self, slot_idx: int, req: Request, logits1, kc1, vc1,
-                 src: int, pos1: int) -> None:
-        """Row ``src`` of the prefilled row state lands in carry row
-        ``slot_idx`` (the host-side admission route)."""
-        self._n["host_scattered"] += 1
-        _admit_row(self.state, logits1, kc1, vc1, slot_idx, src, pos1,
-                   -1 if req.eos_token_id is None else req.eos_token_id)
+    def _ring_args(self) -> Tuple[tuple, int]:
+        """The chunk's splice metadata per ring row (slot -1 = empty,
+        resume pos, key, eos, temperature) and the staged count."""
+        R = self._ring_slots
+        slot = np.full((R,), -1, np.int64)
+        pos = np.zeros((R,), np.int64)
+        keys = np.zeros((R, 2), np.uint32)
+        eos = np.full((R,), -1, np.int64)
+        temp = np.ones((R,), np.float32)
+        n = 0
+        for r, m in enumerate(self._ring_meta):
+            if m is None:
+                continue
+            slot[r], pos[r], keys[r] = m["slot"], m["pos"], m["key"]
+            eos[r], temp[r] = m["eos"], m["temp"]
+            n += 1
+        return (slot, pos, keys, eos, temp), n
+
+    def _ring_drained(self, n: int) -> None:
+        """The chunk spliced the staged rows in: clear the metadata and
+        count them."""
+        if n:
+            self._ring_meta = [None] * self._ring_slots
+            self._n["ring_scattered"] += n
 
     def _note_admit(self, slot_idx: int, req: Request, now: float) -> None:
         slot = self.scheduler.slots.entries[slot_idx]
@@ -370,10 +445,12 @@ class ServingEngine:
         self._samples["queue_delay_s"].append(now - req.submit_time)
 
     def _dispatch_chunk(self) -> np.ndarray:
-        toks, self.state = self._b.decode_chunk(self.state,
-                                                self.chunk_size)
+        splice, n_staged = self._ring_args()
+        toks, self.state = self._b.decode_chunk_ring(self.state,
+                                                     self.chunk_size, splice)
         self._n["chunk"] += 1
         self._n["slot_steps"] += self.num_slots * self.chunk_size
+        self._ring_drained(n_staged)
         return toks.cpu().numpy()
 
     def _finish(self, slot, seq: np.ndarray, slot_idx: int,
@@ -466,7 +543,13 @@ class ServingEngine:
             "prefix_cache": None,
             "draft_prefill_dispatches": 0,
             "speculative": None,
-            "admission_ring": None,
+            "admission_ring": {
+                "slots": self._ring_slots,
+                "staged": self._n["ring_staged"],
+                "scattered": self._n["ring_scattered"],
+                "full": self._n["ring_full"],
+                "host_scattered": self.host_scattered,
+            },
             "adapters": None,
             "stream_ttft_p50_s": {},
         }

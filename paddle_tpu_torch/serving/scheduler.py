@@ -50,15 +50,18 @@ def bucket_length(n: int, buckets: Optional[Sequence[int]] = None) -> int:
 
 @dataclasses.dataclass
 class Request:
-    """One queued greedy generate ask. ``eos_token_id`` is already
-    normalized (None = decode to the full budget); ``priority`` orders
-    admission under the 'priority' policy (lower = sooner), ties broken
-    FIFO. ``submit_time`` is a ``time.monotonic()`` stamp;
-    ``Scheduler.push`` stamps it when the caller didn't."""
+    """One queued generate ask. ``eos_token_id`` is already normalized
+    (None = decode to the full budget); ``temperature`` and ``seed`` feed
+    a sampling engine's per-row key stream; ``priority`` orders admission
+    under the 'priority' policy (lower = sooner), ties broken FIFO.
+    ``submit_time`` is a ``time.monotonic()`` stamp; ``Scheduler.push``
+    stamps it when the caller didn't."""
     id: int
     prompt: np.ndarray            # (S,) token ids
     max_new_tokens: int
     eos_token_id: Optional[int] = None
+    temperature: float = 1.0
+    seed: int = 0
     priority: int = 0
     submit_time: float = 0.0      # time.monotonic(); 0.0 = unset
 
@@ -139,6 +142,15 @@ class Scheduler:
             request.submit_time = time.monotonic()
         pr = request.priority if self.policy == "priority" else 0
         heapq.heappush(self._heap, (pr, next(self._seq), request))
+
+    def push_front(self, request: Request) -> None:
+        """Re-queue ahead of every same-priority peer (the engine's ring
+        is full): the request keeps its ``submit_time`` and retakes its
+        tier's head through a negative sequence number. Call in reverse
+        admission order when re-queuing several, so the earliest-admitted
+        lands frontmost."""
+        pr = request.priority if self.policy == "priority" else 0
+        heapq.heappush(self._heap, (pr, -next(self._seq), request))
 
     def admissions(self) -> List[Tuple[int, Request]]:
         """Fill every free slot from the queue; returns the

@@ -183,12 +183,9 @@ def test_typed_refusals_match_jax(models, ids, jax_ref):
             with pytest.raises(ValueError, match=match):
                 call(d, m)
     # valid asks the port does not take yet name their ROADMAP item
-    for call in (lambda: dec.generate(ids, 4, do_sample=True),
-                 lambda: dec.generate(ids, 4, draft_model="skip:1"),
-                 lambda: tm.generate(ids, 4, decode_strategy="sampling"),
-                 lambda: tm.generate(ids, 4, decode_strategy="beam_search"),
+    for call in (lambda: dec.generate(ids, 4, draft_model="skip:1"),
+                 lambda: dec.init_decode_state(ids, draft_model="skip:1"),
                  lambda: dec.init_decode_state(ids, adapter_idx=[0, 0]),
-                 lambda: dec.init_decode_state(ids, None, 0.7),
                  lambda: LlamaDecoder(tm, mesh="dp:2", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -196,8 +193,8 @@ def test_typed_refusals_match_jax(models, ids, jax_ref):
 
 def test_decode_chunk_signatures_match_jax(models, ids):
     """init_decode_state and decode_chunk take the JAX package's parameters
-    with its defaults; values that leave sampling and speculation off run
-    on the CPU, others name their ROADMAP item."""
+    with its defaults; sampling runs on the CPU, a speculative draft
+    length names its ROADMAP item."""
     import inspect
 
     def params(fn):
@@ -212,10 +209,11 @@ def test_decode_chunk_signatures_match_jax(models, ids):
     st = dec.init_decode_state(ids, None, 1.0, 0)
     toks, _ = dec.decode_chunk(st, 3, False, None, None, None)
     assert tuple(toks.shape) == (ids.shape[0], 3)
-    for kw in ({"do_sample": True}, {"top_k": 4}, {"top_p": 0.9},
-               {"K": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dec.decode_chunk(st, 3, **kw)
+    st = dec.init_decode_state(ids, None, 0.7, 3)
+    toks, _ = dec.decode_chunk(st, 3, True, 4, 0.9, None)
+    assert tuple(toks.shape) == (ids.shape[0], 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dec.decode_chunk(st, 3, K=2)
 
 
 # A bf16 GQA Llama, the JAX parameters cast to bf16 as bench.py's decode

@@ -649,3 +649,145 @@ def test_decode_attention_empty_prefix_on_card(dtype):
         assert torch.isnan(want[empty]).all()
         keep = [i for i in range(3) if i != empty]
         _close(got[keep], want[keep], dtype)
+
+
+@pytest.mark.gpu
+def test_threefry_kernel_matches_plain_on_card():
+    """Both words bit for bit: a served sampling step (8 keys x 32000
+    counters), one key x 2^20, counts off the 256-thread block, a counter
+    base near 2^32 (the iota wraps, as fold_in's data may), and split /
+    fold_in through the kernel against the CPU plain version."""
+    _need_card()
+    from paddle_tpu_torch import random as rnd
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    keys = rnd.split(rnd.PRNGKey(7, device="cuda"), 8)
+    for R, n, base in ((8, 32000, 0), (1, 2**20, 0), (3, 1, 0),
+                       (3, 255, 0), (3, 257, 2**32 - 100), (8, 2, 5)):
+        k = keys[:R].contiguous()
+        got = tf.threefry_words(k, n, base)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tf.threefry_words_ref(k, n, base)), (R, n)
+    assert torch.equal(rnd.split(keys[3], 5).cpu(),
+                       rnd.split(keys[3].cpu(), 5))
+    assert torch.equal(rnd.fold_in(keys[3], 1234).cpu(),
+                       rnd.fold_in(keys[3].cpu(), 1234))
+
+
+def _tiny_gpu_llama():
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    return LlamaForCausalLM(LlamaConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, dtype="bfloat16"), seed=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8wk"])
+def test_graph_sampled_chunk_matches_eager_on_card(quant):
+    """Four chained sampled chunks (top-k 50, top-p 0.9, temperature 0.8)
+    through ``decode_chunk`` (eager, capture and replay, replays) against
+    the eager chunk body on a second carry: the same tokens, keys and
+    carry; one graph; two threefry launches a step on each replay."""
+    _need_card()
+    from paddle_tpu_torch.inference.generate import (LlamaDecoder,
+                                                     _sample_spec)
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    dec = LlamaDecoder(_tiny_gpu_llama(), max_len=64, quant=quant)
+    ids = np.random.default_rng(0).integers(0, 512, (3, 5))
+    sample = _sample_spec(True, 50, 0.9)
+    with torch.inference_mode():
+        st, ref = (dec.init_decode_state(ids, eos_token_id=7,
+                                         temperature=0.8, seed=3)
+                   for _ in range(2))
+        d0 = dec.dispatch_count
+        for i in range(4):
+            tf.launches = 0
+            toks, st = dec.decode_chunk(st, 5, True, 50, 0.9)
+            assert tf.launches == 2 * 5, i
+            want, ref = dec._chunk_steps(ref, 5, sample)
+            assert torch.equal(toks, want), i
+            for name in ("logits", "pos", "keys", "done"):
+                assert torch.equal(getattr(st, name), getattr(ref, name)), \
+                    (i, name)
+        assert dec.dispatch_count - d0 == 4
+        assert sum(g is not None for g in dec._chunk_graphs.values()) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8wk"])
+def test_graph_admission_prefill_matches_eager_on_card(quant):
+    """Four ring admission prefills of one key (bucket 16, one row: eager,
+    capture and replay, replays) against the eager body on a second ring:
+    the staged logits and K/V bit for bit after each; one dispatch each;
+    one graph; the replays count the int8 kernel's launches. Canaries the
+    size of the graph's scratch caches, allocated between the calls, keep
+    their values (a replay writes only memory the graph holds)."""
+    _need_card()
+    from paddle_tpu_torch.inference.generate import (AdmissionRing,
+                                                     LlamaDecoder)
+    dec = LlamaDecoder(_tiny_gpu_llama(), max_len=64, quant=quant)
+    ring = AdmissionRing.allocate(dec, 3, *dec._empty_cache(5))
+    ref = AdmissionRing.allocate(dec, 3, *dec._empty_cache(5))
+    rng = np.random.default_rng(1)
+    d0 = dec.dispatch_count
+
+    def leaves(c):
+        return list(c.values()) if isinstance(c, dict) else [c]
+
+    as_t = lambda a: torch.tensor(a, device="cuda")   # noqa: E731
+    canaries = []
+    for i, (n, row) in enumerate(((5, 0), (16, 2), (9, 1), (3, 2))):
+        ids = np.zeros((1, 16), np.int64)
+        ids[0, :n] = rng.integers(0, 512, n)
+        i8.launches = 0
+        dec.ring_admit_prefill(ids, [n], [0], ring, [row])
+        got_i8 = i8.launches
+        shapes = [(x.shape, x.dtype) for c in dec._empty_cache(1)
+                  for x in leaves(c)]
+        canaries += [torch.full(sh, 3, dtype=dt, device="cuda")
+                     for sh, dt in shapes]
+        i8.launches = 0
+        with torch.inference_mode():
+            kc, vc = dec._empty_cache(1)
+            dec._ring_prefill(dec._ids(ids), as_t([n]), as_t([0]), kc, vc,
+                              ref, as_t([row]))
+        torch.cuda.synchronize()
+        assert got_i8 == i8.launches == (9 if quant else 0), i
+        assert torch.equal(ring.logits, ref.logits), i
+        for a, b in ((ring.kc, ref.kc), (ring.vc, ref.vc)):
+            for x, y in zip(leaves(a), leaves(b)):
+                assert torch.equal(x, y), i
+    torch.cuda.synchronize()
+    assert all(bool((c == 3).all()) for c in canaries)
+    assert dec.dispatch_count - d0 == 4
+    assert sum(g is not None for g in dec._prefill_graphs.values()) == 1
+
+
+@pytest.mark.gpu
+def test_beam_search_on_card():
+    """Beam search through the model's no-cache forward on the card (the
+    RMSNorm kernels): the JAX package's output shape, ids in the vocab,
+    two runs equal, beam 1 equal to its own greedy no-cache argmax, and
+    an eos freezing the chosen beam."""
+    _need_card()
+    from paddle_tpu_torch.nn.generation import beam_search
+    model = _tiny_gpu_llama()
+    prompt = np.random.default_rng(2).integers(0, 512, (2, 6))
+    rn.fwd_launches = 0
+    out = beam_search(model, prompt, beam_size=4, max_new_tokens=8)
+    assert rn.fwd_launches > 0
+    assert out.shape == (2, 14) and ((out >= 0) & (out < 512)).all()
+    np.testing.assert_array_equal(
+        out, beam_search(model, prompt, beam_size=4, max_new_tokens=8))
+    ids = prompt.copy()
+    with torch.inference_mode():
+        for _ in range(8):
+            nxt = model(ids)[:, -1].float().argmax(-1).cpu().numpy()
+            ids = np.concatenate([ids, nxt[:, None]], axis=1)
+    np.testing.assert_array_equal(
+        beam_search(model, prompt, beam_size=1, max_new_tokens=8), ids)
+    eos = int(out[0, 8])
+    seq = beam_search(model, prompt[:1], beam_size=3, max_new_tokens=8,
+                      eos_token_id=eos)[0, 6:]
+    if (seq == eos).any():
+        assert (seq[int(np.argmax(seq == eos)):] == eos).all()

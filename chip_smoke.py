@@ -91,6 +91,39 @@ smoke run is made, nothing else is built.
    1)). Its
    line prints tokens/s, ms a chunk, the busy share and the threefry
    kernel's ms a decode step.
+   The prefix line (``serve_prefix``, unquantized and int8wk):
+   bench.py's ``--serve --prefix-mix`` traffic (3 shared 64-token
+   prefixes with 16-token suffixes; phase A a leader a prefix and 4
+   unique prompts, phase B 6 duplicates of leader 0, 12 suffix variants
+   and 4 unique prompts; 32 new tokens; max_len 128, 8 slots, chunk 16)
+   served cold (the ring) and cached (``prefix_cache=True``, block 32,
+   ``batch_admission=True``: host row copies, one admission-prefill
+   graph a (rows, bucket)). Full hits equal their leader bit for bit with
+   no prefill dispatch, the dispatch ledger balances, the cached run
+   prefills less than the cold one and its full hits admit faster (p50)
+   than the cold run's admissions, partial hits and misses pass the
+   decisive teacher-forced gate, each admission key has one graph and
+   every prefill dispatch of the timed cached run replays one. It prints
+   the hit classes, prefill tokens saved, bytes cached, admission p50 /
+   p99 by class, tokens/s and ms a chunk against the cold run, and the
+   decoder's graph keys and the allocator's reserved bytes (now and at
+   the line's peak).
+   The speculative line (``serve_spec``): bench_serve_spec's traffic (16
+   prompts of 32 tokens, 8-96 new; 8 slots, chunk 16, max_len 256)
+   through the plain engine, then ``draft_model="skip:3"`` with K 4,
+   a separate draft holding the target's own weights, ``quant="int8w"``
+   with an int8w draft, and sampled (top-k 50, top-p 0.9). Gates: the
+   dispatch identity with draft prefills, no per-token steps,
+   per-request acceptance counts summing to the engine's, every chunk
+   of a key after its first a replay, the decode-attention and int8
+   launches the rounds imply (the int8 kernel's counted by row count:
+   the verify's 40-row launches apart from the draft's 8-row ones), the
+   decisive teacher-forced gate for
+   greedy tokens, acceptance >= 0.75 K with the own-weights draft, and
+   sampled tokens in the re-score's top 50 and repeating. It prints the
+   acceptance, tokens per chunk dispatch, tokens/s and ms a chunk against
+   the plain engine, the busy share, and the graph keys and reserved
+   bytes as the prefix line does.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -137,9 +170,11 @@ smoke run is made, nothing else is built.
    replay's host ms and the profiled routes' busy shares, kernel kinds and
    per-kernel ms.
 7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows, the Adam
-   kernel's at the Llama's and the UNet's tensors, and the threefry
-   kernel's, launched by the sampled line), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   kernel's at the Llama's and the UNet's tensors, the threefry
+   kernel's, launched by the sampled line, and two rows at this
+   slice's shapes: decode attention at a draft's per-row lengths and the
+   int8 matmul at a verify's 40 rows), the card line, and last ``{"ok":
+   true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
 script exits 2 before printing any result.
@@ -873,6 +908,12 @@ def gn_census_cases(g):
     return cases
 
 
+# per-row lengths of a speculative draft's decode-attention calls on the
+# served path: prompts of 32 tokens plus 1-100 committed ones and the
+# round's offset j <= K
+DRAFT_LENS = [33, 36, 41, 50, 67, 90, 111, 133]
+
+
 def kernel_phase(parent=None):
     g = torch.Generator(device="cuda").manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -944,6 +985,26 @@ def kernel_phase(parent=None):
                        parent)
     # the sampler's counter hashing (a served step: 8 rows x 32000)
     cases += threefry_cases()
+    # the speculative slice's shapes, drawn after every earlier case so
+    # that those keep their inputs: a draft's single-token forwards at
+    # per-row lengths of served rows (32-token prompts, 8-96 new tokens,
+    # K 4), and one verify forward's int8 matmuls at 8 x (K + 1) = 40
+    # rows, then summed (row 2v)
+    cases.append(da_case("decode_attention bf16 B8 H12 KV4 D64 L256 draft "
+                         "rows", 8, 12, 4, 256, 64, DRAFT_LENS, bf, False,
+                         g, parent))
+    v40 = [i8_case(f"int8_matmul bf16 B40 {what} {K}x{N}", 40, K, N, bf, g)
+           for what, K, N in (("qkv", 768, 1280), ("o_proj", 768, 768),
+                              ("gate_up", 768, 4096), ("down", 2048, 768),
+                              ("head", 768, 32000))]
+    cases += v40 + [dict(
+        case="int8_matmul bf16 B40 verify", kernel="int8_matmul",
+        max_abs_err=max(c["max_abs_err"] for c in v40),
+        err_over_tol=max(c["err_over_tol"] for c in v40),
+        bound_by=("bytes" if all(c["bound_by"] == "bytes" for c in v40)
+                  else "operations"),
+        **{k: sum(c[k] for c in v40) for k in (
+            "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")})]
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -1038,6 +1099,36 @@ def rescore(dec, reqs, gens):
             for j, ((p, _, _), g) in enumerate(zip(reqs, gens))]
 
 
+def teacher_forced(tag, dec, reqs, gens, which=None):
+    """The decisive teacher-forced gate of served greedy tokens (of the
+    requests ``which``, default all) against a plain re-score: the
+    logits are bf16 products, so where the re-score's top two sit within
+    one bf16 spacing of each other which of them wins is rounding.
+    Agreement >= 0.99 is required where the re-score is decisive (top-1
+    ahead by more than 2 bf16 spacings), and every served token must be
+    within 4 spacings of the re-score's best."""
+    if which is not None:
+        reqs = [reqs[j] for j in which]
+        gens = [gens[j] for j in which]
+    rows = torch.cat(rescore(dec, reqs, gens))
+    served = torch.as_tensor(np.concatenate(gens), device=rows.device)
+    top = rows.topk(2, dim=-1).values
+    spacing = bf16_spacing(top[:, 0])
+    hit = rows.argmax(-1) == served
+    decisive = top[:, 0] - top[:, 1] > 2 * spacing
+    deficit = (top[:, 0] - rows.gather(1, served[:, None])[:, 0]) / spacing
+    rate = int(hit.sum()) / len(hit)
+    rate_decisive = int(hit[decisive].sum()) / max(int(decisive.sum()), 1)
+    check(rate_decisive >= 0.99, f"{tag}: teacher-forced top-1 agreement "
+          f"{rate_decisive} at decisive positions")
+    check(deficit.max().item() <= 4, f"{tag}: a served token trails the "
+          f"re-score's best by {deficit.max().item()} bf16 spacings")
+    return dict(teacher_forced_top1=rate,
+                teacher_forced_top1_decisive=rate_decisive,
+                decisive_positions=int(decisive.sum().item()),
+                max_deficit_bf16_spacings=deficit.max().item())
+
+
 def bf16_spacing(x):
     """One bf16 spacing at |x| (f32 tensor)."""
     return torch.exp2(torch.floor(torch.log2(x.abs())) - 7)
@@ -1066,7 +1157,8 @@ def prefill_graph_widths(dec, reqs, tag):
     """The buckets of the decoder's captured admission-prefill graphs: at
     most one graph per bucket the requests use."""
     from paddle_tpu_torch.serving import bucket_length
-    widths = [k[1] for k, g in dec._prefill_graphs.items() if g is not None]
+    widths = [k[2] for k, g in dec._prefill_graphs.items()
+              if g is not None and k[0] == "ring"]
     used = {bucket_length(len(p)) for p, _, _ in reqs}
     check(len(widths) == len(set(widths)) and set(widths) <= used,
           f"{tag}: captured prefill graphs at buckets {widths}, the "
@@ -1128,26 +1220,7 @@ def serve(model, quant, reqs, V, card):
     check(n_i8 == want_i8,
           f"{tag}: int8_matmul launches {n_i8} != {want_i8}")
 
-    # teacher-forced re-score of the served sequences. The logits are
-    # bf16 products: where the re-score's top two sit within one bf16
-    # spacing of each other, which of them wins is rounding, so agreement
-    # is required where the re-score is decisive (top-1 ahead by more
-    # than 2 bf16 spacings) and every served token must be within 4
-    # spacings of the re-score's best.
-    rows = torch.cat(rescore(dec, reqs, gens))
-    served = torch.as_tensor(np.concatenate(gens), device=rows.device)
-    top = rows.topk(2, dim=-1).values
-    spacing = bf16_spacing(top[:, 0])
-    hit = rows.argmax(-1) == served
-    decisive = top[:, 0] - top[:, 1] > 2 * spacing
-    deficit = (top[:, 0] - rows.gather(1, served[:, None])[:, 0]) / spacing
-    rate = int(hit.sum()) / len(hit)
-    rate_decisive = int(hit[decisive].sum()) / int(decisive.sum())
-    check(rate_decisive >= 0.99, f"{tag}: teacher-forced top-1 agreement "
-          f"{rate_decisive} at decisive positions")
-    check(deficit.max().item() <= 4, f"{tag}: a served token trails the "
-          f"re-score's best by {deficit.max().item()} bf16 spacings")
-    del rows
+    tf = teacher_forced(tag, dec, reqs, gens)
 
     def same(a_gens, what):
         for j, (a, b) in enumerate(zip(a_gens, gens)):
@@ -1182,11 +1255,7 @@ def serve(model, quant, reqs, V, card):
                 admission_ring=m["admission_ring"],
                 prefill_graph_buckets=widths,
                 decode_attention_launches=n_da, int8_matmul_launches=n_i8,
-                tokens_equal_eager=True,
-                teacher_forced_top1=rate,
-                teacher_forced_top1_decisive=rate_decisive,
-                decisive_positions=int(decisive.sum().item()),
-                max_deficit_bf16_spacings=deficit.max().item())
+                tokens_equal_eager=True, **tf)
     names = ("int8_matmul", "decode_attention")
     info["profiled"] = profiled_info({}, prof, pwall, steps, names)
     info["profiled_eager"] = profiled_info({}, eprof, epwall, steps, names)
@@ -1381,6 +1450,9 @@ def serve_sampled(model, reqs, greedy, V, card):
 
 
 def serving_phase(card):
+    """The serving lines on one model: greedy unquantized and int8wk,
+    then sampled; ``serve_prefix``, unquantized and int8wk; and
+    ``serve_spec``."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -1404,7 +1476,393 @@ def serving_phase(card):
         info, gens = serve(model, q, reqs, cfg.vocab_size, card)
         runs.append(info)
         greedy = gens if q is None else greedy
-    return runs, serve_sampled(model, reqs, greedy, cfg.vocab_size, card)
+    sampled = serve_sampled(model, reqs, greedy, cfg.vocab_size, card)
+    prefix = [serve_prefix(model, q, card) for q in (None, "int8wk")]
+    return runs, sampled, prefix, serve_spec(model, card)
+
+
+# -- prefix cache and speculative serving --------------------------------
+
+def graph_replays(dec, kind):
+    """(captured graphs, their replays) of the decoder's graphs of one
+    kind: "admit" (the prefix cache's admission prefills), "ring",
+    "draft" (staged prefills) or "spec" (speculative chunks)."""
+    pool = dec._chunk_graphs if kind == "spec" else dec._prefill_graphs
+    gs = [g for k, g in pool.items() if g is not None and k[0] == kind]
+    return len(gs), sum(g.replays for g in gs)
+
+
+def graph_memory(dec):
+    """The decoder's graph keys (warm-up entries included) by kind, and
+    the allocator's reserved bytes now and at their peak: the readings
+    that size the decoder's graph LRUs."""
+    kinds = {}
+    for pool in (dec._prefill_graphs, dec._chunk_graphs):
+        for k in pool:
+            kind = k[0] if isinstance(k[0], str) else "chunk"
+            kinds[kind] = kinds.get(kind, 0) + 1
+    return dict(graph_keys=kinds,
+                prefill_graph_keys=len(dec._prefill_graphs),
+                chunk_graph_keys=len(dec._chunk_graphs),
+                memory_reserved_bytes=torch.cuda.memory_reserved(),
+                max_memory_reserved_bytes=torch.cuda.max_memory_reserved())
+
+
+def prefix_mix(V, rng):
+    """bench.py's ``--serve --prefix-mix`` traffic at its on-device sizes
+    (bench.py:2450-2510): G 3 shared prefixes of 64 tokens, suffixes of
+    16; phase A seeds the pool (a leader a prefix and 4 unique prompts),
+    phase B is 6 exact duplicates of leader 0, 4 more suffix variants of
+    each prefix and 4 unique prompts, shuffled. Returns the two phases'
+    prompts."""
+    G, prefix_len, suffix_len, per_group, n_dups, n_unique = 3, 64, 16, 5, \
+        6, 4
+    prefixes = [rng.integers(0, V, (prefix_len,)) for _ in range(G)]
+    leader = [np.concatenate([pre, rng.integers(0, V, (suffix_len,))])
+              for pre in prefixes]
+    phase_a = list(leader) + [rng.integers(0, V, (prefix_len + suffix_len,))
+                              for _ in range(n_unique)]
+    phase_b = [leader[0]] * n_dups
+    for g in range(G):
+        phase_b += [np.concatenate([prefixes[g],
+                                    rng.integers(0, V, (suffix_len,))])
+                    for _ in range(per_group - 1)]
+    phase_b += [rng.integers(0, V, (prefix_len + suffix_len,))
+                for _ in range(n_unique)]
+    rng.shuffle(phase_b)
+    return phase_a, phase_b
+
+
+def serve_prefix(model, quant, card):
+    """The prefix-cache line: ``prefix_mix`` served by two engines over
+    one decoder (8 slots, chunk 16, 32 new tokens each):
+    COLD, the default ring route, and CACHED, ``prefix_cache=True`` (block
+    32) with ``batch_admission=True``, which admits by host row copy and
+    replays one admission-prefill graph a (rows, bucket), at max_len 128
+    (the 80-token prompts' bucket). Both run to capture their graphs,
+    then once more, cold then cached, each from a
+    fresh engine with the kernel counts set to 0 before and read after
+    (the cached route runs twice first, so that every admission key is
+    captured before the timed run).
+    Gates: full hits' tokens equal their leader's bit for bit and make no
+    prefill dispatch (per request, and the dispatch ledger balances);
+    the cached run prefills strictly less than the cold one, and its
+    full hits' admission p50 is below the cold run's; partial hits and
+    misses pass the decisive teacher-forced gate; at most one
+    admission graph a (rows, bucket), every later admission of a key a
+    replay; lengths, finite rows and the decoder's dispatch identity."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.serving import ServingEngine
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    V = model.config.vocab_size
+    tag = f"prefix {quant or 'none'}"
+    phase_a, phase_b = prefix_mix(V, np.random.default_rng(0))
+    prompts = phase_a + phase_b
+    n_new = 32
+    # bench.py sizes the cache at 64 + 16 + 32 + 8 = 120; the 80-token
+    # prompts' bucket is 128
+    dec = LlamaDecoder(model, max_len=128, quant=quant)
+    cached_kw = dict(prefix_cache=True, prefix_cache_bytes=1 << 30,
+                     prefix_block_tokens=32, batch_admission=True)
+
+    def run(cached):
+        eng = ServingEngine(dec, num_slots=8, chunk_size=16,
+                            **(cached_kw if cached else {}))
+        d0 = dec.dispatch_count
+        torch.cuda.synchronize()
+        da.launches = i8.launches = 0
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, n_new) for p in phase_a]
+        eng.drain()
+        ids += [eng.submit(p, n_new) for p in phase_b]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = eng.metrics()
+        res = [eng.result(r) for r in ids]
+        gens = [np.asarray(r)[0, len(p):] for r, p in zip(res, prompts)]
+        t = f"{tag} {'cached' if cached else 'cold'}"
+        check(all(len(g) == n_new for g in gens), f"{t}: lengths")
+        check(m["corrupt_rows"] == 0, f"{t}: non-finite logits in a row")
+        check(dec.dispatch_count - d0
+              == m["prefill_dispatches"] + m["chunk_dispatches"],
+              f"{t}: dispatch identity")
+        return dict(eng=eng, m=m, gens=gens, wall=wall,
+                    recs=[r.resilience["serving"] for r in res],
+                    launches=(da.launches, i8.launches))
+
+    # the cached route's admission keys: eager, then captured; the cold
+    # route's prefill buckets likewise
+    run(True)
+    run(True)
+    run(False)
+    cold = run(False)
+    g0 = graph_replays(dec, "admit")
+    hot = run(True)
+    mc, mh = cold["m"], hot["m"]
+    pc = mh["prefix_cache"]
+    recs = hot["recs"]
+    cls = [r["prefix_hit"] for r in recs]
+    lead = hot["gens"][0]
+    for j, r in enumerate(recs):
+        if cls[j] != "full":
+            continue
+        check(np.array_equal(hot["gens"][j], lead),
+              f"{tag}: full hit {j} differs from its leader")
+        check(r["admission_dispatches"] == 0,
+              f"{tag}: full hit {j} made a prefill dispatch")
+    check(cls.count("full") >= 5 and cls.count("partial") >= 1,
+          f"{tag}: hit classes {cls}")
+    check(mh["prefill_dispatches"] == (
+        pc["engine_misses"] + pc["engine_hits_partial"]
+        + pc["engine_hits_full"] - mh["admission_dispatches_saved"]),
+        f"{tag}: the admission ledger does not balance: {pc}, "
+        f"{mh['admission_dispatches_saved']} saved")
+    check(mh["prefill_dispatches"] < mc["prefill_dispatches"],
+          f"{tag}: cached prefills {mh['prefill_dispatches']} not below "
+          f"cold {mc['prefill_dispatches']}")
+    # bench.py's admission check: a full hit (one host row copy) admits
+    # faster than a cold admission (a prefill)
+    check(mh["admission_p50_s"]["full"] < mc["admission_p50_s"]["miss"],
+          f"{tag}: full-hit admission p50 {mh['admission_p50_s']['full']} "
+          f"s not below the cold run's {mc['admission_p50_s']['miss']} s")
+    reqs = [(p, n_new, None) for p in prompts]
+    tf = teacher_forced(tag, dec, reqs, hot["gens"],
+                        [j for j, c in enumerate(cls) if c != "full"])
+    keys = [k[1:3] for k, g in dec._prefill_graphs.items()
+            if g is not None and k[0] == "admit"]
+    n_admit, admit_replays = graph_replays(dec, "admit")
+    check(len(keys) == len(set(keys)), f"{tag}: admission graphs {keys}")
+    # the earlier cached runs captured every key: each of the hot run's
+    # prefill dispatches is a replay, and no graph is added or dropped
+    check(n_admit == g0[0]
+          and admit_replays - g0[1] == mh["prefill_dispatches"],
+          f"{tag}: admission graphs {g0} -> {(n_admit, admit_replays)} "
+          f"over {mh['prefill_dispatches']} prefill dispatches")
+    n_tok = len(prompts) * n_new
+    info = dict(
+        phase="serve_prefix", quant=quant or "none", card=card,
+        requests=len(prompts),
+        hits={c: cls.count(c) for c in ("full", "partial", "miss")},
+        hit_rate=(pc["engine_hits_full"] + pc["engine_hits_partial"])
+        / len(prompts),
+        prefill_tokens_saved=mh["prefill_tokens_saved"],
+        bytes_cached=pc["bytes_cached"], slabs=pc["slabs"],
+        prefill_dispatches=mh["prefill_dispatches"],
+        cold_prefill_dispatches=mc["prefill_dispatches"],
+        admission_dispatches_saved=mh["admission_dispatches_saved"],
+        batched_admission_groups=mh["batched_admission_groups"],
+        admission_cache_reordered=mh["admission_cache_reordered"],
+        host_scattered=hot["eng"].host_scattered,
+        admission_p50_s=mh["admission_p50_s"],
+        admission_p99_s=mh["admission_p99_s"],
+        cold_admission_p50_s=mc["admission_p50_s"]["miss"],
+        tokens_per_s=n_tok / hot["wall"],
+        cold_tokens_per_s=n_tok / cold["wall"],
+        ms_per_chunk_incl_admission=1e3 * hot["wall"]
+        / mh["chunk_dispatches"],
+        cold_ms_per_chunk_incl_admission=1e3 * cold["wall"]
+        / mc["chunk_dispatches"],
+        chunk_dispatches=mh["chunk_dispatches"],
+        cold_chunk_dispatches=mc["chunk_dispatches"],
+        admission_graphs=n_admit,
+        admission_graph_replays=admit_replays - g0[1],
+        admission_graph_keys=sorted(keys), **graph_memory(dec),
+        decode_attention_launches=hot["launches"][0],
+        int8_matmul_launches=hot["launches"][1],
+        full_hits_equal_leader=True, **tf)
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    del cold, hot, dec
+    torch.cuda.empty_cache()
+    return info
+
+
+def spec_requests(V):
+    """bench_serve_spec's traffic (bench.py:1540-1546): 16 prompts of 32
+    tokens, output lengths drawn from (8, 16, 32, 96)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, V, (32,)) for _ in range(16)]
+    lens = rng.choice((8, 16, 32, 96), 16)
+    return [(p, int(n), None) for p, n in zip(prompts, lens)]
+
+
+def serve_spec(model, card):
+    """The speculative line, bench_serve_spec's (bench.py:1490-1633) on
+    the GQA model: ``spec_requests`` through ``ServingEngine`` (8 slots,
+    chunk 16, max_len 256): the plain engine; ``draft_model="skip:3"``,
+    K 4, greedy; a separate draft holding the target's own weights
+    (acceptance near K, the all-accepted and bonus path); ``quant="int8w"``
+    with ``draft_quant="int8w"`` on that draft; sampled (top-k 50, top-p
+    0.9, seeds 1000 + j, temperatures 0.7-1.0). Each speculative engine
+    drains twice (a chunk key's first call eager, the second captured,
+    the rest replays), the kernel counts read around the second. Gates:
+    lengths; the dispatch identity (prefills + draft prefills + chunks);
+    zero per-token steps; per-request acceptance counts summing to the
+    engine's; every chunk of a key after its first a replay; the kernel
+    launches the rounds imply; greedy tokens through the decisive
+    teacher-forced gate; acceptance >= 0.75 K with the target's own
+    weights as draft; sampled tokens in the re-score's top 50 (or within
+    4 bf16 spacings of its 50th logit) and equal over two drains."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.ops.kernels import threefry as tf_k
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.config
+    V, L, K, T = cfg.vocab_size, cfg.num_hidden_layers, 4, 16
+    reqs = spec_requests(V)
+    sampling = [(1000 + j, 0.7 + 0.3 * j / 15) for j in range(len(reqs))]
+    dec = LlamaDecoder(model, max_len=256)
+
+    def line(name, dec, kw, sampled=False):
+        from paddle_tpu_torch.serving import ServingEngine
+        t = f"spec {name}"
+        eng = ServingEngine(dec, num_slots=8, chunk_size=T, **kw)
+        smp = sampling if sampled else None
+        first, first_wall, _ = drain(eng, reqs, sampling=smp)
+        g0 = graph_replays(dec, "spec")
+        d0 = dec.dispatch_count
+        m0 = eng.metrics()
+        torch.cuda.synchronize()
+        da.launches = i8.launches = tf_k.launches = 0
+        i8.launches_by_rows.clear()
+        gens, wall, _ = drain(eng, reqs, sampling=smp)
+        launches = (da.launches, i8.launches, tf_k.launches)
+        i8_rows = dict(sorted(i8.launches_by_rows.items()))
+        m = eng.metrics()
+        check_lengths(t, reqs, gens, V)
+        if sampled or "draft_model" in kw:
+            for j, (a, b) in enumerate(zip(first, gens)):
+                check(np.array_equal(a, b), f"{t}: request {j} gave other "
+                      f"tokens in its second drain")
+        d = {k: m[k] - m0[k] for k in ("prefill_dispatches",
+                                       "draft_prefill_dispatches",
+                                       "chunk_dispatches")}
+        check(m["corrupt_rows"] == 0, f"{t}: non-finite logits in a row")
+        check(m["step_dispatches"] == 0, f"{t}: per-token steps")
+        check(dec.dispatch_count - d0 == sum(d.values()),
+              f"{t}: dispatch identity {dec.dispatch_count - d0} != {d}")
+        check_ring(t, {"admission_ring": {
+            **m["admission_ring"],
+            "staged": m["admission_ring"]["staged"] - len(reqs),
+            "scattered": m["admission_ring"]["scattered"] - len(reqs)}},
+            len(reqs))
+        info = dict(phase="serve_spec", line=name, card=card,
+                    requests=len(reqs), wall_s=wall,
+                    first_drain_wall_s=first_wall, **d)
+        n_tok = int(sum(len(g) for g in gens))
+        info.update(tokens=n_tok, tokens_per_s=n_tok / wall,
+                    ms_per_chunk_incl_admission=1e3 * wall
+                    / d["chunk_dispatches"],
+                    tokens_per_chunk_dispatch=n_tok / d["chunk_dispatches"],
+                    decode_attention_launches=launches[0],
+                    int8_matmul_launches=launches[1],
+                    int8_matmul_launches_by_rows=i8_rows,
+                    threefry_launches=launches[2], **graph_memory(dec))
+        sp = m["speculative"]
+        if sp is not None:
+            res = eng.result
+            rounds = sum(res(r).resilience["serving"]["speculative"]
+                         ["rounds"] for r in range(len(reqs)))
+            acc = sum(res(r).resilience["serving"]["speculative"]
+                      ["accepted_drafts"] for r in range(len(reqs)))
+            check(rounds == m0["speculative"]["rounds"] and acc
+                  == m0["speculative"]["accepted_drafts"],
+                  f"{t}: per-request acceptance counts {rounds} / {acc} != "
+                  f"the engine's {m0['speculative']}")
+            g1 = graph_replays(dec, "spec")
+            check(g1[0] == g0[0] and g1[1] - g0[1] == d["chunk_dispatches"],
+                  f"{t}: spec chunk graphs {g0} -> {g1} over "
+                  f"{d['chunk_dispatches']} chunks")
+            rounds2 = sp["rounds"] - m0["speculative"]["rounds"]
+            acc2 = sp["accepted_drafts"] - m0["speculative"]["accepted_drafts"]
+            info.update(acceptance_len_mean=acc2 / rounds2, rounds=rounds2,
+                        accepted_drafts=acc2,
+                        overflow_tokens=sp["overflow_tokens"],
+                        spec_chunk_graphs=g1[0],
+                        spec_chunk_replays=g1[1] - g0[1])
+        return info, eng, gens
+
+    plain, _, plain_gens = line("plain", dec, {})
+    # skip:3, greedy: decode attention only in the draft's forwards
+    skip, eng, gens = line("skip3", dec, dict(draft_model="skip:3",
+                                              num_speculative_tokens=K))
+    chunks = skip["chunk_dispatches"]
+    check(skip["decode_attention_launches"] == chunks * T * (K + 1) * 3,
+          f"spec skip3: decode_attention launches "
+          f"{skip['decode_attention_launches']} != {chunks} x {T} x "
+          f"{K + 1} x 3")
+    skip.update(teacher_forced("spec skip3", dec, reqs, gens))
+    torch.cuda.synchronize()
+    _, pwall, prof = drain(eng, reqs, profile=True)
+    skip["profiled"] = profiled_info({}, prof, pwall, chunks * T,
+                                     ("decode_attention",))
+    skip["plain_tokens_per_s"] = plain["tokens_per_s"]
+    skip["plain_ms_per_chunk_incl_admission"] = \
+        plain["ms_per_chunk_incl_admission"]
+    skip["tokens_equal_plain"] = all(np.array_equal(a, b) for a, b
+                                     in zip(gens, plain_gens))
+    emit(skip)
+    # the target's own weights as a separate draft: acceptance near K
+    own, _, gens = line("own_weights", dec, dict(draft_model=model,
+                                                 num_speculative_tokens=K))
+    check(own["acceptance_len_mean"] >= 0.75 * K,
+          f"spec own_weights: acceptance {own['acceptance_len_mean']} "
+          f"< 0.75 K")
+    own.update(teacher_forced("spec own_weights", dec, reqs, gens))
+    emit(own)
+    # int8w target and an int8w draft: the verify's int8 matmuls at
+    # 8 x (K + 1) = 40 rows, the draft's at 8
+    qdec = LlamaDecoder(model, max_len=256, quant="int8w")
+    q8, _, gens = line("int8w", qdec, dict(draft_model=model,
+                                           num_speculative_tokens=K,
+                                           draft_quant="int8w"))
+    chunks = q8["chunk_dispatches"]
+    per_fwd = 4 * L + 1
+    want = (chunks * T * ((K + 1) * per_fwd + per_fwd)
+            + 2 * per_fwd * q8["prefill_dispatches"])
+    check(q8["int8_matmul_launches"] == want,
+          f"spec int8w: int8_matmul launches {q8['int8_matmul_launches']} "
+          f"!= {want}")
+    # the verify's launches, counted at the kernel by row count: 8 (K + 1)
+    # rows, which no draft forward (8 rows) or prefill (a multiple of the
+    # 32-token bucket) has
+    by_rows = q8["int8_matmul_launches_by_rows"]
+    q8["int8_matmul_verify_launches"] = by_rows.get(8 * (K + 1), 0)
+    check(q8["int8_matmul_verify_launches"] == chunks * T * per_fwd
+          and by_rows.get(8, 0) == chunks * T * (K + 1) * per_fwd,
+          f"spec int8w: int8_matmul launches by rows {by_rows}: not "
+          f"{chunks} x {T} x {per_fwd} verify launches of {8 * (K + 1)} "
+          f"rows and {K + 1} x as many draft launches of 8")
+    q8.update(teacher_forced("spec int8w", qdec, reqs, gens))
+    emit(q8)
+    del qdec
+    # sampled
+    smp, _, gens = line("sampled", dec, dict(
+        draft_model="skip:3", num_speculative_tokens=K, do_sample=True,
+        top_k=50, top_p=0.9), sampled=True)
+    worst = -math.inf
+    for j, (rows, g) in enumerate(zip(rescore(dec, reqs, gens), gens)):
+        tok = torch.as_tensor(g, device=rows.device)
+        kth = rows.topk(50, dim=-1).values[:, -1]
+        gap = (kth - rows.gather(1, tok[:, None])[:, 0]) / bf16_spacing(kth)
+        worst = max(worst, gap.max().item())
+        check(gap.max().item() <= 4, f"spec sampled: request {j} drew a "
+              f"token {gap.max().item()} bf16 spacings below the "
+              f"re-score's 50th logit")
+    smp["max_top50_gap_bf16_spacings"] = worst
+    emit(smp)
+    del eng, dec
+    torch.cuda.empty_cache()
+    return dict(skip3=skip, own_weights=own, int8w=q8, sampled=smp,
+                plain=plain, phase_s=time.perf_counter() - t_start)
 
 
 # -- the multi-tensor Adam / AdamW kernel ------------------------------------
@@ -1729,8 +2187,8 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
         moved = {n: (p.detach().float() - p0[n].float()).reshape(-1)
                  for n, p in params.items()}
         return losses, moved, {
-            f"{m}.{a}": (after[m, a] - before[m, a]) / steps
-            for m, a in after if after[m, a] != before[m, a]}
+            ".".join(map(str, k)): (n - before.get(k, 0)) / steps
+            for k, n in after.items() if n != before.get(k, 0)}
 
     def change_cos(x, y):
         worst, name = 1.0, None
@@ -2168,18 +2626,24 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs, sampled = serving_phase(card)
+    runs, sampled, prefix, spec = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
     _, unet_launches, adam_unet = unet_phase(card)
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-          f"serving {t3 - t2:.1f} s, llama training {t4 - t3:.1f} s, unet "
-          f"training {time.perf_counter() - t4:.1f} s", flush=True)
+          f"serving {t3 - t2:.1f} s (prefix "
+          f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
+          f"{spec['phase_s']:.1f} s), llama training "
+          f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
+          flush=True)
+    served = runs + prefix
     launches.update(
-        decode_attention=sum(r["decode_attention_launches"] for r in runs),
+        decode_attention=sum(r["decode_attention_launches"] for r in served),
+        decode_attention_draft=spec["skip3"]["decode_attention_launches"],
         threefry=sampled["threefry_launches"],
-        int8_matmul=sum(r["int8_matmul_launches"] for r in runs),
+        int8_matmul=sum(r["int8_matmul_launches"] for r in served),
+        int8_matmul_verify=spec["int8w"]["int8_matmul_verify_launches"],
         group_norm_fwd=unet_launches["group_norm_fwd"],
         group_norm_bwd=unet_launches["group_norm_bwd"],
         flash_attention_fwd_d80=unet_launches["flash_attention_fwd"],
@@ -2211,10 +2675,18 @@ def main() -> int:
              "paddle_tpu_torch/csrc/decode_attention.cu",
              "paddle_tpu/ops/pallas/decode_attention.py:137",
              "decode_attention bf16 B8 H12 KV4 D64 L256"),
+            ("decode_attention_draft", "decode_attention",
+             "paddle_tpu_torch/csrc/decode_attention.cu",
+             "paddle_tpu/ops/pallas/decode_attention.py:137",
+             "decode_attention bf16 B8 H12 KV4 D64 L256 draft rows"),
             ("int8_matmul", "int8_matmul",
              "paddle_tpu_torch/csrc/int8_matmul.cu",
              "paddle_tpu/ops/pallas/int8_matmul.py:77",
              "int8_matmul bf16 B8 head 768x32000"),
+            ("int8_matmul_verify", "int8_matmul",
+             "paddle_tpu_torch/csrc/int8_matmul.cu",
+             "paddle_tpu/ops/pallas/int8_matmul.py:77",
+             "int8_matmul bf16 B40 verify"),
             ("flash_attention_fwd", "flash_attention_fwd", fa_fwd_src,
              fa_fwd, f"{flash} fwd"),
             ("flash_attention_bwd", "flash_attention_bwd", fa_bwd_src,

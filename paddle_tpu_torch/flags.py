@@ -31,6 +31,16 @@ _DEFAULTS: Dict[str, Any] = {
     # counted dispatch and one host sync per token) instead of the fused
     # loop; PADDLE_TPU_DECODE_FALLBACK=1 is equivalent
     "decode_fallback": False,
+    # default number of draft tokens proposed per speculative verify step
+    # (K) when LlamaDecoder.generate is given a draft_model without an
+    # explicit num_speculative_tokens
+    "decode_speculative_tokens": 4,
+    # byte budget of the serving engine's content-hashed prefix cache
+    # (serving/prefix_cache.py); 0 disables it unless prefix_cache= asks
+    "serving_prefix_cache_bytes": 0,
+    # prefix-cache hash granularity: prompts are hashed at every multiple
+    # of this many tokens, plus the full length
+    "serving_prefix_block_tokens": 64,
     # route scaled_dot_product_attention through the CUDA flash-attention
     # kernels (ops/kernels/flash_attention.py) when there is no mask or
     # dropout and the key length is at least flash_attention_min_seq

@@ -41,14 +41,33 @@ chunk graph. On a card each admission-prefill key (rows, bucket, quant,
 ring buffers, every flag's value) runs eagerly once, then replays one
 CUDA graph (``_PrefillGraph``).
 
-Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
-``decode_chunk``, ``ring_admit_prefill``) runs under
-``torch.inference_mode()``: the model's parameters are trainable, and
-decoding records no autograd graph.
+The serving engine's prefix-cache route admits by host row copy instead:
+``admit_prefill`` with a ``prepare`` callback (which copies cached slabs
+into the prefill's batch-N caches) replays one CUDA graph a (rows,
+bucket, quant, every flag's value) key on a card; the graph owns those
+caches.
 
-Not ported yet (ROADMAP.md queue 1): speculative decoding
-(``draft_model=``), LoRA (``adapter_idx=``), meshes, the retry and
-degradation ladder, a CUDA graph of the fused loop.
+Speculative decoding (Leviathan et al., arXiv:2211.17192; ``draft_model=``
+a ``LlamaForCausalLM`` or ``"skip:N"``, ``num_speculative_tokens`` K): a
+round runs K + 1 draft single-token forwards (the decode-attention kernel
+at per-row positions) and one target forward over the K + 1 positions
+(the masked dense form, S > 1), then accepts greedily by exact match or,
+sampling, by ``u * q(d) < p(d)`` over the filtered distributions with the
+residual ``max(p - q, 0)`` correction (``_spec_round``). ``generate`` runs
+two prefills and ONE counted decode dispatch (a Python loop of rounds with
+a host check between them); a speculative carry's ``decode_chunk`` runs
+exactly T rounds, one CUDA graph a key on a card. The JAX package's
+``mode="drop"`` writes of the emit buffer go to a dump column that nothing
+reads.
+
+Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
+``decode_chunk``, ``ring_admit_prefill``, ``ring_admit_draft``) runs
+under ``torch.inference_mode()``: the model's parameters are trainable,
+and decoding records no autograd graph.
+
+Not ported yet (ROADMAP.md queue 1): LoRA (``adapter_idx=``), meshes, the
+retry and degradation ladder (with ``spec_demote``), a CUDA graph of the
+fused loop.
 """
 
 from __future__ import annotations
@@ -93,7 +112,16 @@ class DecodeState:
     under ``int8wk``), PER-ROW cache positions, PER-ROW threefry keys
     (each row's draws depend only on its own key), the done mask, per-row
     eos ids (``-1`` = none) and temperatures. ``decode_chunk`` advances it
-    by T tokens in one dispatch; the serving engine admits rows into it."""
+    by T tokens in one dispatch; the serving engine admits rows into it.
+
+    A SPECULATIVE carry (``init_decode_state(draft_model=...)``) also
+    holds the draft's caches, a per-row pending token ``tok`` (emitted but
+    not yet in the caches; ``-1`` = pick from ``logits``, a fresh row),
+    per-row cumulative ``spec_rounds`` / ``spec_accepted``, the per-row
+    speculative switch ``spec_on`` (None = every row) and the host-side
+    ``spec`` (``{"ekey", "K"}``). ``logits`` are then the verify logits at
+    the pending token's position. ``nv`` is a speculative chunk's output:
+    each row's count of valid tokens in the returned buffer."""
 
     logits: torch.Tensor  # (B, V) f32
     kc: Any
@@ -103,6 +131,14 @@ class DecodeState:
     done: torch.Tensor    # (B,) bool — frozen rows (eos hit / slot free)
     eos: torch.Tensor     # (B,) int64 — per-row eos id, -1 = none
     temp: torch.Tensor    # (B,) f32 — per-row sampling temperature
+    dkc: Any = None       # draft caches (speculative carries)
+    dvc: Any = None
+    tok: Optional[torch.Tensor] = None  # (B,) int64, -1 = pick from logits
+    spec_rounds: Optional[torch.Tensor] = None    # (B,) int64, cumulative
+    spec_accepted: Optional[torch.Tensor] = None  # (B,) int64, cumulative
+    nv: Optional[torch.Tensor] = None   # (B,) int64, valid tokens of a chunk
+    spec_on: Optional[torch.Tensor] = None   # (B,) bool, None = all rows
+    spec: Any = None      # host-side: {"ekey", "K"}
 
 
 def _filter_logits(logits, temperature=1.0, top_k=None, top_p=None):
@@ -243,6 +279,22 @@ def _row_scatter(dst, src, idx) -> None:
         _row_scatter(dst["s"], src["s"], idx)
         return
     dst.index_copy_(dst.dim() - 4, idx, src.to(dst.dtype))
+
+
+def _row_copy(dst, src, slot: int, row: int, head_major: bool) -> None:
+    """Copy batch row ``row`` of ``src`` into row ``slot`` of ``dst``
+    (stacked caches, both leaves of a quantized one), in place. ``src``
+    may be shorter on the length axis (a bucketed prefix slab): its
+    columns land at ``[0, src_len)`` and the rest of the row keeps what it
+    held, masked until decode overwrites it (the JAX engine's
+    ``_admit_row``)."""
+    if is_quantized_kv(dst):
+        _row_copy(dst["q"], src["q"], slot, row, head_major)
+        _row_copy(dst["s"], src["s"], slot, row, head_major)
+        return
+    ax = 3 if head_major else 2
+    dst.narrow(1, slot, 1).narrow(ax, 0, src.shape[ax]).copy_(
+        src.narrow(1, row, 1))
 
 
 def _batch_rows(cache, n: int):
@@ -434,6 +486,9 @@ class LlamaDecoder:
                                     self.device)
         self.dispatch_count = 0
         self.last_resilience = None
+        self.last_spec_stats = None
+        # draft-model state of speculative decoding, by draft key
+        self._spec_engines: dict = {}
         # chunk / admission-prefill key -> its captured graph, or None
         # after the key's eager warm-up; the oldest keys go first past
         # _CHUNK_GRAPHS / _PREFILL_GRAPHS
@@ -443,10 +498,13 @@ class LlamaDecoder:
             collections.OrderedDict()
 
     # -- buffers -----------------------------------------------------------
-    def _empty_cache(self, B: int):
-        cfg = self.cfg
+    def _empty_cache(self, B: int, cfg: Optional[LlamaConfig] = None):
+        """Zeroed stacked caches for B rows, of the target's config or of
+        a draft's ``cfg``."""
+        cfg = self.cfg if cfg is None else cfg
         KV, D = cfg.num_key_value_heads, cfg.head_dim
-        per = ((B, KV, self.max_len, D) if self._head_major
+        per = ((B, KV, self.max_len, D)
+               if cfg.num_attention_heads != KV
                else (B, self.max_len, KV, D))
         shape = (cfg.num_hidden_layers,) + per
 
@@ -472,39 +530,81 @@ class LlamaDecoder:
 
     @torch.inference_mode()
     def admit_prefill(self, ids, true_len, pos0, kc=None, vc=None,
-                      return_all: bool = False):
+                      return_all: bool = False, prepare=None):
         """Length-bucketed admission prefill: ``ids`` (N, bucket) right-
         padded rows land in the cache at ``[pos0, pos0 + bucket)`` per
         row; returns ``(logits, kc, vc)`` with each row's logits taken at
         position ``true_len - 1`` (causal masking hides the padded tail,
         and decode overwrites its cache rows before they could unmask),
         or all positions' logits (N, bucket, V) with ``return_all``.
-        ``kc``/``vc`` default to fresh batch-N caches."""
+        ``kc``/``vc`` default to fresh batch-N caches, which ``prepare(kc,
+        vc)`` may preload (the prefix cache's slabs) before the forward.
+
+        Without caches or ``return_all``, on a card, the first call of a
+        key (rows, bucket, quant, every flag's value) runs eagerly, the
+        second captures a CUDA graph and later ones replay it: the graph
+        owns its caches, which are zeroed and handed to ``prepare`` before
+        each replay, and the returned caches are the graph's, valid until
+        the key's next call."""
         ids = self._ids(ids)
-        N = ids.shape[0]
+        N, w = ids.shape
+        as_long = lambda a: torch.as_tensor(     # noqa: E731
+            np.asarray(a), dtype=torch.long, device=self.device)
+        args = (ids, as_long(true_len), as_long(pos0))
+        self.dispatch_count += 1
+        key = ("admit", N, w, self.quant, flags.snapshot())
+        if (kc is None and not return_all and self.device.type == "cuda"
+                and not _warm_up(self._prefill_graphs, key,
+                                 _PREFILL_GRAPHS)):
+            graphs = self._prefill_graphs
+            if graphs[key] is None:
+                graphs[key] = _PrefillGraph(self, args, self._admit_body,
+                                            zero=False)
+            g = graphs[key]
+            for c in g.caches:
+                _zero_cache(c)
+            if prepare is not None:
+                prepare(*g.caches)
+            return (g.run(*args), *g.caches)
         if kc is None:
             kc, vc = self._empty_cache(N)
-        true_len = torch.as_tensor(np.asarray(true_len), dtype=torch.long,
-                                   device=self.device)
-        pos0 = torch.as_tensor(np.asarray(pos0), dtype=torch.long,
-                               device=self.device)
-        self.dispatch_count += 1
-        logits = self._fwd(ids, kc, vc, pos0, return_all=True)
-        if not return_all:
-            logits = logits[torch.arange(N, device=self.device),
-                            true_len - 1]
-        return logits, kc, vc
+        if prepare is not None:
+            prepare(kc, vc)
+        if return_all:
+            return self._fwd(ids, kc, vc, args[2], return_all=True), kc, vc
+        return self._admit_body(*args, kc, vc), kc, vc
 
-    def _ring_prefill(self, ids, true_len, pos0, kc, vc, ring, idx):
+    def _admit_body(self, ids, true_len, pos0, kc, vc):
+        """``admit_prefill``'s forward: each row's logits at position
+        ``true_len - 1``."""
+        logits = self._fwd(ids, kc, vc, pos0, return_all=True)
+        return logits[torch.arange(ids.shape[0], device=ids.device),
+                      true_len - 1]
+
+    def _ring_prefill(self, ids, true_len, pos0, idx, kc, vc, ring):
         """``ring_admit_prefill``'s body: prefill ``ids`` into the fresh
         batch-N caches ``kc``/``vc``, then stage each row's logits at
         position ``true_len - 1`` and its K/V into ring rows ``idx``."""
-        logits = self._fwd(ids, kc, vc, pos0, return_all=True)
-        logits = logits[torch.arange(ids.shape[0], device=ids.device),
-                        true_len - 1]
+        logits = self._admit_body(ids, true_len, pos0, kc, vc)
         ring.logits.index_copy_(0, idx, logits)
         _row_scatter(ring.kc, kc, idx)
         _row_scatter(ring.vc, vc, idx)
+
+    def _staged(self, key, args, body, cfg=None) -> None:
+        """One counted dispatch of a ring-staging prefill ``body(*args,
+        kc, vc)`` over fresh batch-N caches (of ``cfg``, default the
+        target's): eager on the CPU and at a key's first call on a card,
+        then one CUDA graph a key, whose own caches are zeroed inside
+        it."""
+        self.dispatch_count += 1
+        if self.device.type != "cuda" or _warm_up(self._prefill_graphs,
+                                                  key, _PREFILL_GRAPHS):
+            body(*args, *self._empty_cache(args[0].shape[0], cfg))
+            return
+        graphs = self._prefill_graphs
+        if graphs[key] is None:
+            graphs[key] = _PrefillGraph(self, args, body, cfg=cfg)
+        graphs[key].run(*args)
 
     @torch.inference_mode()
     def ring_admit_prefill(self, ids, true_len, pos0, ring: "AdmissionRing",
@@ -520,19 +620,30 @@ class LlamaDecoder:
         as_long = lambda a: torch.as_tensor(     # noqa: E731
             np.asarray(a), dtype=torch.long, device=self.device)
         args = (ids, as_long(true_len), as_long(pos0), as_long(ring_idx))
-        self.dispatch_count += 1
         N, w = ids.shape
-        key = (N, w, self.quant, ring.addresses(), flags.snapshot())
-        if self.device.type != "cuda" or _warm_up(self._prefill_graphs,
-                                                  key, _PREFILL_GRAPHS):
-            kc, vc = self._empty_cache(N)
-            self._ring_prefill(args[0], args[1], args[2], kc, vc, ring,
-                               args[3])
-            return
-        graphs = self._prefill_graphs
-        if graphs[key] is None:
-            graphs[key] = _PrefillGraph(self, ring, N, w)
-        graphs[key].run(*args)
+        key = ("ring", N, w, self.quant, ring.addresses(), flags.snapshot())
+        self._staged(key, args,
+                     lambda *a: self._ring_prefill(*a, ring=ring))
+
+    @torch.inference_mode()
+    def ring_admit_draft(self, ids, ring: "AdmissionRing", ring_idx,
+                         eng: dict) -> None:
+        """The draft's admission prefill, staged into the ring's draft
+        caches: one counted dispatch a group (the JAX engine's
+        ``ring_admit_draft``), one CUDA graph a key on a card."""
+        ids = self._ids(ids)
+        idx = torch.as_tensor(np.asarray(ring_idx), dtype=torch.long,
+                              device=self.device)
+        N, w = ids.shape
+        key = ("draft", N, w, self.quant, eng["ekey"], ring.addresses(),
+               flags.snapshot())
+
+        def body(ids, idx, dkc, dvc):
+            _forward_cached(eng["params"], eng["cfg"], ids, dkc, dvc, 0,
+                            self.max_len)
+            _row_scatter(ring.dkc, dkc, idx)
+            _row_scatter(ring.dvc, dvc, idx)
+        self._staged(key, (ids, idx), body, cfg=eng["cfg"])
 
     def _fused_decode(self, logits, kc, vc, pos0: int, eos: Optional[int],
                       steps: int, sample, temperature: float, seed: int):
@@ -602,13 +713,377 @@ class LlamaDecoder:
         key = (st.logits.shape[0], steps, self.quant, _addresses(st.kc),
                _addresses(st.vc), sample,
                None if ring is None else ring.addresses(), flags.snapshot())
+        body = lambda s: self._chunk_steps(s, steps, sample, ring)  # noqa
+        return self._graphed_chunk(key, st, body, _CARRY, ())
+
+    def _graphed_chunk(self, key, st: DecodeState, body, fields, outs):
+        """Run ``body(st)`` eagerly (the CPU; a key's first call on a
+        card), or capture it once as a ``_ChunkGraph`` over ``fields`` of
+        the carry (plus output-only ``outs``) and replay it."""
         if self.device.type != "cuda" or _warm_up(self._chunk_graphs, key,
                                                   _CHUNK_GRAPHS):
-            return self._chunk_steps(st, steps, sample, ring)
+            return body(st)
         graphs = self._chunk_graphs
         if graphs[key] is None:
-            graphs[key] = _ChunkGraph(self, st, steps, sample, ring)
+            graphs[key] = _ChunkGraph(st, body, fields, outs)
         return graphs[key].run(st)
+
+    # -- speculative decoding ----------------------------------------------
+    def _resolve_k(self, draft_model, num_speculative_tokens,
+                   draft_quant) -> int:
+        """The draft length K of a speculative ask (the
+        ``decode_speculative_tokens`` flag when not given), or 0 without
+        a draft model, after the JAX package's argument checks."""
+        if draft_model is None:
+            if num_speculative_tokens is not None:
+                raise ValueError("num_speculative_tokens requires a "
+                                 "draft_model")
+            if draft_quant is not None:
+                raise ValueError("draft_quant requires a draft_model")
+            return 0
+        K = int(num_speculative_tokens if num_speculative_tokens is not None
+                else flags.decode_speculative_tokens)
+        if K < 1:
+            raise ValueError(f"num_speculative_tokens must be >= 1, got {K}")
+        return K
+
+    def _spec_engine(self, draft_model, draft_quant: Optional[str] = None):
+        """The draft side of speculative decoding, cached by draft key:
+        ``{"cfg", "params", "ekey"}``. ``draft_model``: a
+        ``LlamaForCausalLM`` with the target's vocab (its weights built on
+        the decoder's device like the target's), or ``"skip:N"``, the
+        target's first N layers with its final norm and head.
+        ``draft_quant="int8w"`` quantizes a separate draft's weights only."""
+        cfg = self.cfg
+        if draft_quant not in (None, "int8w"):
+            raise ValueError(
+                f"draft_quant must be None or 'int8w', got {draft_quant!r}")
+        if isinstance(draft_model, str):
+            if not draft_model.startswith("skip:"):
+                raise ValueError(
+                    "draft_model must be a LlamaForCausalLM or 'skip:N' "
+                    f"(layer-skip view of the target), got {draft_model!r}")
+            if draft_quant is not None:
+                raise ValueError(
+                    "draft_quant does not compose with 'skip:N' drafts: "
+                    "the layer-skip view reuses the TARGET's params, so "
+                    "quantize the target (quant='int8w') instead")
+            n = int(draft_model.split(":", 1)[1])
+            if not 0 < n < cfg.num_hidden_layers:
+                raise ValueError(
+                    f"'skip:{n}' needs 0 < N < num_hidden_layers "
+                    f"({cfg.num_hidden_layers})")
+            ekey = ("skip", n)
+        else:
+            ekey = ("model", id(draft_model), draft_quant)
+        eng = self._spec_engines.get(ekey)
+        if eng is not None:
+            return eng
+        if isinstance(draft_model, str):
+            dcfg = dataclasses.replace(cfg, num_hidden_layers=n)
+            dp = self.params
+        else:
+            dcfg = draft_model.config
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {dcfg.vocab_size} != target "
+                    f"vocab_size {cfg.vocab_size}")
+            dp = _build_params(draft_model, self.max_len,
+                               "int8" if draft_quant else self.weight_dtype,
+                               self.device)
+        eng = {"cfg": dcfg, "params": dp, "ekey": ekey}
+        self._spec_engines[ekey] = eng
+        return eng
+
+    def _draft_prefill(self, eng, ids, dkc, dvc) -> None:
+        """The draft's prompt prefill: one counted dispatch."""
+        self.dispatch_count += 1
+        _forward_cached(eng["params"], eng["cfg"], ids, dkc, dvc, 0,
+                        self.max_len)
+
+    def _spec_round(self, eng, tok, pos, keys, done, kc, vc, dkc, dvc,
+                    eos, temp, K: int, sample, spec_on=None):
+        """One draft-propose / target-verify / accept round (the JAX
+        package's ``_spec_round`` and ``_spec_round_rows`` in one). ``pos``
+        (B,) is per row. ``keys``: one batch key (2,) split once a round
+        with ``temp`` a float (the fused loop and the per-round path), or
+        per-row keys (B, 2) with per-row ``temp`` (B,) (the chunks). ``eos``
+        (B,), -1 = none; done rows flush their eos fill at the full K + 1
+        rate. ``spec_on`` (B,) bool demotes False rows to verify-free
+        decode (acceptance 0, the target's own pick). The draft runs K + 1
+        single-token forwards (the last keeps its cache whole when every
+        proposal is accepted), the target one forward over the K + 1
+        positions. Returns ``(emit (B, K + 1), a (B,), tok_next (B,),
+        lg_a (B, V), keys, done)``: emit slots ``< a`` hold the accepted
+        drafts, slot ``a`` the correction or bonus token; ``lg_a`` are the
+        verify logits at each row's accepted position."""
+        B = tok.shape[0]
+        dev = tok.device
+        rows = keys is not None and keys.dim() == 2
+        if sample is not None:
+            if rows:
+                kk = rnd.split_rows(keys)                    # (B, 2, 2)
+                keys = kk[:, 0]
+                rk = rnd.split_rows(kk[:, 1].contiguous(), 3)
+                dkeys = rnd.split_rows(rk[:, 0].contiguous(), K)
+                u = rnd.uniform_rows(rk[:, 1].contiguous(), K)
+                ckey = rk[:, 2].contiguous()
+                t2, t3 = temp[:, None], temp[:, None, None]
+                draw = rnd.categorical_rows
+            else:
+                keys, sub = rnd.split(keys)
+                rk = rnd.split(sub, 3)
+                dkeys = rnd.split(rk[0], K)
+                u = rnd.uniform(rk[1], (B, K))
+                ckey = rk[2]
+                t2 = t3 = temp
+                draw = rnd.categorical
+        cur, props, flts = tok, [], []
+        for j in range(K + 1):
+            lg = _forward_cached(eng["params"], eng["cfg"], cur[:, None],
+                                 dkc, dvc, pos + j, self.max_len)
+            if j == K:
+                break
+            if sample is None:
+                cur = torch.argmax(lg, -1)
+            else:
+                flts.append(_filter_logits(lg, t2, *sample))
+                cur = draw(dkeys[:, j].contiguous() if rows else dkeys[j],
+                           flts[-1])
+            props.append(cur)
+        props = torch.stack(props, 1)                        # (B, K)
+        all_lg = self._fwd(torch.cat([tok[:, None], props], 1), kc, vc,
+                           pos, return_all=True)             # (B, K+1, V)
+        V = all_lg.shape[-1]
+
+        def at(x, idx):     # x (B, n, V) at per-row position idx (B,)
+            return x.gather(1, idx.view(B, 1, 1).expand(B, 1, V))[:, 0]
+
+        if sample is not None:
+            pprob = torch.softmax(_filter_logits(all_lg, t3, *sample), -1)
+            qprob = torch.softmax(torch.stack(flts, 1), -1)  # (B, K, V)
+            pd = pprob[:, :K].gather(-1, props[..., None])[..., 0]
+            qd = qprob.gather(-1, props[..., None])[..., 0]
+            a = torch.cumprod((u * qd < pd).long(), 1).sum(1)
+            if spec_on is not None:
+                a = torch.where(spec_on, a, 0)
+            pa = at(pprob, a)
+            resid = torch.clamp(pa - at(qprob, torch.clamp(a, max=K - 1)),
+                                min=0.0)
+            rs = resid.sum(-1, keepdim=True)
+            pos_rs = rs > 0
+            resid = torch.where(pos_rs, resid / torch.where(pos_rs, rs, 1.0),
+                                pa)
+            dist = torch.where((a == K)[:, None], pa, resid)
+            if spec_on is not None:
+                dist = torch.where(spec_on[:, None], dist, pa)
+            corr = draw(ckey, torch.log(dist))
+        else:
+            tgt = torch.argmax(all_lg, -1)                   # (B, K+1)
+            a = torch.cumprod((props == tgt[:, :K]).long(), 1).sum(1)
+            if spec_on is not None:
+                a = torch.where(spec_on, a, 0)
+            corr = tgt.gather(1, a[:, None])[:, 0]
+        jidx = torch.arange(K + 1, device=dev)[None, :]
+        ext = torch.cat([props, torch.zeros_like(props[:, :1])], 1)
+        emit = torch.where(jidx < a[:, None], ext,
+                           torch.where(jidx == a[:, None], corr[:, None], 0))
+        fill = torch.where(eos >= 0, eos, 0)
+        a = torch.where(done, K, a)
+        emit = torch.where(done[:, None], fill[:, None], emit)
+        valid = jidx <= a[:, None]
+        hit = (emit == eos[:, None]) & valid
+        after = (torch.cumsum(hit.long(), 1) - hit.long()) > 0
+        emit = torch.where(after & valid, fill[:, None], emit)
+        done = done | hit.any(1)
+        tok_next = emit.gather(1, a[:, None])[:, 0]
+        return emit, a, tok_next, at(all_lg, a), keys, done
+
+    def _spec_decode(self, eng, logits, kc, vc, dkc, dvc, S: int,
+                     eos: Optional[int], max_new: int, K: int, sample,
+                     temperature: float, seed: int):
+        """The fused speculative loop, ONE counted dispatch: a fresh pick
+        from the prefill logits, then rounds until every row holds
+        ``max_new`` tokens (a host check between rounds). Each round
+        commits a per-row 1..K+1 tokens into a ``(B, max_new + 1)`` buffer
+        whose last column takes the writes the JAX package drops. Returns
+        ``(buf (B, max_new), rounds, accepted)`` over live rows."""
+        self.dispatch_count += 1
+        B, dev = logits.shape[0], logits.device
+        eos_t = torch.full((B,), -1 if eos is None else eos,
+                           dtype=torch.long, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        key = None
+        if sample is None:
+            tok = torch.argmax(logits, -1)
+        else:
+            key, tok = _sample_batch(logits, rnd.PRNGKey(seed, device=dev),
+                                     temperature, *sample)
+        if eos is not None:
+            done = tok == eos
+        buf = torch.zeros((B, max_new + 1), dtype=torch.long, device=dev)
+        buf[:, 0] = tok
+        pos = torch.full((B,), S, dtype=torch.long, device=dev)
+        jidx = torch.arange(K + 1, device=dev)[None, :]
+        sr = torch.zeros((), dtype=torch.long, device=dev)
+        sa = torch.zeros((), dtype=torch.long, device=dev)
+        while True:
+            cnt = pos - S + 1
+            active = cnt < max_new
+            if not bool(active.any()):
+                break
+            live = active & ~done
+            # a finished row keeps riding the rounds: its (discarded)
+            # writes stay where a round still fits the cache
+            emit, a, tok2, _, key, done2 = self._spec_round(
+                eng, tok, torch.clamp(pos, max=self.max_len - K - 1),
+                key, done, kc, vc, dkc, dvc, eos_t, temperature, K, sample)
+            sr = sr + live.sum()
+            sa = sa + torch.where(live, a, 0).sum()
+            idx = cnt[:, None] + jidx
+            valid = (jidx <= a[:, None]) & active[:, None] & (idx < max_new)
+            buf.scatter_(1, torch.where(valid, idx, max_new), emit)
+            pos = torch.where(active, pos + a + 1, pos)
+            tok = torch.where(active, tok2, tok)
+            done = torch.where(active, done2, done)
+        return buf[:, :max_new], int(sr), int(sa)
+
+    def _generate_speculative(self, ids, max_new, eos, sample, temperature,
+                              seed, eng, K):
+        """Fused speculative decode: prefill (target) + prefill (draft) +
+        ONE decode dispatch; records ``last_spec_stats``."""
+        B, S = ids.shape
+        kc, vc = self._empty_cache(B)
+        dkc, dvc = self._empty_cache(B, eng["cfg"])
+        logits = self._prefill(ids, kc, vc)
+        self._draft_prefill(eng, ids, dkc, dvc)
+        buf, sr, sa = self._spec_decode(eng, logits, kc, vc, dkc, dvc, S,
+                                        eos, max_new, K, sample,
+                                        temperature, seed)
+        self._record_spec_stats(sr, sa, K)
+        return buf.cpu().numpy()
+
+    def _generate_speculative_fallback(self, ids, max_new, eos, sample,
+                                       temperature, seed, eng, K):
+        """One counted dispatch and one host sync per round (the
+        ``decode_fallback`` debugging path): the same rounds and key
+        stream as the fused loop, so the same tokens."""
+        B, S = ids.shape
+        dev = self.device
+        kc, vc = self._empty_cache(B)
+        dkc, dvc = self._empty_cache(B, eng["cfg"])
+        logits = self._prefill(ids, kc, vc)
+        self._draft_prefill(eng, ids, dkc, dvc)
+        eos_t = torch.full((B,), -1 if eos is None else eos,
+                           dtype=torch.long, device=dev)
+        key = None
+        if sample is None:
+            tok = torch.argmax(logits, -1)
+        else:
+            key, tok = _sample_batch(logits, rnd.PRNGKey(seed, device=dev),
+                                     temperature, *sample)
+        done = (tok == eos) if eos is not None else torch.zeros(
+            (B,), dtype=torch.bool, device=dev)
+        buf = np.zeros((B, max_new), np.int64)
+        buf[:, 0] = tok.cpu().numpy()
+        count = np.ones((B,), np.int64)
+        pos = torch.full((B,), S, dtype=torch.long, device=dev)
+        sr = sa = 0
+        while bool((count < max_new).any()):
+            active = count < max_new
+            live = active & ~done.cpu().numpy()
+            self.dispatch_count += 1
+            emit, a, tok2, _, key, done2 = self._spec_round(
+                eng, tok, torch.clamp(pos, max=self.max_len - K - 1),
+                key, done, kc, vc, dkc, dvc, eos_t, temperature, K, sample)
+            emit_h, a_h = emit.cpu().numpy(), a.cpu().numpy()
+            sr += int(live.sum())
+            sa += int(a_h[live].sum())
+            for b in np.flatnonzero(active):
+                n = min(int(a_h[b]) + 1, int(max_new - count[b]))
+                buf[b, count[b]:count[b] + n] = emit_h[b, :n]
+                count[b] += int(a_h[b]) + 1
+            act = torch.as_tensor(active, device=dev)
+            pos = torch.where(act, pos + a + 1, pos)
+            tok = torch.where(act, tok2, tok)
+            done = torch.where(act, done2, done)
+        self._record_spec_stats(sr, sa, K)
+        return buf
+
+    def _spec_chunk_steps(self, st: DecodeState, steps: int, K: int,
+                          sample=None, ring: Optional["AdmissionRing"] = None):
+        """Exactly ``steps`` = T speculative rounds over the per-row carry
+        (the JAX package's ``spec_chunk``), after the ring's splice when
+        ``ring`` is given. Rows without a pending token pick it fresh
+        from ``logits`` first. Returns ``(buf (B, T * (K + 1) + 1), new
+        state)`` with the new state's ``nv`` each row's valid count; the
+        buffer's last column, past every valid count, takes the writes the
+        JAX package drops. Rows past their budget keep their writes where
+        a full round still fits the cache."""
+        if ring is not None:
+            st = _ring_splice(st, ring)
+        logits, pos, keys, done, eos = (st.logits, st.pos, st.keys,
+                                        st.done, st.eos)
+        tok, sr, sa, son = (st.tok, st.spec_rounds, st.spec_accepted,
+                            st.spec_on)
+        eng = self._spec_engines[st.spec["ekey"]]
+        B, dev = logits.shape[0], logits.device
+        fill = torch.where(eos >= 0, eos, 0)
+        need = tok < 0
+        if sample is None:
+            cand = torch.argmax(logits, -1)
+        else:
+            keys2, cand = _sample_rows(logits, keys, st.temp, *sample)
+            keys = torch.where(need[:, None], keys2, keys)
+        cand = torch.where(done, fill, cand)
+        done = torch.where(need, done | (cand == eos), done)
+        tok = torch.where(need, cand, tok)
+        W = steps * (K + 1) + 1
+        buf = torch.zeros((B, W + 1), dtype=torch.long, device=dev)
+        buf[:, 0] = torch.where(need, tok, 0)
+        cnt = need.long()
+        jidx = torch.arange(K + 1, device=dev)[None, :]
+        for _ in range(steps):
+            live = ~done if son is None else ~done & son
+            emit, a, tok, logits, keys, done = self._spec_round(
+                eng, tok, pos, keys, done, st.kc, st.vc, st.dkc, st.dvc,
+                eos, st.temp, K, sample, son)
+            buf.scatter_(1, torch.where(jidx <= a[:, None],
+                                        cnt[:, None] + jidx, W), emit)
+            sr = sr + live.long()
+            sa = sa + torch.where(live, a, 0)
+            cnt = cnt + a + 1
+            pos = torch.clamp(pos + a + 1, max=self.max_len - K - 1)
+        return buf[:, :W], dataclasses.replace(
+            st, logits=logits, pos=pos, keys=keys, done=done, tok=tok,
+            spec_rounds=sr, spec_accepted=sa, nv=cnt)
+
+    def _spec_chunk_decode(self, st: DecodeState, steps: int, K: int,
+                           sample=None,
+                           ring: Optional["AdmissionRing"] = None):
+        """One counted dispatch of ``_spec_chunk_steps``; on a card one
+        CUDA graph a key (batch, T, K, quant, the caches' addresses, the
+        draft, the sampling statics, the ring's buffers, every flag's
+        value), its first call eager."""
+        self.dispatch_count += 1
+        key = ("spec", st.logits.shape[0], steps, K, self.quant,
+               _addresses(st.kc), _addresses(st.vc), _addresses(st.dkc),
+               _addresses(st.dvc), st.spec["ekey"], st.spec_on is None,
+               sample, None if ring is None else ring.addresses(),
+               flags.snapshot())
+        body = lambda s: self._spec_chunk_steps(  # noqa: E731
+            s, steps, K, sample, ring)
+        return self._graphed_chunk(key, st, body, _SPEC_CARRY, ("nv",))
+
+    def _record_spec_stats(self, rounds: int, accepted: int, K: int):
+        self.last_spec_stats = {
+            "rounds": rounds,
+            "accepted_drafts": accepted,
+            # mean accepted drafts per verify round over live rows
+            "acceptance_len_mean": (accepted / rounds) if rounds
+            else float(K),
+            "num_speculative_tokens": K,
+        }
 
     # -- chunked resumable decode ------------------------------------------
     @torch.inference_mode()
@@ -622,22 +1097,37 @@ class LlamaDecoder:
         """Prefill (one dispatch) and build the carry for
         ``decode_chunk``; every row starts from the same prompt tensor.
         Per-row keys are ``split(PRNGKey(seed), B)``, per-row
-        temperatures ``temperature``. The JAX package's signature: a
-        ``draft_model`` and ``adapter_idx`` are refused as not ported; the
-        speculative arguments without a draft model raise the reference's
-        ``ValueError``."""
+        temperatures ``temperature``. With ``draft_model`` the carry is
+        speculative: the draft's prefilled caches (one more counted
+        dispatch), the pending-token sentinel ``tok = -1`` and zeroed
+        acceptance counts; ``speculative`` (B,) bools turn rows off
+        (verify-free decode in the same chunk). ``adapter_idx`` is
+        refused as not ported."""
         if speculative is not None and draft_model is None:
             raise ValueError("speculative=(B,) row mask requires a "
                              "draft_model")
-        _check_speculative(draft_model, num_speculative_tokens, draft_quant)
+        K = self._resolve_k(draft_model, num_speculative_tokens,
+                            draft_quant)
         if adapter_idx is not None:
             raise _not_ported("LoRA routing (adapter_idx=)", "LoRA")
+        eng = self._spec_engine(draft_model, draft_quant) if K else None
         ids = self._ids(input_ids)
         B, S = ids.shape
         kc, vc = self._empty_cache(B)
         logits = self._prefill(ids, kc, vc)
         eos = _normalize_eos(eos_token_id)
         dev = self.device
+        kw = {}
+        if eng is not None:
+            dkc, dvc = self._empty_cache(B, eng["cfg"])
+            self._draft_prefill(eng, ids, dkc, dvc)
+            zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+            kw = dict(dkc=dkc, dvc=dvc, tok=torch.full_like(zeros, -1),
+                      spec_rounds=zeros, spec_accepted=zeros.clone(),
+                      spec={"ekey": eng["ekey"], "K": K})
+            if speculative is not None:
+                kw["spec_on"] = torch.as_tensor(
+                    np.asarray(speculative, np.bool_), device=dev)
         return DecodeState(
             logits=logits, kc=kc, vc=vc,
             pos=torch.full((B,), S, dtype=torch.long, device=dev),
@@ -646,7 +1136,7 @@ class LlamaDecoder:
             eos=torch.full((B,), -1 if eos is None else eos,
                            dtype=torch.long, device=dev),
             temp=torch.full((B,), float(np.float32(temperature)),
-                            dtype=torch.float32, device=dev))
+                            dtype=torch.float32, device=dev), **kw)
 
     @torch.inference_mode()
     def decode_chunk(self, state: DecodeState, num_tokens: int,
@@ -657,13 +1147,16 @@ class LlamaDecoder:
         returns ``(tokens (B, num_tokens), new_state)``. ``do_sample``
         draws each row from its own key at its temperature, filtered by
         ``top_k`` / ``top_p`` (which act only when sampling, as in the JAX
-        package). A speculative draft length ``K`` is refused as not
-        ported."""
-        if K is not None:
-            raise _not_ported("speculative chunks (K=)",
-                              "speculative serving")
-        return self._chunk_decode(state, int(num_tokens),
-                                  _sample_spec(do_sample, top_k, top_p))
+        package). A speculative carry runs ``num_tokens`` verify ROUNDS
+        instead: the buffer is ``(B, num_tokens * (K + 1) + 1)`` and the
+        new state's ``nv`` holds each row's valid count, at least
+        ``num_tokens``. ``K`` overrides the carry's draft length for this
+        chunk (the adaptive-K hook); a plain carry ignores it."""
+        sample = _sample_spec(do_sample, top_k, top_p)
+        if state.dkc is not None:
+            K = int(state.spec["K"]) if K is None else int(K)
+            return self._spec_chunk_decode(state, int(num_tokens), K, sample)
+        return self._chunk_decode(state, int(num_tokens), sample)
 
     def _generate_chunked(self, ids, max_new, eos, sample, temperature,
                           seed, chunk_size):
@@ -681,6 +1174,48 @@ class LlamaDecoder:
             if eos is not None and bool(state.done.all()):
                 break
         return np.concatenate(out, axis=1)
+
+    def _generate_chunked_spec(self, ids, max_new, eos, sample,
+                               temperature, seed, draft_model, draft_quant,
+                               K, chunk_size):
+        """Chunked speculative decode: two prefills and chunks of
+        ``chunk_size`` rounds, each committing a per-row >= T tokens.
+        Greedy tokens equal the fused speculative path's for every
+        slicing; ``last_spec_stats`` are the carry's cumulative counts."""
+        T = int(chunk_size)
+        if T < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {T}")
+        state = self.init_decode_state(
+            ids, eos_token_id=eos, temperature=temperature, seed=seed,
+            draft_model=draft_model, num_speculative_tokens=K,
+            draft_quant=draft_quant)
+        B = ids.shape[0]
+        buf = np.zeros((B, max_new), np.int64)
+        got = np.zeros((B,), np.int64)
+        while True:
+            toks, state = self._spec_chunk_decode(state, T, K, sample)
+            toks_h, nv_h = toks.cpu().numpy(), state.nv.cpu().numpy()
+            for b in range(B):
+                n = min(int(nv_h[b]), int(max_new - got[b]))
+                if n > 0:
+                    buf[b, got[b]:got[b] + n] = toks_h[b, :n]
+                    got[b] += n
+            if bool((got >= max_new).all()):
+                break
+            if eos is not None and bool(state.done.all()):
+                # post-eos columns hold the eos fill, as in the fused path
+                for b in range(B):
+                    buf[b, got[b]:] = eos
+                break
+            full = got >= max_new
+            if full.any():
+                # budget-filled rows freeze: they stop counting rounds
+                state = dataclasses.replace(
+                    state, done=state.done | torch.as_tensor(
+                        full, device=self.device))
+        self._record_spec_stats(int(state.spec_rounds.sum()),
+                                int(state.spec_accepted.sum()), K)
+        return buf
 
     def _generate_fused(self, ids, max_new, eos, sample, temperature,
                         seed):
@@ -734,9 +1269,13 @@ class LlamaDecoder:
         filtered distribution with the JAX package's key stream for
         ``seed``. ``chunk_size=T`` runs the chunked path (greedy: the same
         tokens; sampled: per-row keys ``split(PRNGKey(seed), B)``, the
-        JAX chunked stream). A ``draft_model`` is refused as not ported,
-        after the reference's own checks (``max_len``, then the
-        speculative arguments without a draft model)."""
+        JAX chunked stream). ``draft_model`` (a ``LlamaForCausalLM`` or
+        ``"skip:N"``) decodes speculatively with K =
+        ``num_speculative_tokens`` (default the
+        ``decode_speculative_tokens`` flag) drafts a round: two prefills
+        and one decode dispatch (per round with ``decode_fallback``, per
+        chunk with ``chunk_size``); greedy tokens equal plain greedy
+        decoding, and ``last_spec_stats`` holds the acceptance counts."""
         eos = _normalize_eos(eos_token_id)
         ids_np = np.asarray(input_ids)
         B, S = ids_np.shape
@@ -745,10 +1284,33 @@ class LlamaDecoder:
                              f"exceeds max_len {self.max_len}")
         if max_new_tokens <= 0:
             return ids_np
-        _check_speculative(draft_model, num_speculative_tokens, draft_quant)
+        K = self._resolve_k(draft_model, num_speculative_tokens,
+                            draft_quant)
+        eng = None
+        if K:
+            if S + max_new_tokens + K > self.max_len:
+                raise ValueError(
+                    f"speculative decode can overshoot the cache by up to "
+                    f"K={K} slots: prompt {S} + {max_new_tokens} new + {K} "
+                    f"exceeds max_len {self.max_len}; build the decoder "
+                    f"with more slack")
+            eng = self._spec_engine(draft_model, draft_quant)
         sample = _sample_spec(do_sample, top_k, top_p)
         ids = self._ids(ids_np)
-        if decode_fallback_active():
+        fallback = decode_fallback_active()
+        self.last_spec_stats = None
+        if eng is not None:
+            level = "speculative"
+            if chunk_size is not None and not fallback:
+                toks = self._generate_chunked_spec(
+                    ids, max_new_tokens, eos, sample, temperature, seed,
+                    draft_model, draft_quant, K, chunk_size)
+            else:
+                gen = (self._generate_speculative_fallback if fallback
+                       else self._generate_speculative)
+                toks = gen(ids, max_new_tokens, eos, sample, temperature,
+                           seed, eng, K)
+        elif fallback:
             level = "per_token"
             toks = self._generate_per_token(ids, max_new_tokens, eos,
                                             sample, temperature, seed)
@@ -770,9 +1332,14 @@ class LlamaDecoder:
 
 
 # captured graphs a decoder keeps (each holds its own memory pool): chunk
-# keys, and admission-prefill keys (one per prompt bucket in serving)
-_CHUNK_GRAPHS = 4
-_PREFILL_GRAPHS = 8
+# keys (one per serving carry, and one per K under adaptive K), and
+# admission-prefill keys (one per (rows, bucket) and route in serving). On
+# an H100 80GB (700 W), chip_smoke.py's prefix line holds 7 prefill keys
+# and 5 chunk keys with 3.4-3.7 GB reserved in all, its speculative line
+# 7 and 4 with 3.1 GB: the caps leave room for more buckets and for
+# adaptive K's 4 keys at the default K.
+_CHUNK_GRAPHS = 8
+_PREFILL_GRAPHS = 16
 
 
 def _sample_spec(do_sample: bool, top_k, top_p):
@@ -810,7 +1377,9 @@ class AdmissionRing:
     metadata (destination slot, -1 for an empty row; resume position,
     key, eos, temperature), which the host ``load``s before each chunk;
     and the carry's caches with one extra batch row, row B, the dump row
-    that empty ring rows write into (``_ring_splice``)."""
+    that empty ring rows write into (``_ring_splice``). A speculative
+    carry's ring also stages the draft's caches (``ring_admit_draft``)
+    and each row's speculative switch ``son``."""
 
     logits: torch.Tensor   # (R, V) f32
     kc: Any
@@ -822,12 +1391,25 @@ class AdmissionRing:
     temp: torch.Tensor     # (R,) f32
     carry_kc: Any          # the carry's caches, B + 1 batch rows
     carry_vc: Any
+    dkc: Any = None        # speculative: staged draft caches, R rows
+    dvc: Any = None
+    carry_dkc: Any = None  # the carry's draft caches, B + 1 batch rows
+    carry_dvc: Any = None
+    son: Optional[torch.Tensor] = None   # (R,) bool
 
     @classmethod
-    def allocate(cls, dec: LlamaDecoder, R: int, carry_kc, carry_vc):
+    def allocate(cls, dec: LlamaDecoder, R: int, carry_kc, carry_vc,
+                 draft_cfg: Optional[LlamaConfig] = None, carry_dkc=None,
+                 carry_dvc=None):
         dev = dec.device
         kc, vc = dec._empty_cache(R)
         long = dict(dtype=torch.long, device=dev)
+        spec = {}
+        if draft_cfg is not None:
+            dkc, dvc = dec._empty_cache(R, draft_cfg)
+            spec = dict(dkc=dkc, dvc=dvc, carry_dkc=carry_dkc,
+                        carry_dvc=carry_dvc,
+                        son=torch.ones((R,), dtype=torch.bool, device=dev))
         return cls(
             logits=torch.zeros((R, dec.cfg.vocab_size), dtype=torch.float32,
                                device=dev),
@@ -836,28 +1418,37 @@ class AdmissionRing:
             keys=torch.zeros((R, 2), dtype=torch.int32, device=dev),
             eos=torch.full((R,), -1, **long),
             temp=torch.ones((R,), dtype=torch.float32, device=dev),
-            carry_kc=carry_kc, carry_vc=carry_vc)
+            carry_kc=carry_kc, carry_vc=carry_vc, **spec)
 
-    def load(self, slot, pos, keys, eos, temp) -> None:
+    def load(self, slot, pos, keys, eos, temp, son=None) -> None:
         """Copy the host's splice metadata (numpy arrays) into the device
         buffers the chunk reads."""
-        host = (np.asarray(slot, np.int64), np.asarray(pos, np.int64),
-                np.asarray(keys, np.uint32).view(np.int32),
-                np.asarray(eos, np.int64), np.asarray(temp, np.float32))
-        for dst, a in zip((self.slot, self.pos, self.keys, self.eos,
-                           self.temp), host):
+        host = [(self.slot, np.asarray(slot, np.int64)),
+                (self.pos, np.asarray(pos, np.int64)),
+                (self.keys, np.asarray(keys, np.uint32).view(np.int32)),
+                (self.eos, np.asarray(eos, np.int64)),
+                (self.temp, np.asarray(temp, np.float32))]
+        if son is not None:
+            host.append((self.son, np.asarray(son, np.bool_)))
+        for dst, a in host:
             dst.copy_(torch.from_numpy(a))
 
     def addresses(self) -> tuple:
-        return (self.logits.data_ptr(), *_addresses(self.kc),
-                *_addresses(self.vc), self.slot.data_ptr(),
-                *_addresses(self.carry_kc), *_addresses(self.carry_vc))
+        out = (self.logits.data_ptr(), *_addresses(self.kc),
+               *_addresses(self.vc), self.slot.data_ptr(),
+               *_addresses(self.carry_kc), *_addresses(self.carry_vc))
+        if self.dkc is not None:
+            out += (*_addresses(self.dkc), *_addresses(self.dvc),
+                    *_addresses(self.carry_dkc), *_addresses(self.carry_dvc))
+        return out
 
 
 def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
-    """The ring prologue of the JAX package's ``ring_chunk_decode``: each
-    staged ring row lands in the carry at its slot (K/V, logits, pos,
-    key, eos, temperature; ``done`` cleared). torch has no dropping
+    """The ring prologue of the JAX package's ``ring_chunk_decode`` and
+    ``spec_chunk``: each staged ring row lands in the carry at its slot
+    (K/V, logits, pos, key, eos, temperature; ``done`` cleared; under
+    speculation also the draft's K/V and the row's switch, with the
+    pending token and the acceptance counts reset). torch has no dropping
     scatter, so the K/V rows go through ``index_copy_`` with empty ring
     rows pointed at the carry caches' dump row B (never read: the carry
     is the first B rows), and the per-row fields through a select over a
@@ -876,85 +1467,88 @@ def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
         sel = has.view(-1, *([1] * (carry.dim() - 1)))
         return torch.where(sel, staged[src], carry)
 
+    spec = {}
+    if ring.dkc is not None:
+        _row_scatter(ring.carry_dkc, ring.dkc, tgt)
+        _row_scatter(ring.carry_dvc, ring.dvc, tgt)
+        spec = dict(tok=torch.where(has, -1, st.tok),
+                    spec_rounds=torch.where(has, 0, st.spec_rounds),
+                    spec_accepted=torch.where(has, 0, st.spec_accepted),
+                    spec_on=put(st.spec_on, ring.son))
     return dataclasses.replace(
         st, logits=put(st.logits, ring.logits), pos=put(st.pos, ring.pos),
         keys=put(st.keys, ring.keys), done=st.done & ~has,
-        eos=put(st.eos, ring.eos), temp=put(st.temp, ring.temp))
+        eos=put(st.eos, ring.eos), temp=put(st.temp, ring.temp), **spec)
 
 
-# the carry fields a captured chunk copies in and clones out
+# the carry fields a captured chunk copies in and clones out; a
+# speculative chunk's too (``spec_on`` when the carry has it), and its
+# output ``nv``
 _CARRY = ("logits", "pos", "keys", "done", "eos", "temp")
+_SPEC_CARRY = _CARRY + ("tok", "spec_rounds", "spec_accepted", "spec_on")
 
 
 class _ChunkGraph:
-    """``_chunk_steps`` captured once as a CUDA graph over static copies
-    of the small carry (``_CARRY``) and the caller's KV caches themselves,
-    which it updates in place as the eager chunk does (the serving engine
-    writes admitted rows into them between chunks). ``run`` copies a
-    carry in, replays, and returns clones of the outputs, so an earlier
+    """A chunk body captured once as a CUDA graph over static copies of
+    the small carry ``fields`` (those the carry has) and the caller's KV
+    caches themselves, which it updates in place as the eager chunk does
+    (the serving engine writes admitted rows into them between chunks).
+    ``run`` copies a carry in, replays, and returns clones of the tokens
+    and of the output fields (``fields`` plus ``outs``), so an earlier
     ``DecodeState`` keeps its values when a later chunk replays."""
 
-    def __init__(self, dec: LlamaDecoder, st: DecodeState, steps: int,
-                 sample, ring: Optional[AdmissionRing]):
+    def __init__(self, st: DecodeState, body, fields, outs=()):
+        self.fields = tuple(n for n in fields if getattr(st, n) is not None)
+        self.outs = self.fields + tuple(outs)
         self.inputs = dataclasses.replace(
-            st, **{n: getattr(st, n).clone() for n in _CARRY})
+            st, **{n: getattr(st, n).clone() for n in self.fields})
         self.graph = torch.cuda.CUDAGraph()
+        self.replays = 0
         before = _kernels.launch_counts()
         with torch.cuda.graph(self.graph):
-            self.toks, self.out = dec._chunk_steps(self.inputs, steps,
-                                                   sample, ring)
+            self.toks, self.out = body(self.inputs)
         self.launches = _kernels.captured_launches(before)
 
     def run(self, st: DecodeState):
-        for name in _CARRY:
+        for name in self.fields:
             getattr(self.inputs, name).copy_(getattr(st, name))
         self.graph.replay()
+        self.replays += 1
         _kernels.add_launches(self.launches)
         return self.toks.clone(), dataclasses.replace(
-            st, **{n: getattr(self.out, n).clone() for n in _CARRY})
+            st, **{n: getattr(self.out, n).clone() for n in self.outs})
 
 
 class _PrefillGraph:
-    """``ring_admit_prefill`` for one (rows, bucket) captured as a CUDA
-    graph over static inputs (ids, true lengths, start positions, ring
-    rows) and its own batch-N caches, zeroed inside the graph as a fresh
-    prefill's are. ``run`` copies the inputs in and replays."""
+    """A prefill ``body(*args, kc, vc)`` for one key captured as a CUDA
+    graph over static copies of its inputs ``args`` and its own batch-N
+    caches (of ``cfg``, default the target's), zeroed inside the graph
+    as a fresh prefill's are when ``zero``; else the caller prepares them
+    before ``run``. Every buffer the graph reads or writes lives on this
+    object for the graph's lifetime. ``run`` copies the inputs in,
+    replays, and returns the body's output."""
 
-    def __init__(self, dec: LlamaDecoder, ring: AdmissionRing, N: int,
-                 w: int):
-        long = dict(dtype=torch.long, device=dec.device)
-        self.args = (torch.zeros((N, w), **long), torch.ones((N,), **long),
-                     torch.zeros((N,), **long), torch.zeros((N,), **long))
-        ids, true_len, pos0, idx = self.args
-        # held for the graph's lifetime: it reads and writes them
-        self.caches = kc, vc = dec._empty_cache(N)
+    def __init__(self, dec: LlamaDecoder, args, body, cfg=None,
+                 zero: bool = True):
+        self.args = tuple(a.clone() for a in args)
+        self.caches = dec._empty_cache(args[0].shape[0], cfg)
         self.graph = torch.cuda.CUDAGraph()
+        self.replays = 0
         before = _kernels.launch_counts()
         with torch.cuda.graph(self.graph):
-            _zero_cache(kc)
-            _zero_cache(vc)
-            dec._ring_prefill(ids, true_len, pos0, kc, vc, ring, idx)
+            if zero:
+                for c in self.caches:
+                    _zero_cache(c)
+            self.out = body(*self.args, *self.caches)
         self.launches = _kernels.captured_launches(before)
 
-    def run(self, *args) -> None:
+    def run(self, *args):
         for dst, src in zip(self.args, args):
             dst.copy_(src)
         self.graph.replay()
+        self.replays += 1
         _kernels.add_launches(self.launches)
-
-
-def _check_speculative(draft_model, num_speculative_tokens,
-                       draft_quant) -> None:
-    """The reference's checks of the speculative arguments: without a
-    draft model, ``num_speculative_tokens`` or ``draft_quant`` is a
-    ``ValueError``; a draft model itself is not ported."""
-    if draft_model is not None:
-        raise _not_ported("speculative decoding (draft_model=)",
-                          "speculative serving")
-    if num_speculative_tokens is not None:
-        raise ValueError("num_speculative_tokens requires a draft_model")
-    if draft_quant is not None:
-        raise ValueError("draft_quant requires a draft_model")
+        return self.out
 
 
 def decode_fallback_active() -> bool:

@@ -272,7 +272,10 @@ class LlamaForCausalLM(nn.Module):
         when a parameter changed or the quant recipe differs), on the
         model's device. ``decode_strategy="sampling"`` samples
         (``do_sample`` defaults to True); ``"beam_search"`` routes to the
-        no-cache beam decoder (``nn/generation.py``)."""
+        no-cache beam decoder (``nn/generation.py``). ``draft_model=``
+        and ``num_speculative_tokens=`` decode speculatively; the cache
+        then has K slots of slack (K from the
+        ``decode_speculative_tokens`` flag when not given)."""
         from paddle_tpu_torch.inference.generate import LlamaDecoder
         from paddle_tpu_torch.quantization.kv_cache import \
             resolve_decode_quant
@@ -280,6 +283,10 @@ class LlamaForCausalLM(nn.Module):
                                    "beam_search"):
             raise ValueError(f"unknown decode_strategy {decode_strategy!r}")
         need = int(np.asarray(input_ids).shape[1]) + max_new_tokens
+        if kwargs.get("draft_model") is not None:
+            k = kwargs.get("num_speculative_tokens")
+            need += int(flags.decode_speculative_tokens if k is None
+                        else k)
         if max_len is not None and max_len < need:
             raise ValueError(f"max_len {max_len} < prompt + new tokens "
                              f"({need})")

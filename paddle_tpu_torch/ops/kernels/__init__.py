@@ -4,7 +4,8 @@ tensors it launches its kernel (built from ``paddle_tpu_torch/csrc`` on
 first use, see ``_build``) or raises.
 
 Each wrapper module counts its kernel launches in plain integers
-(``launches``, ``fwd_launches``, ``bwd_launches``). A CUDA graph replays
+(``launches``, ``fwd_launches``, ``bwd_launches``), and the int8 matmul
+also by row count (``launches_by_rows``, a dict). A CUDA graph replays
 its launches without running Python, so the code that captures one takes
 ``launch_counts()`` before the capture, ``captured_launches(before)``
 after it (which also undoes the capture's own counts: nothing ran), and
@@ -13,15 +14,17 @@ after it (which also undoes the capture's own counts: nothing ran), and
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict
 
 __all__ = ["launch_counts", "captured_launches", "add_launches"]
 
 _WRAPPERS = ("adam", "decode_attention", "flash_attention", "group_norm",
              "int8_matmul", "rms_norm", "rope", "threefry")
-_COUNTERS = ("launches", "fwd_launches", "bwd_launches")
+_COUNTERS = ("launches", "fwd_launches", "bwd_launches", "launches_by_rows")
 
-Counts = Dict[Tuple[str, str], int]
+# (module, counter) for an integer counter, (module, counter, sub-key) for
+# an entry of a dict counter
+Counts = Dict[tuple, int]
 
 
 def _counters():
@@ -33,22 +36,40 @@ def _counters():
 
 
 def launch_counts() -> Counts:
-    """Every wrapper's launch counters, by (module, counter)."""
-    return {key: getattr(mod, key[1]) for mod, key in _counters()}
+    """Every wrapper's launch counters, by (module, counter) or, for a
+    dict counter, by (module, counter, sub-key)."""
+    counts = {}
+    for mod, key in _counters():
+        val = getattr(mod, key[1])
+        if isinstance(val, dict):
+            counts.update({key + (k,): n for k, n in val.items()})
+        else:
+            counts[key] = val
+    return counts
 
 
 def captured_launches(before: Counts) -> Counts:
     """The launches counted since ``before`` (a capture's); the counters
     are set back to ``before``."""
-    delta = {}
+    now = launch_counts()
     for mod, key in _counters():
-        delta[key] = getattr(mod, key[1]) - before[key]
-        setattr(mod, key[1], before[key])
+        if isinstance(getattr(mod, key[1]), dict):
+            d = getattr(mod, key[1])
+            d.clear()
+            d.update({k[2]: n for k, n in before.items()
+                      if k[:2] == key})
+        else:
+            setattr(mod, key[1], before[key])
+    delta = {k: n - before.get(k, 0) for k, n in now.items()}
     return {k: n for k, n in delta.items() if n}
 
 
 def add_launches(captured: Counts) -> None:
     """Count one replay of a graph that captured ``captured``."""
-    for name, attr in captured:
-        mod = importlib.import_module(f"{__name__}.{name}")
-        setattr(mod, attr, getattr(mod, attr) + captured[name, attr])
+    for key, n in captured.items():
+        mod = importlib.import_module(f"{__name__}.{key[0]}")
+        if len(key) == 3:
+            d = getattr(mod, key[1])
+            d[key[2]] = d.get(key[2], 0) + n
+        else:
+            setattr(mod, key[1], getattr(mod, key[1]) + n)

@@ -12,11 +12,14 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 
-__all__ = ["supported", "int8_matmul", "int8_matmul_ref", "launches"]
+__all__ = ["supported", "int8_matmul", "int8_matmul_ref", "launches",
+           "launches_by_rows"]
 
 #: kernel launches made by ``int8_matmul`` (plain-version calls and direct
-#: ``int8_matmul_ref`` calls do not count)
+#: ``int8_matmul_ref`` calls do not count), in all and by the row count B
+#: of x (a speculative verify's B (K + 1) rows apart from a draft's B)
 launches = 0
+launches_by_rows: dict = {}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,4 +71,5 @@ def int8_matmul(x, w, scale):
         raise RuntimeError(f"int8_matmul launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     launches += 1
+    launches_by_rows[B] = launches_by_rows.get(B, 0) + 1
     return out

@@ -37,7 +37,8 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.ops.kernels.threefry import threefry_words
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
-           "gumbel", "categorical", "split_rows", "categorical_rows"]
+           "gumbel", "categorical", "split_rows", "uniform_rows",
+           "categorical_rows"]
 
 _TINY = float(np.finfo(np.float32).tiny)
 Shape = Union[int, Sequence[int]]
@@ -108,6 +109,12 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """f32 uniforms on ``[minval, maxval)``."""
     return _uniform_bits(random_bits(key, shape), minval, maxval)
+
+
+def uniform_rows(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """``uniform(key, (num,))`` of each row's key: (R, 2) -> (R, num) f32
+    on [0, 1)."""
+    return _uniform_bits(_bits_rows(keys, int(num)), 0.0, 1.0)
 
 
 def _gumbel_bits(bits: torch.Tensor) -> torch.Tensor:

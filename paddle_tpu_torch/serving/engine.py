@@ -12,29 +12,46 @@ row on the device (``LlamaDecoder.ring_admit_prefill``, one CUDA graph
 per prompt bucket on a card), and the next chunk splices the staged rows
 into the carry at their slots inside its own graph. A round that admits
 more rows than the ring has free re-queues the rest at the head of their
-tier (``metrics()["admission_ring"]["full"]``). The JAX engine's
-host-scatter route serves only its prefix cache's slab admissions and
-comes with that cache (ROADMAP [5]).
+tier (``metrics()["admission_ring"]["full"]``). ``batch_admission``
+folds same-bucket admissions of a round into one prefill dispatch.
+
+The prefix cache (``prefix_cache=``, ``serving/prefix_cache.py``) turns
+the ring off, as in the JAX engine, and admits by host row copy: a FULL
+hit copies its slab's row into the carry with zero prefill dispatches, a
+PARTIAL hit prefills only the uncached suffix on top of the loaded slab,
+a miss prefills cold and inserts its slab (``_admit_group``; one CUDA
+graph per (rows, bucket) on a card). ``cache_aware_admission`` orders
+same-priority requests so that cached digests go first.
+
+Speculative serving (``draft_model=``, ``num_speculative_tokens=``):
+each admission group also stages the draft's prefill into the ring
+(``draft_prefill_dispatches``), and each chunk runs T draft/verify
+rounds, committing a per-row T..T(K+1)+1 tokens; ``adaptive_k`` sets the
+next chunk's K from the running acceptance. Greedy tokens equal the
+plain engine's.
 
 Dispatch accounting is part of the contract: one admission prefill per
-admitted request plus one chunk dispatch per step with live rows, so the
-decoder's ``dispatch_count`` moves by exactly ``prefill_dispatches +
-chunk_dispatches``. The ring metadata copies and row retirement are
-in-place tensor updates outside the counted sites.
+admission group (per request without ``batch_admission``; none for a full
+hit), one draft prefill per group under speculation, plus one chunk
+dispatch per step with live rows, so the decoder's ``dispatch_count``
+moves by exactly ``prefill_dispatches + draft_prefill_dispatches +
+chunk_dispatches``. The ring metadata copies, host row copies and row
+retirement are in-place tensor updates outside the counted sites.
 
 Sampling (``do_sample``, ``top_k``, ``top_p`` engine-wide; ``temperature``
 and ``seed`` per request) draws each row from its own key,
-``split(PRNGKey(seed), 1)[0]`` at admission, so a request's tokens depend
-only on its seed, not on the engine's shape or its batch neighbours.
+``split(PRNGKey(seed), 1)[0]`` at admission on every route, so a
+request's tokens depend only on its seed, not on the engine's shape, its
+batch neighbours or its prefix-cache hit class.
 
 ``step`` (admission, the chunk dispatch, harvest) runs under
 ``torch.inference_mode()``, so serving records no autograd graph.
 
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: prefix cache, speculative
-serving, LoRA adapters, snapshot/restore, deadlines and SLOs, the obs
-exporter, meshes, AOT bundle backends, the HTTP front-end, request-keyed
-keys (router) and the per-token degradation rung.
+``NotImplementedError`` when asked for: LoRA adapters, snapshot/restore,
+deadlines and SLOs, the obs exporter, meshes, AOT bundle backends, the
+HTTP front-end, request-keyed keys (router) and the degradation ladder
+(the per-token rung and the speculative-to-chunked demotion).
 """
 
 from __future__ import annotations
@@ -50,10 +67,13 @@ from paddle_tpu_torch import random as rnd
 from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
                                                  LlamaDecoder, _batch_rows,
                                                  _normalize_eos, _not_ported,
-                                                 _sample_spec)
+                                                 _row_copy, _sample_spec)
 from paddle_tpu_torch.quantization.kv_cache import (QuantMismatchError,
                                                     canonical_quant)
 from paddle_tpu_torch.runtime.resilience import GenerateResult
+from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, SlabOps,
+                                                   prefix_digests,
+                                                   resolve_prefix_cache_bytes)
 from paddle_tpu_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["ServingEngine"]
@@ -63,18 +83,9 @@ __all__ = ["ServingEngine"]
 # Passing anything else raises NotImplementedError.
 _LATER_ENGINE = {
     "slo_targets": ("deadlines and SLOs", None), "mesh": ("mesh", None),
-    "prefix_cache": ("prefix cache", None),
-    "prefix_cache_bytes": ("prefix cache", None),
-    "prefix_block_tokens": ("prefix cache", None),
-    "batch_admission": ("prefix cache", False),
-    "cache_aware_admission": ("prefix cache", None),
     "snapshot_dir": ("snapshot", None),
     "snapshot_every_chunks": ("snapshot", 0),
     "replica_tag": ("router", None), "request_keyed_rng": ("router", False),
-    "draft_model": ("speculative serving", None),
-    "num_speculative_tokens": ("speculative serving", None),
-    "draft_quant": ("speculative serving", None),
-    "adaptive_k": ("speculative serving", False),
     "adapter_store": ("LoRA", None),
 }
 _LATER_SUBMIT = {
@@ -83,9 +94,9 @@ _LATER_SUBMIT = {
     "slo_latency_s": ("deadlines and SLOs", None),
     "deadline_s": ("deadlines and SLOs", None),
     "rng_request_id": ("router", None), "rng_tokens_emitted": ("router", 0),
-    "adapter": ("LoRA", None), "speculative": ("speculative serving", None),
-    "on_tokens": ("HTTP front-end", None),
+    "adapter": ("LoRA", None), "on_tokens": ("HTTP front-end", None),
 }
+_HIT_CLASSES = ("full", "partial", "miss")
 
 
 def _refuse_later(kwargs: dict, table: dict, where: str) -> None:
@@ -121,25 +132,46 @@ def _check_quant_ask(quant, have, what: str) -> None:
 
 class _DecoderBackend:
     """In-process backend: a ``LlamaDecoder``'s ring-staged admission
-    prefill and ring chunk entries over the device admission ring. The
-    carry's caches hold one batch row more than the slots: the ring's
-    dump row."""
+    prefills and ring chunk entries (plain or speculative), and the
+    host-scatter route's admission prefill, row copy and plain chunk. The
+    carry's caches (the draft's too) hold one batch row more than the
+    slots: the ring's dump row."""
 
     def __init__(self, dec: LlamaDecoder, num_slots: int, do_sample,
-                 top_k, top_p, quant=None):
+                 top_k, top_p, quant=None, draft_model=None,
+                 num_speculative_tokens=None, draft_quant=None):
         _check_quant_ask(quant, dec.quant, "this LlamaDecoder")
         self.dec = dec
         self.quant = dec.quant
         self.num_slots = int(num_slots)
         self.max_len = dec.max_len
+        self.head_major = dec._head_major
         self.sample = _sample_spec(do_sample, top_k, top_p)
+        self.K = dec._resolve_k(draft_model, num_speculative_tokens,
+                                draft_quant)
+        self.spec_eng = (dec._spec_engine(draft_model, draft_quant)
+                         if self.K else None)
         self.ring: Optional[AdmissionRing] = None
-        self._carry = None
+        self._carry = self._dcarry = None
 
     def new_state(self) -> DecodeState:
         B, dev = self.num_slots, self.dec.device
         self._carry = self.dec._empty_cache(B + 1)
         kc, vc = (_batch_rows(c, B) for c in self._carry)
+        kw = {}
+        if self.spec_eng is not None:
+            # the speculative carry: draft caches (ring-staged at
+            # admission), the pending-token sentinel and zeroed per-row
+            # acceptance counts
+            self._dcarry = self.dec._empty_cache(B + 1,
+                                                 self.spec_eng["cfg"])
+            dkc, dvc = (_batch_rows(c, B) for c in self._dcarry)
+            zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+            kw = dict(dkc=dkc, dvc=dvc, tok=torch.full_like(zeros, -1),
+                      spec_rounds=zeros, spec_accepted=zeros.clone(),
+                      nv=zeros.clone(),
+                      spec_on=torch.ones((B,), dtype=torch.bool, device=dev),
+                      spec={"ekey": self.spec_eng["ekey"], "K": self.K})
         return DecodeState(
             logits=torch.zeros((B, self.dec.cfg.vocab_size),
                                dtype=torch.float32, device=dev),
@@ -148,18 +180,27 @@ class _DecoderBackend:
             keys=torch.zeros((B, 2), dtype=torch.int32, device=dev),
             done=torch.ones((B,), dtype=torch.bool, device=dev),  # all free
             eos=torch.full((B,), -1, dtype=torch.long, device=dev),
-            temp=torch.ones((B,), dtype=torch.float32, device=dev))
+            temp=torch.ones((B,), dtype=torch.float32, device=dev), **kw)
 
     # -- device admission ring ---------------------------------------------
     def ring_init(self, R: int) -> None:
-        """Allocate the R-row ring over the carry ``new_state`` made."""
-        self.ring = AdmissionRing.allocate(self.dec, R, *self._carry)
+        """Allocate the R-row ring over the carry ``new_state`` made (and
+        the draft-cache ring under speculation)."""
+        spec = {}
+        if self.spec_eng is not None:
+            spec = dict(draft_cfg=self.spec_eng["cfg"],
+                        carry_dkc=self._dcarry[0], carry_dvc=self._dcarry[1])
+        self.ring = AdmissionRing.allocate(self.dec, R, *self._carry, **spec)
 
     def ring_admit(self, ids, true_len, pos0, ring_idx) -> None:
         """ONE counted admission-prefill dispatch whose rows stage
         straight into ring rows ``ring_idx``."""
         self.dec.ring_admit_prefill(ids, true_len, pos0, self.ring,
                                     ring_idx)
+
+    def ring_admit_draft(self, ids, ring_idx) -> None:
+        """ONE counted draft prefill staged into the ring's draft caches."""
+        self.dec.ring_admit_draft(ids, self.ring, ring_idx, self.spec_eng)
 
     def decode_chunk_ring(self, st: DecodeState, chunk_size: int, splice):
         """Load the splice metadata (``ServingEngine._ring_args``), then
@@ -168,6 +209,45 @@ class _DecoderBackend:
         self.ring.load(*splice)
         return self.dec._chunk_decode(st, int(chunk_size), self.sample,
                                       self.ring)
+
+    def decode_chunk_spec(self, st: DecodeState, chunk_size: int, splice,
+                          K: Optional[int] = None):
+        """One speculative chunk dispatch over the serving carry after
+        the ring's splice: returns ``(buf (B, T (K + 1) + 1), nv, new
+        state)``. ``K`` overrides the draft length for this chunk."""
+        self.ring.load(*splice)
+        K = self.K if K is None else int(K)
+        toks, st = self.dec._spec_chunk_decode(st, int(chunk_size), K,
+                                               self.sample, self.ring)
+        return toks, st.nv, st
+
+    # -- host-scatter route (the prefix cache's) ---------------------------
+    def admit_prefill(self, ids, true_len, pos0, prepare=None):
+        """One (possibly batched) admission-prefill dispatch: ``ids``
+        (N, bucket) right-padded rows, per-row ``true_len``/``pos0``;
+        ``prepare(kc, vc)`` preloads the prefix cache's slabs. Returns
+        ``(logits, kc, vc)``."""
+        return self.dec.admit_prefill(ids, true_len, pos0, prepare=prepare)
+
+    def scatter(self, st: DecodeState, slot: int, logits1, kc1, vc1,
+                src: int, pos1: int, key, eos: int, temp: float) -> None:
+        """Copy row ``src`` of an admission's row state (a batched
+        prefill's output or a batch-1 slab, possibly shorter on the length
+        axis) into carry row ``slot``, with the row's key, eos and
+        temperature: the JAX engine's ``_admit_row``. ``slot`` is a slot
+        index, never the dump row."""
+        _row_copy(st.kc, kc1, slot, src, self.head_major)
+        _row_copy(st.vc, vc1, slot, src, self.head_major)
+        st.logits[slot].copy_(logits1[src])
+        st.pos[slot] = pos1
+        st.keys[slot].copy_(torch.from_numpy(
+            np.asarray(key, np.uint32).view(np.int32)))
+        st.done[slot] = False
+        st.eos[slot] = eos
+        st.temp[slot] = float(np.float32(temp))
+
+    def decode_chunk(self, st: DecodeState, chunk_size: int):
+        return self.dec._chunk_decode(st, int(chunk_size), self.sample)
 
 
 class ServingEngine:
@@ -178,27 +258,46 @@ class ServingEngine:
     finished; ``drain`` steps until queue and slots are empty. Results
     are ``GenerateResult`` arrays (prompt + generated tokens, trimmed at
     the request's eos / budget) whose ``.resilience`` record carries the
-    serving stats of that request (queue delay, latency, chunks, slot).
+    serving stats of that request (queue delay, latency, chunks, slot,
+    prefix-cache hit class, speculative counts).
 
     Greedy tokens equal a solo ``LlamaDecoder.generate`` of the same
-    request: admission, chunk slicing and batch neighbours cannot change
-    them. Sampled tokens depend only on the request's seed and
-    temperature (per-row keys), so they are the same across engine
-    configurations and equal ``generate(chunk_size=T, seed=)`` of the
-    request alone. ``do_sample`` / ``top_k`` / ``top_p`` are
-    engine-wide; eos id, temperature and seed are per request.
+    request: admission, chunk slicing, batch neighbours, the prefix
+    cache and speculation cannot change them. Sampled tokens depend only
+    on the request's seed and temperature (per-row keys), so they are the
+    same across engine configurations and equal ``generate(chunk_size=T,
+    seed=)`` of the request alone. ``do_sample`` / ``top_k`` / ``top_p``
+    are engine-wide; eos id, temperature and seed are per request.
 
     ``ring_slots``: rows in the device admission ring (default
-    ``num_slots``, at least 1). The engine runs on its decoder's
-    device."""
+    ``num_slots``, at least 1; refused with a prefix cache, which admits
+    by host row copy). ``prefix_cache``: ``None`` reads the
+    ``serving_prefix_cache_bytes`` flag / ``PADDLE_TPU_PREFIX_CACHE_BYTES``
+    budget (0 = off, the default), ``True`` turns it on, a
+    ``PrefixCache`` is served directly. ``batch_admission``: one prefill
+    dispatch per same-bucket group of a round. ``cache_aware_admission``
+    (default: on with the cache) orders cached digests first.
+    ``draft_model`` / ``num_speculative_tokens`` / ``draft_quant`` serve
+    speculatively (not with a prefix cache); ``adaptive_k`` sets each
+    chunk's K from the running acceptance mean. The engine runs on its
+    decoder's device."""
 
     def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  policy: str = "fifo",
                  prompt_buckets: Optional[Sequence[int]] = None,
+                 prefix_cache=None,
+                 prefix_cache_bytes: Optional[int] = None,
+                 prefix_block_tokens: Optional[int] = None,
+                 batch_admission: bool = False,
                  quant: Optional[str] = None,
-                 ring_slots: Optional[int] = None, **later):
+                 cache_aware_admission: Optional[bool] = None,
+                 draft_model=None,
+                 num_speculative_tokens: Optional[int] = None,
+                 draft_quant: Optional[str] = None,
+                 ring_slots: Optional[int] = None,
+                 adaptive_k: bool = False, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
         if not isinstance(backend, LlamaDecoder):
             raise TypeError(
@@ -208,28 +307,81 @@ class ServingEngine:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.num_slots = int(num_slots)
         self.chunk_size = int(chunk_size)
-        self._b = _DecoderBackend(backend, num_slots, do_sample, top_k,
-                                  top_p, quant=quant)
+        self._b = _DecoderBackend(
+            backend, num_slots, do_sample, top_k, top_p, quant=quant,
+            draft_model=draft_model,
+            num_speculative_tokens=num_speculative_tokens,
+            draft_quant=draft_quant)
+        self._spec_configured = self._b.spec_eng is not None
+        if adaptive_k and not self._spec_configured:
+            raise ValueError("adaptive_k requires a draft_model")
+        self.adaptive_k = bool(adaptive_k)
+        self._k_now = self._b.K
+        self._accept_ewma: Optional[float] = None
         self.scheduler = Scheduler(num_slots, policy=policy,
                                    prompt_buckets=prompt_buckets)
         self.state = self._b.new_state()
-        # the device admission ring: always on here (the prefix cache,
-        # which keeps the JAX engine on host scatter, is not ported)
-        R = int(ring_slots if ring_slots is not None else num_slots)
-        if R < 1:
-            raise ValueError(f"ring_slots must be >= 1, got {R}")
-        self._ring_slots = R
-        self._ring_meta: List[Optional[dict]] = [None] * R
-        self._b.ring_init(R)
+        self.batch_admission = bool(batch_admission)
+        self.prefix_cache = self._resolve_prefix_cache(
+            prefix_cache, prefix_cache_bytes, prefix_block_tokens)
+        if self._spec_configured and self.prefix_cache is not None:
+            raise ValueError(
+                "speculative serving does not compose with the prefix "
+                "cache yet: slab admission bypasses the ring's draft-"
+                "cache staging — disable prefix_cache or drop "
+                "draft_model")
+        # the device admission ring; the prefix cache's slab admissions
+        # need the host row copy, so the cache keeps that route
+        self._ring_slots = 0
+        self._ring_meta: List[Optional[dict]] = []
+        if self.prefix_cache is None:
+            R = int(ring_slots if ring_slots is not None else num_slots)
+            if R < 1:
+                raise ValueError(f"ring_slots must be >= 1, got {R}")
+            self._ring_slots = R
+            self._ring_meta = [None] * R
+            self._b.ring_init(R)
+        elif ring_slots is not None:
+            raise ValueError(
+                "ring_slots needs the device admission ring: an "
+                "in-process LlamaDecoder backend without a prefix cache")
+        self._slab_ops = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.bind_mesh(None)
+            self._slab_ops = SlabOps(None, self._b.head_major)
+        self._cache_aware = (bool(cache_aware_admission)
+                             if cache_aware_admission is not None
+                             else self.prefix_cache is not None)
+        if self._cache_aware and self.prefix_cache is not None:
+            self.scheduler.cache_aware = True
+            self.scheduler.cache_probe = self.prefix_cache.has_digest
+        self._last_nv: Optional[np.ndarray] = None
         self._next_id = 0
         self._results: Dict[int, Any] = {}
-        self._n = {"prefill": 0, "chunk": 0, "slot_steps": 0,
-                   "corrupt_rows": 0,
-                   "ring_staged": 0, "ring_scattered": 0, "ring_full": 0}
+        self._n = collections.Counter()
+        self._spec_accept_mean = 0.0
         self._samples: Dict[str, List[float]] = {
             k: [] for k in ("queue_delay_s", "latency_s", "ttft_s",
-                            "tpot_s", "occupancy", "queue_depth")}
+                            "tpot_s", "occupancy", "queue_depth")
+            + tuple(f"admission_s.{c}" for c in _HIT_CLASSES)}
         self._queue_depth_peak = 0
+
+    @staticmethod
+    def _resolve_prefix_cache(prefix_cache, bytes_, block):
+        if prefix_cache is False:
+            return None
+        if isinstance(prefix_cache, PrefixCache):
+            return prefix_cache
+        budget = bytes_ if bytes_ is not None \
+            else resolve_prefix_cache_bytes()
+        if prefix_cache is None and not budget:
+            return None           # default: flags/env say disabled
+        if prefix_cache is not None and prefix_cache is not True:
+            raise TypeError(
+                f"prefix_cache must be None, a bool, or a PrefixCache, "
+                f"got {type(prefix_cache).__name__}")
+        return PrefixCache(bytes_budget=budget or None,
+                           block_tokens=block)
 
     @property
     def prefill_dispatches(self) -> int:
@@ -247,20 +399,25 @@ class ServingEngine:
     @property
     def host_scattered(self) -> int:
         """Admitted rows copied into the carry by the host-scatter route
-        (also ``metrics()["admission_ring"]["host_scattered"]``): always 0
-        here, where the ring serves every admission (the JAX engine's
-        host scatter serves only the prefix cache, ROADMAP [5])."""
-        return 0
+        (the prefix cache's); 0 when the device ring serves admission."""
+        return self._n["host_scattered"]
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
                eos_token_id: Optional[int] = None,
                temperature: float = 1.0, seed: int = 0,
-               priority: int = 0, **later) -> int:
+               priority: int = 0, speculative: Optional[bool] = None,
+               **later) -> int:
         """Queue one request; returns its id (results key).
         ``temperature`` and ``seed`` act on a sampling engine: the row's
-        key is ``split(PRNGKey(seed), 1)[0]``."""
+        key is ``split(PRNGKey(seed), 1)[0]``. ``speculative=False`` opts
+        the request out of speculation on a draft-equipped engine (its row
+        decodes verify-free in the same chunk)."""
         _refuse_later(later, _LATER_SUBMIT, "submit")
+        if speculative and not self._spec_configured:
+            raise ValueError(
+                "submit(speculative=True) needs a draft_model-equipped "
+                "engine")
         prompt = np.asarray(prompt)
         if prompt.ndim == 2:
             if prompt.shape[0] != 1:
@@ -274,18 +431,29 @@ class ServingEngine:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
         bucket = self.scheduler.bucket(len(prompt))
-        if max(bucket, len(prompt) + int(max_new_tokens)) > self._b.max_len:
+        # a verify writes K + 1 positions past the last committed token
+        slack = self._b.K if self._spec_configured else 0
+        if max(bucket,
+               len(prompt) + int(max_new_tokens) + slack) > self._b.max_len:
+            extra = (f" + {slack} speculative lookahead slack"
+                     if slack else "")
             raise ValueError(
                 f"prompt {len(prompt)} (bucket {bucket}) + "
-                f"{max_new_tokens} new tokens exceeds the backend's "
-                f"max_len {self._b.max_len}")
+                f"{max_new_tokens} new tokens{extra} exceeds the "
+                f"backend's max_len {self._b.max_len}")
         rid = self._next_id
         self._next_id += 1
-        self.scheduler.push(Request(
+        req = Request(
             id=rid, prompt=prompt, max_new_tokens=int(max_new_tokens),
             eos_token_id=_normalize_eos(eos_token_id),
             temperature=float(temperature), seed=int(seed),
-            priority=int(priority), submit_time=time.monotonic()))
+            priority=int(priority), submit_time=time.monotonic(),
+            speculative=None if speculative is None else bool(speculative))
+        if self.scheduler.cache_aware:
+            # the grouping key: the prompt's first block-boundary digest
+            req.prefix_group = prefix_digests(
+                prompt, self.prefix_cache.block_tokens)[-1][1]
+        self.scheduler.push(req)
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.scheduler))
         return rid
@@ -306,10 +474,16 @@ class ServingEngine:
             return []
         self._samples["occupancy"].append(len(occupied) / self.num_slots)
         toks = self._dispatch_chunk()
+        nv = self._last_nv
         t_chunk_done = time.monotonic()
         # finite guard: a row whose logits went NaN/Inf is frozen alone
         # and returned partial; its poison never reaches a neighbour
         row_finite = torch.isfinite(self.state.logits).all(-1).cpu().numpy()
+        sr = sa = None
+        if self._spec_configured:
+            # the carry's per-row cumulative counts (reset at admission)
+            sr = self.state.spec_rounds.cpu().numpy()
+            sa = self.state.spec_accepted.cpu().numpy()
         finished, freed = [], []
         for i, slot in occupied:
             slot.chunks += 1
@@ -321,7 +495,10 @@ class ServingEngine:
                 self._n["corrupt_rows"] += 1
                 res = self._finish(slot, seq, i, corrupt_row=True)
             else:
-                slot.tokens.append(toks[i])
+                slot.tokens.append(toks[i] if nv is None
+                                   else toks[i][:int(nv[i])])
+                if sr is not None:
+                    self._spec_harvest(slot, i, sr, sa, nv)
                 if slot.first_token_at is None:
                     slot.first_token_at = t_chunk_done
                     self._samples["ttft_s"].append(
@@ -341,11 +518,52 @@ class ServingEngine:
                 res = self._finish(slot, seq, i)
             self._results[req.id] = res
             finished.append((req.id, res))
+            self._unpin(slot)
             self.scheduler.slots.release(i)
             freed.append(i)
+        if sr is not None:
+            self._spec_adapt()
         if freed:
             self._freeze_rows(freed)
         return finished
+
+    def _unpin(self, slot) -> None:
+        """The request's slab outlived its flight: unpinned, it becomes
+        evictable again."""
+        if slot.pinned_slab is not None:
+            self.prefix_cache.unpin(slot.pinned_slab)
+            slot.pinned_slab = None
+
+    def _spec_harvest(self, slot, i: int, sr, sa, nv) -> None:
+        """Mirror row ``i``'s cumulative speculative counts into its slot
+        and the engine totals, and count its tokens past the chunk
+        boundary."""
+        dr = int(sr[i]) - slot.spec_rounds
+        da = int(sa[i]) - slot.spec_accepted
+        if dr > 0:
+            self._n["spec_rounds"] += dr
+            slot.spec_rounds = int(sr[i])
+        if da > 0:
+            self._n["spec_accepted"] += da
+            slot.spec_accepted = int(sa[i])
+        ov = int(nv[i]) - self.chunk_size
+        if ov > 0:
+            slot.spec_overflow += ov
+            self._n["spec_overflow"] += ov
+
+    def _spec_adapt(self) -> None:
+        """Update the acceptance mean and, with ``adaptive_k``, the next
+        chunk's K from its moving average (clamped to [1, K])."""
+        rt = self._n["spec_rounds"]
+        if not rt:
+            return
+        mean = self._n["spec_accepted"] / rt
+        self._spec_accept_mean = mean
+        if self.adaptive_k:
+            e = self._accept_ewma
+            self._accept_ewma = mean if e is None else 0.8 * e + 0.2 * mean
+            self._k_now = max(1, min(self._b.K,
+                                     int(np.ceil(self._accept_ewma)) + 1))
 
     def _freeze_rows(self, rows: Sequence[int]) -> None:
         """Freeze carry rows until re-admission: they keep riding the
@@ -371,14 +589,111 @@ class ServingEngine:
     def result(self, request_id: int):
         return self._results.get(request_id)
 
+    # -- disaggregated prefill (slab payloads) -----------------------------
+    @torch.inference_mode()
+    def prefill_extract(self, prompt) -> Dict[str, Any]:
+        """Run ONE admission prefill for ``prompt`` outside the slot table
+        and return its row state as a prefix-slab payload (CPU tensors,
+        bf16 included: the bucketed K/V rows and the resume logits,
+        tagged with the quant recipe). Counts on
+        ``prefill_dispatches``."""
+        prompt = np.asarray(prompt)
+        if prompt.ndim == 2 and prompt.shape[0] == 1:
+            prompt = prompt[0]
+        if prompt.ndim != 1:
+            raise ValueError(
+                f"prefill_extract takes one (S,) prompt, got shape "
+                f"{prompt.shape}")
+        S = len(prompt)
+        bucket = self.scheduler.bucket(S)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :S] = prompt
+        logitsN, kcN, vcN = self._b.admit_prefill(ids, [S], [0])
+        self._n["prefill"] += 1
+        ops = self._slab_ops or SlabOps(None, self._b.head_major)
+        skc, svc, slg = ops.extract(kcN, vcN, logitsN, 0, bucket)
+
+        def host(t):
+            if isinstance(t, dict):
+                return {k: host(v) for k, v in t.items()}
+            return t.cpu()
+
+        return {"prompt": prompt, "bucket": int(bucket),
+                "kc": host(skc), "vc": host(svc),
+                "logits": host(slg), "quant": self._b.quant}
+
+    def load_prefix_slab(self, payload: Dict[str, Any]):
+        """Insert a ``prefill_extract`` payload into this engine's prefix
+        cache: the next ``submit`` of the same prompt admits as a full
+        hit. A quant-recipe mismatch is a ``QuantMismatchError``."""
+        if self.prefix_cache is None:
+            raise ValueError(
+                "load_prefix_slab needs the prefix cache enabled: the "
+                "shipped slab admits through the full-hit path")
+        if payload.get("quant") != self._b.quant:
+            raise QuantMismatchError(
+                f"shipped slab carries quant recipe "
+                f"{payload.get('quant') or 'none'!r} but this engine's "
+                f"backend serves {self._b.quant or 'none'!r}")
+        dev = self._b.dec.device
+
+        def put(t):
+            if isinstance(t, dict):
+                return {k: put(v) for k, v in t.items()}
+            return torch.as_tensor(t, device=dev)
+
+        return self.prefix_cache.insert(
+            np.asarray(payload["prompt"]), put(payload["kc"]),
+            put(payload["vc"]), put(payload["logits"]),
+            int(payload["bucket"]))
+
     # -- admission ---------------------------------------------------------
     def _admit_all(self, admitted, now: float) -> None:
+        """One admission round. Through the device ring when it is on
+        (``_admit_all_ring``). Otherwise, per request, the prefix cache's
+        verdict: a FULL hit is one host row copy of its slab (no prefill
+        dispatch); the rest group by padded suffix bucket and prefill one
+        dispatch a group with ``batch_admission`` (else one each), with
+        each partial row's slab loaded under its suffix."""
+        if self._ring_slots:
+            self._admit_all_ring(admitted, now)
+            return
+        cache = self.prefix_cache
+        plans = []
+        for slot_idx, req in admitted:
+            t0 = time.monotonic()
+            S = len(req.prompt)
+            hit = cache.lookup(req.prompt) if cache is not None else None
+            if hit is not None and hit.kind == "full":
+                cache.pin(hit.slab)
+                self._scatter(slot_idx, req, hit.slab.logits, hit.slab.kc,
+                              hit.slab.vc, src=0, pos1=S)
+                self._note_admit(slot_idx, req, now, t0, "full",
+                                 tokens_saved=S, dispatches=0,
+                                 slab=hit.slab)
+                self._n["disp_saved"] += 1
+                continue
+            plans.append((slot_idx, req, hit))
+        groups: Dict[int, list] = {}
+        for slot_idx, req, hit in plans:
+            cached = (hit.cached_len
+                      if hit is not None and hit.kind == "partial" else 0)
+            w = self.scheduler.bucket(len(req.prompt) - cached)
+            groups.setdefault(w, []).append((slot_idx, req, hit, cached))
+        for w, grp in sorted(groups.items()):
+            if self.batch_admission and len(grp) > 1:
+                self._admit_group(w, grp, now)
+            else:
+                for item in grp:
+                    self._admit_group(w, [item], now)
+
+    def _admit_all_ring(self, admitted, now: float) -> None:
         """One ring admission round: a free ring row per admitted request
-        and one ring-staged prefill dispatch each, padded to its prompt
-        bucket. Admissions beyond the ring's free rows are un-admitted
-        (slot released, request re-queued at its tier's head with its
-        submit time, ``ring_full``) and retry next step, once the chunk
-        has drained the ring."""
+        and one ring-staged prefill dispatch per bucket group (one per
+        request without ``batch_admission``). Admissions beyond the
+        ring's free rows are un-admitted (slot released, request
+        re-queued at its tier's head with its submit time, ``ring_full``)
+        and retry next step, once the chunk has drained the ring."""
         free = collections.deque(
             r for r, m in enumerate(self._ring_meta) if m is None)
         if len(admitted) > len(free):
@@ -387,14 +702,23 @@ class ServingEngine:
                 self.scheduler.slots.release(slot_idx)
                 self.scheduler.push_front(req)
                 self._n["ring_full"] += 1
+        groups: Dict[int, list] = {}
         for slot_idx, req in admitted:
-            self._admit_group_ring(self.scheduler.bucket(len(req.prompt)),
-                                   [(slot_idx, req)], free, now)
+            w = self.scheduler.bucket(len(req.prompt))
+            groups.setdefault(w, []).append((slot_idx, req))
+        for w, grp in sorted(groups.items()):
+            if self.batch_admission and len(grp) > 1:
+                self._admit_group_ring(w, grp, free, now)
+            else:
+                for item in grp:
+                    self._admit_group_ring(w, [item], free, now)
 
     def _admit_group_ring(self, w: int, grp, free, now: float) -> None:
-        """ONE ring-staged admission-prefill dispatch for the group: the
+        """ONE ring-staged admission-prefill dispatch for the group (and
+        one draft-cache staging dispatch under speculation): the
         prefilled rows land in device ring rows, with the splice metadata
         the next chunk reads recorded on the host."""
+        t0 = time.monotonic()
         N = len(grp)
         ids = np.zeros((N, w), np.int64)
         true_len = np.zeros((N,), np.int64)
@@ -404,50 +728,144 @@ class ServingEngine:
             true_len[j] = len(req.prompt)
         self._b.ring_admit(ids, true_len, np.zeros((N,), np.int64), rows)
         self._n["prefill"] += 1
+        if self._spec_configured:
+            self._b.ring_admit_draft(ids, rows)
+            self._n["draft_prefill"] += 1
+        if N > 1:
+            self._n["batched_groups"] += 1
+            self._n["disp_saved"] += N - 1
         for j, (slot_idx, req) in enumerate(grp):
             self._ring_meta[rows[j]] = {
                 "slot": slot_idx, "pos": len(req.prompt),
                 "key": _row_key(req.seed),
                 "eos": (-1 if req.eos_token_id is None
                         else req.eos_token_id),
-                "temp": req.temperature}
+                "temp": req.temperature,
+                "spec_on": (req.speculative if req.speculative is not None
+                            else True)}
             self._n["ring_staged"] += 1
-            self._note_admit(slot_idx, req, now)
+            self._note_admit(slot_idx, req, now, t0, "miss",
+                             tokens_saved=0, dispatches=int(j == 0),
+                             slab=None)
 
     def _ring_args(self) -> Tuple[tuple, int]:
         """The chunk's splice metadata per ring row (slot -1 = empty,
-        resume pos, key, eos, temperature) and the staged count."""
+        resume pos, key, eos, temperature; the speculative switch under
+        speculation) and the staged count."""
         R = self._ring_slots
         slot = np.full((R,), -1, np.int64)
         pos = np.zeros((R,), np.int64)
         keys = np.zeros((R, 2), np.uint32)
         eos = np.full((R,), -1, np.int64)
         temp = np.ones((R,), np.float32)
+        son = np.ones((R,), np.bool_)
         n = 0
         for r, m in enumerate(self._ring_meta):
             if m is None:
                 continue
             slot[r], pos[r], keys[r] = m["slot"], m["pos"], m["key"]
-            eos[r], temp[r] = m["eos"], m["temp"]
+            eos[r], temp[r], son[r] = m["eos"], m["temp"], m["spec_on"]
             n += 1
-        return (slot, pos, keys, eos, temp), n
+        out = (slot, pos, keys, eos, temp)
+        return (out + (son,) if self._spec_configured else out), n
 
-    def _ring_drained(self, n: int) -> None:
+    def _ring_drained(self, n: Optional[int]) -> None:
         """The chunk spliced the staged rows in: clear the metadata and
         count them."""
         if n:
             self._ring_meta = [None] * self._ring_slots
             self._n["ring_scattered"] += n
 
-    def _note_admit(self, slot_idx: int, req: Request, now: float) -> None:
+    def _admit_group(self, w: int, grp, now: float) -> None:
+        """ONE admission-prefill dispatch for the group: batch-N padded
+        suffix ids, per-row true lengths and cache offsets, each partial
+        row's slab loaded into the prefill's caches; then one host row
+        copy per admitted request and, for a prompt whose full entry is
+        not cached, one slab extraction."""
+        cache, ops = self.prefix_cache, self._slab_ops
+        t0 = time.monotonic()
+        N = len(grp)
+        ids = np.zeros((N, w), np.int64)
+        true_len = np.zeros((N,), np.int64)
+        pos0 = np.zeros((N,), np.int64)
+        loads = []
+        for j, (slot_idx, req, hit, cached) in enumerate(grp):
+            suffix = np.asarray(req.prompt)[cached:]
+            ids[j, :len(suffix)] = suffix
+            true_len[j] = len(suffix)
+            pos0[j] = cached
+            if cached:
+                cache.pin(hit.slab)
+                loads.append((j, hit.slab))
+
+        def prepare(kc, vc):
+            for j, slab in loads:
+                ops.load(kc, vc, slab.kc, slab.vc, j)
+
+        logitsN, kcN, vcN = self._b.admit_prefill(
+            ids, true_len, pos0, prepare if loads else None)
+        self._n["prefill"] += 1
+        if N > 1:
+            self._n["batched_groups"] += 1
+            self._n["disp_saved"] += N - 1
+        for j, (slot_idx, req, hit, cached) in enumerate(grp):
+            S = len(req.prompt)
+            self._scatter(slot_idx, req, logitsN, kcN, vcN, src=j, pos1=S)
+            if cache is not None:
+                digests = hit.digests if hit is not None else None
+                if digests is None or not cache.contains_full(digests):
+                    bucket = self.scheduler.bucket(S)
+                    skc, svc, slg = ops.extract(kcN, vcN, logitsN, j,
+                                                bucket)
+                    cache.insert(req.prompt, skc, svc, slg, bucket,
+                                 digests=digests)
+            self._note_admit(slot_idx, req, now, t0,
+                             "partial" if cached else "miss",
+                             tokens_saved=cached, dispatches=int(j == 0),
+                             slab=hit.slab if cached else None)
+
+    def _scatter(self, slot_idx: int, req: Request, logits1, kc1, vc1,
+                 src: int, pos1: int) -> None:
+        """The host-scatter admission: row ``src`` of the given row state
+        lands in carry row ``slot_idx`` with the request's key
+        (``split(PRNGKey(seed), 1)[0]``, as the ring gives it), eos and
+        temperature. A full hit's whole admission is one of these."""
+        self._n["host_scattered"] += 1
+        self._b.scatter(self.state, slot_idx, logits1, kc1, vc1, src, pos1,
+                        _row_key(req.seed),
+                        -1 if req.eos_token_id is None
+                        else req.eos_token_id, req.temperature)
+
+    def _note_admit(self, slot_idx: int, req: Request, now: float,
+                    t0: float, cls: str, tokens_saved: int,
+                    dispatches: int, slab) -> None:
         slot = self.scheduler.slots.entries[slot_idx]
         slot.admitted_at = now
+        enabled = self.prefix_cache is not None
+        slot.prefix_hit = cls if enabled else None
+        slot.prefill_tokens_saved = int(tokens_saved)
+        slot.admission_dispatches = int(dispatches)
+        slot.pinned_slab = slab
+        self._samples[f"admission_s.{cls}"].append(time.monotonic() - t0)
+        if enabled:
+            self._n[f"prefix_{cls}"] += 1
+            self._n["tokens_saved"] += int(tokens_saved)
         self._samples["queue_delay_s"].append(now - req.submit_time)
 
     def _dispatch_chunk(self) -> np.ndarray:
-        splice, n_staged = self._ring_args()
-        toks, self.state = self._b.decode_chunk_ring(self.state,
-                                                     self.chunk_size, splice)
+        self._last_nv = None
+        splice, n_staged = (self._ring_args() if self._ring_slots
+                            else (None, None))
+        if self._spec_configured:
+            toks, nv, self.state = self._b.decode_chunk_spec(
+                self.state, self.chunk_size, splice, K=self._k_now)
+            self._last_nv = nv.cpu().numpy()
+        elif splice is not None:
+            toks, self.state = self._b.decode_chunk_ring(
+                self.state, self.chunk_size, splice)
+        else:
+            toks, self.state = self._b.decode_chunk(self.state,
+                                                    self.chunk_size)
         self._n["chunk"] += 1
         self._n["slot_steps"] += self.num_slots * self.chunk_size
         self._ring_drained(n_staged)
@@ -473,7 +891,21 @@ class ServingEngine:
                 "queue_delay_s": slot.admitted_at - req.submit_time,
                 "latency_s": latency, "ttft_s": ttft, "tpot_s": tpot,
                 "chunks": slot.chunks, "slot": slot_idx,
+                "latency_class": "default", "slo": None,
+                "prefix_hit": slot.prefix_hit,
+                "prefill_tokens_saved": slot.prefill_tokens_saved,
+                "admission_dispatches": slot.admission_dispatches,
+                "deadline_expired": False,
                 "corrupt_row": bool(corrupt_row),
+                "speculative": None if not self._spec_configured else {
+                    "rounds": int(slot.spec_rounds),
+                    "accepted_drafts": int(slot.spec_accepted),
+                    "acceptance_len_mean": (
+                        slot.spec_accepted / slot.spec_rounds
+                        if slot.spec_rounds else 0.0),
+                    "num_speculative_tokens": int(self._b.K),
+                    "overflow_tokens": int(slot.spec_overflow),
+                },
             },
         }
         out = np.concatenate([req.prompt,
@@ -481,22 +913,102 @@ class ServingEngine:
         return GenerateResult.wrap(out, record)
 
     # -- observability -----------------------------------------------------
+    def _pct(self, k, q) -> float:
+        s = self._samples[k]
+        return float(np.percentile(s, q)) if s else float("nan")
+
+    def _speculative(self, status: bool) -> Optional[Dict[str, Any]]:
+        if not self._spec_configured:
+            return None
+        out = {
+            "active": True,
+            "num_speculative_tokens": int(self._b.K),
+            "k_now": int(self._k_now),
+            "adaptive_k": self.adaptive_k,
+            "rounds": self._n["spec_rounds"],
+            "accepted_drafts": self._n["spec_accepted"],
+            "acceptance_len_mean": float(self._spec_accept_mean),
+            "overflow_tokens": self._n["spec_overflow"],
+        }
+        if status:
+            out["draft_prefill_dispatches"] = self._n["draft_prefill"]
+        return out
+
+    def _ring(self, status: bool) -> Optional[Dict[str, Any]]:
+        if not self._ring_slots:
+            return None
+        out = {"slots": self._ring_slots}
+        if status:
+            out["staged_now"] = sum(1 for m in self._ring_meta
+                                    if m is not None)
+        out.update(staged=self._n["ring_staged"],
+                   scattered=self._n["ring_scattered"],
+                   full=self._n["ring_full"],
+                   host_scattered=self.host_scattered)
+        return out
+
+    def status(self) -> Dict[str, Any]:
+        """The live view with the JAX engine's keys: the slot table,
+        queue depth, in-flight requests, occupancy, the prefix cache's
+        pool (``PrefixCache.snapshot``), the speculative rung and the
+        ring. Keys of features not ported yet hold their off values."""
+        slots = []
+        for i, e in enumerate(self.scheduler.slots.entries):
+            if e is None:
+                slots.append({"slot": i, "state": "free"})
+                continue
+            slots.append({
+                "slot": i, "state": "occupied",
+                "request": e.request.id, "latency_class": "default",
+                "prompt_len": int(len(e.request.prompt)),
+                "max_new_tokens": e.request.max_new_tokens,
+                "tokens_produced": int(sum(len(t) for t in e.tokens)),
+                "chunks": e.chunks,
+                "age_s": round(time.monotonic() - e.admitted_at, 4),
+            })
+        occupied = self.scheduler.slots.occupied()
+        return {
+            "num_slots": self.num_slots,
+            "chunk_size": self.chunk_size,
+            "quant": self._b.quant,
+            "replica_tag": None,
+            "mesh": None,
+            "slots": slots,
+            "occupancy_now": len(occupied) / self.num_slots,
+            "queue_depth": len(self.scheduler),
+            "in_flight": [s.request.id for _, s in occupied],
+            "requests_submitted": self._next_id,
+            "requests_completed": len(self._results),
+            "resilience": {"ladder_rung": "chunked", "degradations": 0,
+                           "step_dispatches": self.step_dispatches},
+            "slo_targets": {},
+            "shed": {"deadline": 0, "backpressure": 0,
+                     "queue_deadline": 0, "expired_rows": 0},
+            "snapshot": None,
+            "prefix_cache": (None if self.prefix_cache is None
+                             else self.prefix_cache.snapshot()),
+            "speculative": self._speculative(status=True),
+            "adapters": None,
+            "admission_ring": self._ring(status=True),
+        }
+
     def metrics(self) -> Dict[str, Any]:
         """Serving metrics snapshot with the JAX engine's keys: dispatch
-        accounting (prefills = admitted requests, chunks, per-token
-        steps), slot occupancy and the slot-steps denominator, queue-delay,
+        accounting (prefills, draft prefills, chunks, per-token steps),
+        slot occupancy and the slot-steps denominator, queue-delay,
         latency, TTFT and TPOT statistics (NaN until the first sample),
-        queue depth now, at its peak and on average at step starts. Keys
-        of features not ported yet hold their off values: 0 for counters,
-        None for absent subsystems, {} for per-class maps."""
-        s = self._samples
+        queue depth now, at its peak and on average at step starts, the
+        admission economics (dispatches saved, cache reorderings, batched
+        groups, prefill tokens saved, admission time by hit class), the
+        prefix cache, speculation and the ring. Keys of features not
+        ported yet hold their off values: 0 for counters, None for absent
+        subsystems, {} for per-class maps."""
+        s, n = self._samples, self._n
 
         def mean(k):
             return float(np.mean(s[k])) if s[k] else float("nan")
 
-        def pct(k, q):
-            return float(np.percentile(s[k], q)) if s[k] else float("nan")
-
+        cache = self.prefix_cache
         return {
             "num_slots": self.num_slots,
             "chunk_size": self.chunk_size,
@@ -509,47 +1021,48 @@ class ServingEngine:
             "degradations": 0,   # the degradation ladder is not ported
             "occupancy_mean": mean("occupancy"),
             "occupancy_samples": len(s["occupancy"]),
-            "slot_steps_total": self._n["slot_steps"],
+            "slot_steps_total": n["slot_steps"],
             "queue_delay_mean_s": mean("queue_delay_s"),
-            "queue_delay_p50_s": pct("queue_delay_s", 50),
-            "queue_delay_p99_s": pct("queue_delay_s", 99),
+            "queue_delay_p50_s": self._pct("queue_delay_s", 50),
+            "queue_delay_p99_s": self._pct("queue_delay_s", 99),
             "request_latency_mean_s": mean("latency_s"),
-            "request_latency_p50_s": pct("latency_s", 50),
-            "request_latency_p99_s": pct("latency_s", 99),
+            "request_latency_p50_s": self._pct("latency_s", 50),
+            "request_latency_p99_s": self._pct("latency_s", 99),
             "queue_depth_now": len(self.scheduler),
             "queue_depth_peak": self._queue_depth_peak,
             "queue_depth_mean": mean("queue_depth"),
             "ttft_mean_s": mean("ttft_s"),
-            "ttft_p50_s": pct("ttft_s", 50),
-            "ttft_p99_s": pct("ttft_s", 99),
+            "ttft_p50_s": self._pct("ttft_s", 50),
+            "ttft_p99_s": self._pct("ttft_s", 99),
             "tpot_mean_s": mean("tpot_s"),
-            "tpot_p50_s": pct("tpot_s", 50),
+            "tpot_p50_s": self._pct("tpot_s", 50),
             "slo_violations": 0,
             "shed_deadline": 0,
             "shed_backpressure": 0,
             "shed_queue_deadline": 0,
             "deadline_expired_rows": 0,
-            "corrupt_rows": self._n["corrupt_rows"],
+            "corrupt_rows": n["corrupt_rows"],
             "rows_migrated_out": 0,
             "rows_migrated_in": 0,
             "snapshots": 0,
             "snapshot_age_s": None,
-            "admission_dispatches_saved": 0,
-            "admission_cache_reordered": 0,
-            "batched_admission_groups": 0,
-            "prefill_tokens_saved": 0,
-            "admission_p50_s": {},
-            "admission_p99_s": {},
-            "prefix_cache": None,
-            "draft_prefill_dispatches": 0,
-            "speculative": None,
-            "admission_ring": {
-                "slots": self._ring_slots,
-                "staged": self._n["ring_staged"],
-                "scattered": self._n["ring_scattered"],
-                "full": self._n["ring_full"],
-                "host_scattered": self.host_scattered,
-            },
+            "admission_dispatches_saved": n["disp_saved"],
+            "admission_cache_reordered": self.scheduler.cache_reordered,
+            "batched_admission_groups": n["batched_groups"],
+            "prefill_tokens_saved": n["tokens_saved"],
+            "admission_p50_s": {c: self._pct(f"admission_s.{c}", 50)
+                                for c in _HIT_CLASSES},
+            "admission_p99_s": {c: self._pct(f"admission_s.{c}", 99)
+                                for c in _HIT_CLASSES},
+            "prefix_cache": (None if cache is None else {
+                **cache.stats(),
+                "engine_hits_full": n["prefix_full"],
+                "engine_hits_partial": n["prefix_partial"],
+                "engine_misses": n["prefix_miss"],
+            }),
+            "draft_prefill_dispatches": n["draft_prefill"],
+            "speculative": self._speculative(status=False),
+            "admission_ring": self._ring(status=False),
             "adapters": None,
             "stream_ttft_p50_s": {},
         }

@@ -11,9 +11,10 @@ admitted request — while the batch still runs as one chunk per step.
 
 Pure host-side bookkeeping: the request queue (FIFO or priority), the
 slot table, and prompt length bucketing. The device-side state assembly
-lives in ``serving/engine.py``. The JAX scheduler's cache-aware ordering,
-deadline shedding, requeue export and dp grouping arrive with their
-features (ROADMAP.md queue 1).
+lives in ``serving/engine.py``. With ``cache_aware`` the pop order within
+a priority tier bends toward prefix-slab reuse (the JAX scheduler's
+``_cache_aware_pops``). The JAX scheduler's deadline shedding, requeue
+export and dp grouping arrive with their features (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import dataclasses
 import heapq
 import itertools
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -64,6 +65,13 @@ class Request:
     seed: int = 0
     priority: int = 0
     submit_time: float = 0.0      # time.monotonic(); 0.0 = unset
+    # prefix-cache grouping key (the prompt's first block-boundary
+    # digest, stamped by the engine when cache-aware admission is on)
+    prefix_group: Optional[str] = None
+    # per-request speculative toggle (speculative engines only): False
+    # decodes this row verify-free in the same speculative chunk; None =
+    # the engine default (on)
+    speculative: Optional[bool] = None
 
 
 @dataclasses.dataclass
@@ -77,6 +85,20 @@ class Slot:
     # stamped after the first chunk dispatch the slot rode: the
     # admission->first-token interval is the TTFT sample
     first_token_at: Optional[float] = None
+    # prefix-cache admission record: the hit class (None = cache off),
+    # the prompt tokens whose prefill it skipped, the prefill dispatches
+    # its admission issued (0 = full hit, or rode a batched group's
+    # dispatch) and the slab pinned for the request's flight
+    prefix_hit: Optional[str] = None
+    prefill_tokens_saved: int = 0
+    admission_dispatches: int = 0
+    pinned_slab: Any = None
+    # speculative record: the row's cumulative verify rounds and accepted
+    # drafts mirrored off the carry after each chunk, and the tokens its
+    # chunks committed past the chunk boundary
+    spec_rounds: int = 0
+    spec_accepted: int = 0
+    spec_overflow: int = 0
 
 
 class SlotTable:
@@ -117,10 +139,14 @@ class Scheduler:
     admits by ``Request.priority`` (lower first, FIFO within a class).
     ``admissions()`` implements the between-chunk policy: pop one queued
     request per free slot and occupy it — the engine then prefills each
-    admitted request and copies its row into the decode carry."""
+    admitted request and copies its row into the decode carry.
+    ``cache_aware`` (with ``cache_probe``, a digest -> live-in-cache
+    callable) reorders within a priority tier for prefix-slab reuse;
+    ``cache_reordered`` counts the requests that jumped a peer."""
 
     def __init__(self, num_slots: int, policy: str = "fifo",
-                 prompt_buckets: Optional[Sequence[int]] = None):
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 cache_aware: bool = False):
         if policy not in ("fifo", "priority"):
             raise ValueError(f"policy must be 'fifo' or 'priority', "
                              f"got {policy!r}")
@@ -130,6 +156,9 @@ class Scheduler:
         self.slots = SlotTable(num_slots)
         self._heap: list = []
         self._seq = itertools.count()
+        self.cache_aware = bool(cache_aware)
+        self.cache_probe = None      # Optional[Callable[[str], bool]]
+        self.cache_reordered = 0
 
     def __len__(self) -> int:
         return len(self._heap)
@@ -156,6 +185,53 @@ class Scheduler:
         """Fill every free slot from the queue; returns the
         ``(slot_index, request)`` pairs admitted this round."""
         free_n = len(self.slots.free_slots())
-        picked = [heapq.heappop(self._heap)[2]
-                  for _ in range(min(free_n, len(self._heap)))]
+        if not free_n or not self._heap:
+            return []
+        if self.cache_aware:
+            picked = self._cache_aware_pops(free_n)
+        else:
+            picked = [heapq.heappop(self._heap)[2]
+                      for _ in range(min(free_n, len(self._heap)))]
         return [(self.slots.occupy(req), req) for req in picked]
+
+    def _cache_aware_pops(self, free_n: int) -> List[Request]:
+        """Up to ``free_n`` queued requests, reordered ONLY within a
+        priority tier: the tier's head is the earliest request whose
+        ``prefix_group`` digest is live in the cache (``cache_probe``),
+        else the FIFO head; then same-group followers come forward (FIFO
+        within the group). The rest go back on the heap with their
+        sequence numbers."""
+        entries = []
+        while self._heap:
+            entries.append(heapq.heappop(self._heap))
+        chosen: List[Request] = []
+        while len(chosen) < free_n and entries:
+            p0 = entries[0][0]
+            tier_end = next((i for i, e in enumerate(entries)
+                             if e[0] != p0), len(entries))
+            head_i = 0
+            if self.cache_probe is not None:
+                for j in range(tier_end):
+                    g = entries[j][2].prefix_group
+                    if g is not None and self.cache_probe(g):
+                        head_i = j
+                        break
+            if head_i > 0:
+                self.cache_reordered += 1
+            head = entries.pop(head_i)
+            chosen.append(head[2])
+            tier_end -= 1
+            g = head[2].prefix_group
+            if g is not None:
+                i = 0
+                while i < tier_end and len(chosen) < free_n:
+                    if entries[i][2].prefix_group == g:
+                        if i > 0:
+                            self.cache_reordered += 1
+                        chosen.append(entries.pop(i)[2])
+                        tier_end -= 1
+                    else:
+                        i += 1
+        for e in entries:
+            heapq.heappush(self._heap, e)
+        return chosen

@@ -183,18 +183,22 @@ def test_typed_refusals_match_jax(models, ids, jax_ref):
             with pytest.raises(ValueError, match=match):
                 call(d, m)
     # valid asks the port does not take yet name their ROADMAP item
-    for call in (lambda: dec.generate(ids, 4, draft_model="skip:1"),
-                 lambda: dec.init_decode_state(ids, draft_model="skip:1"),
-                 lambda: dec.init_decode_state(ids, adapter_idx=[0, 0]),
+    for call in (lambda: dec.init_decode_state(ids, adapter_idx=[0, 0]),
                  lambda: LlamaDecoder(tm, mesh="dp:2", device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # speculative decoding is ported (tests/test_torch_speculative.py):
+    # greedy speculation gives the plain greedy tokens, K from the flag
+    np.testing.assert_array_equal(
+        np.asarray(dec.generate(ids, 4, draft_model="skip:1")),
+        np.asarray(dec.generate(ids, 4)))
+    assert dec.init_decode_state(ids, draft_model="skip:1").spec["K"] == 4
 
 
 def test_decode_chunk_signatures_match_jax(models, ids):
     """init_decode_state and decode_chunk take the JAX package's parameters
-    with its defaults; sampling runs on the CPU, a speculative draft
-    length names its ROADMAP item."""
+    with its defaults; sampling runs on the CPU; a draft length ``K`` on a
+    plain carry is ignored, as in the JAX package."""
     import inspect
 
     def params(fn):
@@ -212,8 +216,8 @@ def test_decode_chunk_signatures_match_jax(models, ids):
     st = dec.init_decode_state(ids, None, 0.7, 3)
     toks, _ = dec.decode_chunk(st, 3, True, 4, 0.9, None)
     assert tuple(toks.shape) == (ids.shape[0], 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dec.decode_chunk(st, 3, K=2)
+    toks2, _ = dec.decode_chunk(st, 3, True, 4, 0.9, K=2)
+    np.testing.assert_array_equal(toks2.numpy(), toks.numpy())
 
 
 # A bf16 GQA Llama, the JAX parameters cast to bf16 as bench.py's decode

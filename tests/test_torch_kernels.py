@@ -173,6 +173,42 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                             torch.zeros(1, 1, 8, 8, device="meta"), 4)
 
 
+def test_graph_launch_bookkeeping_carries_row_counts():
+    """``captured_launches`` / ``add_launches`` (a CUDA graph's replay
+    accounting) carry the int8 kernel's launches by row count with the
+    integer counters: a capture's counts are undone, and each replay adds
+    them back."""
+    from paddle_tpu_torch.ops import kernels as K
+    saved = (i8.launches, dict(i8.launches_by_rows), da.launches)
+    try:
+        i8.launches, da.launches = 5, 2
+        i8.launches_by_rows.clear()
+        i8.launches_by_rows[8] = 5
+        before = K.launch_counts()
+        assert before["int8_matmul", "launches_by_rows", 8] == 5
+        # a capture: one 8-row and two 40-row int8 launches, four
+        # decode-attention launches
+        i8.launches += 3
+        i8.launches_by_rows[8] += 1
+        i8.launches_by_rows[40] = 2
+        da.launches += 4
+        captured = K.captured_launches(before)
+        assert captured == {("int8_matmul", "launches"): 3,
+                            ("int8_matmul", "launches_by_rows", 8): 1,
+                            ("int8_matmul", "launches_by_rows", 40): 2,
+                            ("decode_attention", "launches"): 4}
+        assert (i8.launches, i8.launches_by_rows, da.launches) == \
+            (5, {8: 5}, 2)
+        for _ in range(2):
+            K.add_launches(captured)
+        assert (i8.launches, i8.launches_by_rows, da.launches) == \
+            (11, {8: 7, 40: 4}, 10)
+    finally:
+        i8.launches, da.launches = saved[0], saved[2]
+        i8.launches_by_rows.clear()
+        i8.launches_by_rows.update(saved[1])
+
+
 # -- GroupNorm and rope -------------------------------------------------------
 
 @pytest.mark.parametrize("act,shape", [(None, (2, 32, 8, 8)),
@@ -440,9 +476,11 @@ def test_int8_matmul_kernel_matches_plain_on_card(dtype):
         x = torch.randn(B, K, generator=g, device="cuda").to(dtype)
         w, s = weight_quantize(
             torch.randn(K, N, generator=g, device="cuda") * 0.02)
+        n0 = i8.launches_by_rows.get(B, 0)
         got = i8.int8_matmul(x, w, s)
         again = i8.int8_matmul(x, w, s)
         torch.cuda.synchronize()
+        assert i8.launches_by_rows[B] - n0 == 2, (B, K, N)
         _close(got, i8.int8_matmul_ref(x, w, s), dtype)
         assert torch.equal(got, again), (B, K, N)
 
@@ -749,8 +787,8 @@ def test_graph_admission_prefill_matches_eager_on_card(quant):
         i8.launches = 0
         with torch.inference_mode():
             kc, vc = dec._empty_cache(1)
-            dec._ring_prefill(dec._ids(ids), as_t([n]), as_t([0]), kc, vc,
-                              ref, as_t([row]))
+            dec._ring_prefill(dec._ids(ids), as_t([n]), as_t([0]),
+                              as_t([row]), kc, vc, ref)
         torch.cuda.synchronize()
         assert got_i8 == i8.launches == (9 if quant else 0), i
         assert torch.equal(ring.logits, ref.logits), i

@@ -113,10 +113,15 @@ def test_engine_priority_and_refusals(models):
         ServingEngine(dec, quant="int8wk")
     with pytest.raises(ValueError, match="exceeds"):
         eng.submit(np.arange(60), 8)
-    for kw in ({"prefix_cache": True}, {"draft_model": "skip:1"},
-               {"adapter_store": object()}, {"request_keyed_rng": True}):
+    for kw in ({"adapter_store": object()}, {"request_keyed_rng": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(dec, **kw)
+    # the prefix cache and speculative serving are ported: the engine
+    # takes them (tests/test_torch_prefix_cache.py and
+    # tests/test_torch_speculative.py hold them to the JAX engine)
+    assert ServingEngine(dec, prefix_cache=True).prefix_cache is not None
+    assert ServingEngine(dec, draft_model="skip:1").metrics()[
+        "speculative"]["num_speculative_tokens"] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit(p, 3, deadline_s=1.0)
     with pytest.raises(TypeError, match="unexpected"):

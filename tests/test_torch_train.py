@@ -296,6 +296,50 @@ def test_tiny_llama_loss_and_grads_match_jax(min_seq_64):
                                    atol=1e-4, err_msg=n)
 
 
+def test_tiny_llama_bf16_loss_and_grads_match_jax():
+    """bf16 training parity: the JAX parameters cast to bf16 in both
+    packages, B 2, S 64, the plain attention (S is below
+    ``flash_attention_min_seq``): the loss within two bf16 spacings of
+    the JAX loss, every gradient at cosine >= 0.99 to ``jax.grad``'s."""
+    from paddle_tpu.autograd import tape
+    from paddle_tpu.framework.tensor import Tensor
+
+    jm, _ = _models()
+    ids, labels = _batch()
+    state = dict(jm.state_dict())
+    params = {n: t._value.astype(jnp.bfloat16) for n, t in state.items()}
+
+    def jax_loss(params):
+        originals = [(t, t._value) for t in state.values()]
+        try:
+            with tape.no_grad():
+                for n, t in state.items():
+                    t._value = params[n]
+                return jm.loss(Tensor(jnp.asarray(ids)),
+                               Tensor(jnp.asarray(labels)))._value
+        finally:
+            for t, v in originals:
+                t._value = v
+
+    want_loss, want = jax.jit(jax.value_and_grad(jax_loss))(params)
+    tm = from_jax_state_dict(
+        {n: np.asarray(v, np.float32) for n, v in params.items()},
+        LlamaForCausalLM(LlamaConfig(**CFG, dtype="bfloat16"),
+                         device="cpu"))
+    assert all(p.dtype == torch.bfloat16 for p in tm.parameters())
+    loss = tm.loss(ids, labels)
+    loss.backward()
+    want_loss = float(want_loss)
+    spacing = 2.0 ** (np.floor(np.log2(abs(want_loss))) - 7)
+    assert abs(loss.item() - want_loss) <= 2 * spacing, \
+        (loss.item(), want_loss)
+    for n, p in tm.named_parameters():
+        g = p.grad.double().reshape(-1)
+        w = torch.from_numpy(np.asarray(want[n], np.float64)).reshape(-1)
+        cos = float(g @ w / (g.norm() * w.norm()))
+        assert cos >= 0.99, (n, cos)
+
+
 def test_tiny_llama_trainer_steps_match_jax(min_seq_64):
     """Three ShardedTrainer steps (AdamW with weight decay) on one batch:
     the same losses and parameters as the JAX trainer, then the model

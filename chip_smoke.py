@@ -47,6 +47,11 @@ smoke run is made, nothing else is built.
    another order each run). f32 GroupNorm dw and db are held at 1e-4 of
    their largest |ref|; the shifted 1000 +- 0.01 GroupNorm case must also be
    finite and no further from the f64 truth than the plain version.
+   The RMSNorm forward's inv is held to the plain inv at the f32
+   tolerance and its output to the plain output formed from the kernel's
+   own inv (``rms_fwd_check``): the plain version rounds twice, so an inv
+   one ulp off moves the output by up to about three spacings of the
+   plain version's own output, whose ratio is printed beside.
    The threefry kernel (the sampler's counter hashing) must equal its
    plain version bit for bit at 8 keys x 32000 counters (one draw of a
    served sampling step) and 1 key x 2^20, and split and fold_in of the
@@ -124,6 +129,27 @@ smoke run is made, nothing else is built.
    acceptance, tokens per chunk dispatch, tokens/s and ms a chunk against
    the plain engine, the busy share, and the graph keys and reserved
    bytes as the prefix line does.
+   The LoRA line (``serve_lora``, unquantized with f32 stacks, then over
+   ``int8wk`` with fp16 stacks): bench_serve_http's tenant mix without
+   the HTTP part, the serving line's 16 requests round-robin to base and
+   three adapters of ranks 2 / 3 / 4 over all 48 projection matrices,
+   through ``ServingEngine(adapter_store=)`` and the ring with graphed
+   chunks and prefills. Base rows must equal the plain serving line's
+   tokens bit for bit; each tenant's rows pass the decisive teacher-forced
+   gate against a dense decoder with its A @ B folded in; one prefill a
+   request, no per-token step or host scatter, 4 rows a tenant, the chunk
+   dispatches of a plain engine serving the same requests at the same
+   lengths, the launches the decode steps imply, the same tokens every
+   drain; a hot swap of one adapter under its in-flight rows is refused
+   (pinned rev 0, store rev 1), those rows keep their tokens, queued rows
+   of that adapter wait for the swap and pass the gate against the rev-1
+   merged decoder, and the swapped stacks get a chunk graph of their own;
+   unquantized, one prefix-cache drain with each prompt as base and as
+   one adapter hits in full only for a prompt its own tenant served
+   before. It prints tokens/s and ms a chunk beside the plain line's and
+   the plain twin's, the device ms and launches a decode step the
+   adapter path adds (its profile against the twin's), and the graph keys
+   and reserved bytes before and after the swap.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -171,10 +197,11 @@ smoke run is made, nothing else is built.
    per-kernel ms.
 7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows, the Adam
    kernel's at the Llama's and the UNet's tensors, the threefry
-   kernel's, launched by the sampled line, and two rows at this
-   slice's shapes: decode attention at a draft's per-row lengths and the
-   int8 matmul at a verify's 40 rows), the card line, and last ``{"ok":
-   true, "device": {...}}``.
+   kernel's, launched by the sampled line, and two rows at the
+   speculative shapes: decode attention at a draft's per-row lengths and
+   the int8 matmul at a verify's 40 rows; the decode-attention and int8
+   rows count the LoRA lines' launches too), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
 script exits 2 before printing any result.
@@ -626,6 +653,28 @@ def flash_case(name, B, Sq, Sk, H, D, causal, dtype, g, library=True):
     return rows
 
 
+def rms_fwd_check(x, w, eps, out, k_inv):
+    """The RMSNorm forward kernel's ``(out, inv)`` against plain versions:
+    ``inv`` against the plain ``inv`` at the f32 tolerance, and ``out``
+    against the plain output formed from the KERNEL's ``inv`` (x * inv
+    rounded to x's dtype, then times w, rounded) at x's dtype's
+    tolerance. The plain version rounds twice, so an ``inv`` one ulp off
+    (the kernel sums x^2 in another order) moves a normalized element by
+    a spacing and its product with w by up to about three; holding the
+    output to the kernel's own ``inv`` keeps the check at two spacings.
+    Returns the err_and_tol triples of out and inv, and of out against the
+    plain version's own output (printed, not gated)."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    H = x.shape[-1]
+    ref_out, ref_inv = rn.rms_fwd_ref(x, w, eps)
+    out_dtype = torch.promote_types(x.dtype, w.dtype)
+    from_inv = ((x.reshape(-1, H).float() * k_inv).to(x.dtype).float()
+                * w.float()).to(out_dtype).reshape(x.shape)
+    return (err_and_tol(out, from_inv, x.dtype),
+            err_and_tol(k_inv, ref_inv, torch.float32),
+            err_and_tol(out, ref_out, x.dtype))
+
+
 def rms_case(name, rows, H, dtype, g):
     """RMSNorm forward and backward kernels against their plain versions,
     timed through CUDA graphs (these kernels run for microseconds), with
@@ -643,16 +692,15 @@ def rms_case(name, rows, H, dtype, g):
         sets.append((x, w, gy, rn.rms_fwd_ref(x, w, eps)[1]))
     x, w, gy, inv = sets[0]
     out, k_inv = rn.rms_fwd(x, w, eps)
-    ref_out, ref_inv = rn.rms_fwd_ref(x, w, eps)
     dx, dw = rn.rms_bwd(x, w, inv, gy)
     dx2, dw2 = rn.rms_bwd(x, w, inv, gy)
     ref_dx, ref_dw = rn.rms_bwd_ref(x, w, inv, gy)
     torch.cuda.synchronize()
     check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
           f"{name}: two backward runs differ")
-    e_out, e_dx, e_dw = (err_and_tol(a, b, dtype) for a, b in
-                         ((out, ref_out), (dx, ref_dx), (dw, ref_dw)))
-    e_inv = err_and_tol(k_inv, ref_inv, torch.float32)
+    e_out, e_inv, e_plain = rms_fwd_check(x, w, eps, out, k_inv)
+    e_dx, e_dw = (err_and_tol(a, b, dtype) for a, b in
+                  ((dx, ref_dx), (dw, ref_dw)))
     for what, e in (("out", e_out), ("dx", e_dx), ("dw", e_dw),
                     ("inv", e_inv)):
         check(e[1] <= 1, f"{name} {what}: max |err| {e[0]}, {e[1]} x its "
@@ -668,6 +716,8 @@ def rms_case(name, rows, H, dtype, g):
         dict(case=f"{name} fwd", kernel="rms_norm_fwd",
              max_abs_err=max(e_out[0], e_inv[0]),
              err_over_tol=max(e_out[1], e_inv[1]),
+             max_abs_err_vs_plain_out=e_plain[0],
+             err_over_tol_vs_plain_out=e_plain[1],
              ms=time_ms(lambda x, w, gy, inv: rn.rms_fwd(x, w, eps), sets),
              plain_ms=time_ms(lambda x, w, gy, inv: rn.rms_fwd_ref(x, w, eps),
                               sets, iters=100),
@@ -1052,11 +1102,12 @@ def eager_chunks(dec):
     return dec
 
 
-def drain(eng, reqs, profile=False, sampling=None):
+def drain(eng, reqs, profile=False, sampling=None, adapters=None):
     """Submit ``reqs`` and drain: (served tokens per request, wall s,
     profiler or None). With ``profile`` only the device's kernels are
     traced (host ops untraced, so the drain keeps its pace).
-    ``sampling``: a (seed, temperature) per request."""
+    ``sampling``: a (seed, temperature) per request; ``adapters``: a LoRA
+    adapter name (None = base) per request."""
     torch.cuda.synchronize()
     prof = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA]) if profile
@@ -1067,6 +1118,8 @@ def drain(eng, reqs, profile=False, sampling=None):
         t0 = time.perf_counter()
         kws = ([{}] * len(reqs) if sampling is None else
                [dict(seed=sd, temperature=t) for sd, t in sampling])
+        if adapters is not None:
+            kws = [dict(kw, adapter=a) for kw, a in zip(kws, adapters)]
         ids = [eng.submit(p, n, eos_token_id=e, **kw)
                for (p, n, e), kw in zip(reqs, kws)]
         res = eng.drain()
@@ -1451,8 +1504,8 @@ def serve_sampled(model, reqs, greedy, V, card):
 
 def serving_phase(card):
     """The serving lines on one model: greedy unquantized and int8wk,
-    then sampled; ``serve_prefix``, unquantized and int8wk; and
-    ``serve_spec``."""
+    then sampled; ``serve_prefix``, unquantized and int8wk;
+    ``serve_spec``; and ``serve_lora``, unquantized and int8wk."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -1471,14 +1524,18 @@ def serving_phase(card):
         out = np.asarray(ref.generate(p[None], n))[0]
         reqs[j] = (p, n, int(out[len(p) + n // 2]))
     del ref
-    runs, greedy = [], None
+    runs, plain = [], {}
     for q in (None, "int8wk"):
-        info, gens = serve(model, q, reqs, cfg.vocab_size, card)
+        info, plain[q] = serve(model, q, reqs, cfg.vocab_size, card)
         runs.append(info)
-        greedy = gens if q is None else greedy
-    sampled = serve_sampled(model, reqs, greedy, cfg.vocab_size, card)
+    sampled = serve_sampled(model, reqs, plain[None], cfg.vocab_size, card)
     prefix = [serve_prefix(model, q, card) for q in (None, "int8wk")]
-    return runs, sampled, prefix, serve_spec(model, card)
+    spec = serve_spec(model, card)
+    # the LoRA line comes after every earlier line, so their inputs and
+    # random streams are those they had before it
+    lora = [serve_lora(model, q, reqs, plain[q], info, card)
+            for q, info in zip((None, "int8wk"), runs)]
+    return runs, sampled, prefix, spec, lora
 
 
 # -- prefix cache and speculative serving --------------------------------
@@ -1863,6 +1920,363 @@ def serve_spec(model, card):
     torch.cuda.empty_cache()
     return dict(skip3=skip, own_weights=own, int8w=q8, sampled=smp,
                 plain=plain, phase_s=time.perf_counter() - t_start)
+
+
+# -- multi-tenant LoRA serving -------------------------------------------
+
+LORA_TENANTS = ("ad0", "ad1", "ad2")
+
+
+def lora_projections(dec):
+    """(fused param name, d_in, d_out) of the model's projection matrices
+    (4 a layer), bench_serve_http's list (bench.py:2685-2693)."""
+    cfg = dec.cfg
+    Hd, Fd = cfg.hidden_size, cfg.intermediate_size
+    out = []
+    for li in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{li}."
+        qkv = dec.params.get(pre + "self_attn.qkv.weight")
+        if qkv is None:
+            qkv = dec.params[pre + "self_attn.qkv.weight:int8"]
+        out += [(pre + "self_attn.qkv.weight", Hd, int(qkv.shape[-1])),
+                (pre + "self_attn.o_proj.weight", Hd, Hd),
+                (pre + "mlp.gate_up.weight", Hd, 2 * Fd),
+                (pre + "mlp.down_proj.weight", Fd, Hd)]
+    return out
+
+
+def lora_deltas(proj, rng, ranks):
+    """``{param: (A, B)}`` of 0.05 N(0, 1) entries at one rank, drawn in
+    bench_serve_http's order."""
+    return {pn: (0.05 * rng.standard_normal((din, ranks)),
+                 0.05 * rng.standard_normal((ranks, dout)))
+            for pn, din, dout in proj}
+
+
+def lora_store(dec, dtype):
+    """bench_serve_http's tenants (bench.py:2694-2703): ``ad0``-``ad2`` of
+    ranks 2 / 3 / 4 (2 + j % 3) over every projection matrix, from
+    ``numpy.random.default_rng(0)``, in ``dtype`` stacks."""
+    from paddle_tpu_torch.serving import AdapterStore
+    rng = np.random.default_rng(0)
+    proj = lora_projections(dec)
+    store = AdapterStore(dtype=dtype)
+    for j, name in enumerate(LORA_TENANTS):
+        store.register(name, lora_deltas(proj, rng, 2 + j % 3))
+    return store
+
+
+def merged_decoder(model, quant, deltas):
+    """A dense decoder with one tenant's ``A @ B`` folded into each
+    projection matrix it touches (over an int8 base: into the dequantized
+    matrix, with the int8 K/V cache and head kept): the reference a LoRA
+    row is held to."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    dec = LlamaDecoder(model, max_len=256, quant=quant)
+    p = dec.params
+    for pn, (a, b) in deltas.items():
+        ab = torch.from_numpy(a @ b).to(device=dec.device,
+                                        dtype=torch.float32)
+        if pn + ":int8" in p:
+            w = p.pop(pn + ":int8").float() * p.pop(pn + ":scale").float()
+        else:
+            w = p[pn].float()
+        p[pn] = (w + ab).to(dec.cfg.torch_dtype)
+    return dec
+
+
+def lora_added_kernels(prof, base_prof, steps):
+    """The kernels a LoRA drain's profile holds beyond its plain twin's
+    (same requests, lengths and schedule): per name, the device ms and
+    launches a decode step that the adapter path adds, largest first, and
+    their total."""
+    def by_name(pr):
+        out = {}
+        for t, k, n in kernel_events(pr):
+            ms, cnt = out.get(k, (0.0, 0))
+            out[k] = (ms + t / 1e3, cnt + n)
+        return out
+    a, b = by_name(prof), by_name(base_prof)
+    added = []
+    for k, (ms, n) in a.items():
+        bms, bn = b.get(k, (0.0, 0))
+        if n > bn:
+            added.append(dict(name=k[:80], ms_per_step=(ms - bms) / steps,
+                              launches_per_step=(n - bn) / steps))
+    added.sort(key=lambda r: -r["ms_per_step"])
+    return dict(lora_kernels_ms_per_step=sum(r["ms_per_step"]
+                                             for r in added),
+                lora_kernels_launches_per_step=sum(
+                    r["launches_per_step"] for r in added),
+                lora_top_kernels=added[:8])
+
+
+def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
+    """The LoRA line: bench_serve_http's tenant mix (bench.py:2643-2715)
+    without the HTTP part, at the serving line's widths and traffic. The
+    16 requests go round-robin to base, ``ad0``, ``ad1`` and ``ad2``
+    (``lora_store``; f32 stacks, fp16 over the int8wk base), through
+    ``ServingEngine(adapter_store=)`` (8 slots, chunk 16, max_len 256, the
+    device ring, graphed chunks and prefills). Gates: (a) every base row's
+    tokens equal the plain serving line's bit for bit; (b) each adapter
+    row passes the decisive teacher-forced gate against a dense decoder
+    with its tenant's A @ B folded in (``merged_decoder``); (c) one
+    prefill a request, no per-token step, no host scatter, 4 rows a
+    tenant, and the chunk and prefill dispatches of a plain engine
+    serving the same requests at the same lengths (its "twin"; the
+    adapters change the rows that stop at an eos), with the launch counts
+    the decode steps imply; every drain the same tokens; (d) a hot swap
+    of ``ad1`` while its rows are in flight is ``AdapterVersionError``
+    (pinned rev 0, store rev 1), those rows finish with their rev-0
+    tokens, the swap applies after them, and a request sent after it
+    passes the gate against the rev-1 merged decoder through a new chunk
+    graph key; (e) unquantized only: one prefix-cache drain of
+    ``prefix_mix`` with each prompt sent as base and as ``ad0``, where a
+    full hit happens only for a prompt its own tenant served before, and
+    equals that earlier request's tokens. Prints tokens/s and ms a chunk
+    beside the plain line's and the twin's, the device ms and launches a
+    decode step the adapter path adds (profiled, against the twin), and
+    the graph keys and reserved bytes."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.serving import (AdapterVersionError,
+                                          ServingEngine, bucket_length)
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_hidden_layers
+    tag = f"lora {quant or 'none'}"
+    ads = [None if j % 4 == 0 else LORA_TENANTS[j % 4 - 1]
+           for j in range(len(reqs))]
+    dec = LlamaDecoder(model, max_len=256, quant=quant)
+    store = lora_store(dec, "float16" if quant else "float32")
+    eng = ServingEngine(dec, num_slots=8, chunk_size=16, adapter_store=store)
+    d0 = dec.dispatch_count
+    torch.cuda.synchronize()
+    da.launches = i8.launches = 0
+    gens, first_wall, _ = drain(eng, reqs, adapters=ads)
+    n_da, n_i8 = da.launches, i8.launches
+    m = eng.metrics()
+    check_lengths(tag, reqs, gens, V)
+    check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
+    check(m["prefill_dispatches"] == len(reqs), f"{tag}: one prefill each")
+    check(m["step_dispatches"] == 0, f"{tag}: per-token steps")
+    check(dec.dispatch_count - d0
+          == m["prefill_dispatches"] + m["chunk_dispatches"],
+          f"{tag}: dispatch identity")
+    check_ring(tag, m, len(reqs))
+    rows = m["adapters"]["rows_by_adapter"]
+    check(rows == {"base": 4, "ad0": 4, "ad1": 4, "ad2": 4},
+          f"{tag}: rows by adapter {rows}")
+    steps = m["chunk_dispatches"] * eng.chunk_size
+    small = sum(1 for p, _, _ in reqs if bucket_length(len(p)) <= 64)
+    want_i8 = (4 * L + 1) * (steps + small) if quant else 0
+    check((n_da, n_i8) == (L * steps, want_i8),
+          f"{tag}: decode_attention / int8_matmul launches {n_da} / "
+          f"{n_i8} != {L * steps} / {want_i8}")
+    # (a) base rows: the plain serving line's tokens
+    for j, a in enumerate(ads):
+        if a is None:
+            check(np.array_equal(gens[j], plain_gens[j]),
+                  f"{tag}: base request {j} differs from the plain line")
+
+    def same(a_gens, what):
+        for j, (a, b) in enumerate(zip(a_gens, gens)):
+            check(np.array_equal(a, b), f"{tag}: request {j} {what} gave "
+                  f"other tokens")
+
+    # (b) adapter rows: the decisive gate against the merged tenants
+    tf = {}
+    for name in LORA_TENANTS:
+        which = [j for j, a in enumerate(ads) if a == name]
+        ref = merged_decoder(model, quant, store._adapters[name]["deltas"])
+        tf[name] = teacher_forced(f"{tag} {name}", ref, reqs, gens, which)
+        del ref
+    # (c) the plain twin: the same requests at the LoRA rows' lengths
+    twin_reqs = [(p, len(g), None) for (p, _, _), g in zip(reqs, gens)]
+    tdec = LlamaDecoder(model, max_len=256, quant=quant)
+    teng = ServingEngine(tdec, num_slots=8, chunk_size=16)
+    tgens, _, _ = drain(teng, twin_reqs)
+    tm = teng.metrics()
+    check((m["prefill_dispatches"], m["chunk_dispatches"])
+          == (tm["prefill_dispatches"], tm["chunk_dispatches"]),
+          f"{tag}: prefill / chunk dispatches {m['prefill_dispatches']} / "
+          f"{m['chunk_dispatches']} != the plain twin's "
+          f"{tm['prefill_dispatches']} / {tm['chunk_dispatches']}")
+    for j, a in enumerate(ads):
+        if a is None:
+            check(np.array_equal(tgens[j], gens[j]),
+                  f"{tag}: the twin's base request {j} differs")
+    # timed and profiled drains, LoRA then twin
+    again, wall, _ = drain(eng, reqs, adapters=ads)
+    same(again, "served again")
+    again, pwall, prof = drain(eng, reqs, profile=True, adapters=ads)
+    same(again, "served under the profiler")
+    _, twall, _ = drain(teng, twin_reqs)
+    _, tpwall, tprof = drain(teng, twin_reqs, profile=True)
+    chunk_keys = [k for k, g in dec._chunk_graphs.items() if g is not None]
+    check(len(chunk_keys) == 1, f"{tag}: chunk graphs {len(chunk_keys)}")
+    n_tok = int(sum(len(g) for g in gens))
+    chunks = m["chunk_dispatches"]
+    info = dict(phase="serve_lora", quant=quant or "none", card=card,
+                requests=len(reqs), tenants={a or "base": ads.count(a)
+                                             for a in (None,)
+                                             + LORA_TENANTS},
+                ranks=[2, 3, 4], stack_dtype=str(store.dtype),
+                tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                ms_per_chunk_incl_admission=1e3 * wall / chunks,
+                first_drain_wall_s=first_wall,
+                plain_tokens_per_s=plain_info["tokens_per_s"],
+                plain_ms_per_chunk_incl_admission=plain_info[
+                    "ms_per_chunk_incl_admission"],
+                twin_tokens_per_s=n_tok / twall,
+                twin_ms_per_chunk_incl_admission=1e3 * twall / chunks,
+                prefill_dispatches=m["prefill_dispatches"],
+                chunk_dispatches=chunks, decode_steps=steps,
+                plain_chunk_dispatches=plain_info["chunk_dispatches"],
+                step_dispatches=m["step_dispatches"],
+                admission_ring=m["admission_ring"],
+                adapters=m["adapters"], decode_attention_launches=n_da,
+                int8_matmul_launches=n_i8, base_rows_equal_plain=True,
+                teacher_forced=tf)
+    info["profiled"] = profiled_info({}, prof, pwall, steps,
+                                     ("decode_attention", "int8_matmul"))
+    info["profiled_twin"] = profiled_info({}, tprof, tpwall, steps,
+                                          ("decode_attention",
+                                           "int8_matmul"))
+    info.update(lora_added_kernels(prof, tprof, steps))
+    info["graph_keys_before_swap"] = graph_memory(dec)
+    del teng, tdec, tprof
+
+    # (d) the hot swap of ad1 under its in-flight rows
+    torch.cuda.synchronize()
+    ids = [eng.submit(p, n, eos_token_id=e, adapter=a)
+           for (p, n, e), a in zip(reqs, ads)]
+    eng.step()
+    flight = {s.request.id for _, s in eng.scheduler.slots.occupied()
+              if s.request.adapter == "ad1"}
+    check(bool(flight), f"{tag}: no ad1 row in flight")
+    rng = np.random.default_rng(1)
+    new = lora_deltas(lora_projections(dec), rng, 3)
+    check(store.update("ad1", new) == 1, f"{tag}: ad1 revision")
+    err = None
+    try:
+        eng.apply_adapter_swap()
+    except AdapterVersionError as e:
+        err = e
+    check(err is not None and (err.adapter, err.pinned_rev, err.store_rev)
+          == ("ad1", 0, 1), f"{tag}: the swap under in-flight ad1 rows "
+          f"gave {err!r}")
+    check(eng.status()["adapters"]["swap_pending"],
+          f"{tag}: the refused swap is not pending")
+    # the rows in flight finish through rev 0 (their earlier tokens);
+    # the queued ad1 requests wait for the swap, which applies once those
+    # rows are done, and decode through rev 1
+    eng.drain()
+    swap_gens, rev1 = [], []
+    for j, (rid, (p, n, e)) in enumerate(zip(ids, reqs)):
+        res = eng.result(rid)
+        g = np.asarray(res)[0, len(p):]
+        rec = res.resilience["serving"]
+        if ads[j] == "ad1" and rid not in flight:
+            check(rec["adapter_rev"] == 1, f"{tag}: queued ad1 request "
+                  f"{j} decoded through rev {rec['adapter_rev']}")
+            rev1.append(j)
+            swap_gens.append(g)
+            continue
+        check(np.array_equal(g, gens[j]), f"{tag}: request {j} gave other "
+              f"tokens across the refused swap")
+        swap_gens.append(g)
+    ma = eng.metrics()["adapters"]
+    check(ma["swaps"] == 1 and not eng.status()["adapters"]["swap_pending"]
+          and not eng.apply_adapter_swap(),
+          f"{tag}: the swap did not apply in the drain: {ma}")
+    j2 = ads.index("ad1")
+    p2, n2, _ = reqs[j2]
+    post = []
+    for _ in range(3):               # a graph replay of the new stacks
+        rid = eng.submit(p2, n2, adapter="ad1")
+        post.append(np.asarray(eng.drain()[rid])[0, len(p2):])
+    for g in post[1:]:
+        check(np.array_equal(g, post[0]), f"{tag}: the post-swap request "
+              f"gave other tokens on a graph replay")
+    check(not np.array_equal(post[0], gens[j2]),
+          f"{tag}: the post-swap tokens equal rev 0's")
+    ref = merged_decoder(model, quant, new)
+    info["post_swap"] = teacher_forced(
+        f"{tag} ad1 rev 1", ref, [reqs[j] for j in rev1] + [(p2, n2, None)],
+        [swap_gens[j] for j in rev1] + post[:1])
+    info["post_swap"]["requests"] = len(rev1) + 1
+    del ref
+    keys_after = [k for k, g in dec._chunk_graphs.items() if g is not None]
+    check(len(set(keys_after) - set(chunk_keys)) == 1,
+          f"{tag}: the swapped stacks did not get their own chunk graph")
+    info["swap_refusal"] = dict(adapter=err.adapter,
+                                pinned_rev=err.pinned_rev,
+                                store_rev=err.store_rev)
+    info["graph_keys_after_swap"] = graph_memory(dec)
+    info["chunk_graph_keys_before_after_swap"] = [len(chunk_keys),
+                                                  len(keys_after)]
+    if quant is None:
+        info["prefix"] = serve_lora_prefix(model, store, card)
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    del eng, dec
+    torch.cuda.empty_cache()
+    return info
+
+
+def serve_lora_prefix(model, store, card):
+    """(e): ``prefix_mix`` (``serve_prefix``'s traffic) through one cached
+    engine (block 32, batch admission, max_len 128) with ``store``, each
+    prompt sent as base and as ``ad0``, phase A then phase B. A full hit
+    is only for a (prompt, tenant) an earlier drain served (the tag is
+    ``name@rev``), and its tokens equal that earlier request's."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.serving import ServingEngine
+
+    V = model.config.vocab_size
+    phase_a, phase_b = prefix_mix(V, np.random.default_rng(0))
+    dec = LlamaDecoder(model, max_len=128)
+    eng = ServingEngine(dec, num_slots=8, chunk_size=16, prefix_cache=True,
+                        prefix_cache_bytes=1 << 30, prefix_block_tokens=32,
+                        batch_admission=True, adapter_store=store)
+    seen, classes, t0 = {}, [], time.perf_counter()
+    for phase in (phase_a, phase_b):
+        sub = [(p, a, eng.submit(p, 32, adapter=a))
+               for p in phase for a in (None, "ad0")]
+        res = eng.drain()
+        for p, a, rid in sub:
+            cls = res[rid].resilience["serving"]["prefix_hit"]
+            toks = np.asarray(res[rid])[0, len(p):]
+            key = (p.tobytes(), a)
+            check((cls == "full") == (key in seen),
+                  f"lora prefix: a {cls} hit for tenant {a} with the "
+                  f"prompt {'seen' if key in seen else 'unseen'} before")
+            if cls == "full":
+                check(np.array_equal(toks, seen[key]),
+                      f"lora prefix: a full hit of tenant {a} differs from "
+                      f"its earlier request")
+            classes.append((a or "base", cls))
+        for p, a, rid in sub:
+            seen.setdefault((p.tobytes(), a),
+                            np.asarray(res[rid])[0, len(p):])
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    hits = {f"{t} {c}": classes.count((t, c)) for t in ("base", "ad0")
+            for c in ("full", "partial", "miss")}
+    check(hits["base full"] > 0 and hits["ad0 full"] > 0,
+          f"lora prefix: hit classes {hits}")
+    out = dict(requests=len(classes), hits=hits,
+               prefill_dispatches=m["prefill_dispatches"],
+               chunk_dispatches=m["chunk_dispatches"],
+               host_scattered=eng.host_scattered,
+               rows_by_adapter=m["adapters"]["rows_by_adapter"],
+               wall_s=wall, card=card)
+    del eng, dec
+    return out
 
 
 # -- the multi-tensor Adam / AdamW kernel ------------------------------------
@@ -2626,7 +3040,7 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs, sampled, prefix, spec = serving_phase(card)
+    runs, sampled, prefix, spec, lora = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
@@ -2634,10 +3048,11 @@ def main() -> int:
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"serving {t3 - t2:.1f} s (prefix "
           f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
-          f"{spec['phase_s']:.1f} s), llama training "
+          f"{spec['phase_s']:.1f} s, lora "
+          f"{sum(x['phase_s'] for x in lora):.1f} s), llama training "
           f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
           flush=True)
-    served = runs + prefix
+    served = runs + prefix + lora
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in served),
         decode_attention_draft=spec["skip3"]["decode_attention_launches"],

@@ -60,14 +60,26 @@ exactly T rounds, one CUDA graph a key on a card. The JAX package's
 ``mode="drop"`` writes of the emit buffer go to a dump column that nothing
 reads.
 
+Multi-tenant LoRA (``init_decode_state(adapter_idx=)``, the serving
+engine's ``adapter_store=``): when the params carry stacked
+``lora.<name>.A`` (N+1, d_in, r) / ``.B`` (N+1, r, d_out) tensors, each
+projection of a row adds ``(x @ A[i]) @ B[i]`` for the row's adapter
+index ``i`` (``DecodeState.adapter_idx``; row 0 of every stack is zeros,
+the base model) after its base product, on the int8 routes too (``_mm``).
+The head takes no delta; a speculative draft stays base. The gather and
+the two batched matmuls are a torch composition, as the JAX package
+leaves them to XLA. A captured chunk or prefill graph reads the stacks
+through raw pointers, so its key holds their addresses and the graph
+holds the tensors: stacks that a hot swap replaces get a new key (one
+eager warm-up, then a new capture).
+
 Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
 ``decode_chunk``, ``ring_admit_prefill``, ``ring_admit_draft``) runs
 under ``torch.inference_mode()``: the model's parameters are trainable,
 and decoding records no autograd graph.
 
-Not ported yet (ROADMAP.md queue 1): LoRA (``adapter_idx=``), meshes, the
-retry and degradation ladder (with ``spec_demote``), a CUDA graph of the
-fused loop.
+Not ported yet (ROADMAP.md queue 1): meshes, the retry and degradation
+ladder (with ``spec_demote``), a CUDA graph of the fused loop.
 """
 
 from __future__ import annotations
@@ -121,7 +133,9 @@ class DecodeState:
     speculative switch ``spec_on`` (None = every row) and the host-side
     ``spec`` (``{"ekey", "K"}``). ``logits`` are then the verify logits at
     the pending token's position. ``nv`` is a speculative chunk's output:
-    each row's count of valid tokens in the returned buffer."""
+    each row's count of valid tokens in the returned buffer.
+    ``adapter_idx`` routes each row through its LoRA adapter's deltas (0 =
+    base; None = no adapters at all)."""
 
     logits: torch.Tensor  # (B, V) f32
     kc: Any
@@ -137,6 +151,7 @@ class DecodeState:
     spec_rounds: Optional[torch.Tensor] = None    # (B,) int64, cumulative
     spec_accepted: Optional[torch.Tensor] = None  # (B,) int64, cumulative
     nv: Optional[torch.Tensor] = None   # (B,) int64, valid tokens of a chunk
+    adapter_idx: Optional[torch.Tensor] = None   # (B,) int64, 0 = base
     spec_on: Optional[torch.Tensor] = None   # (B,) bool, None = all rows
     spec: Any = None      # host-side: {"ekey", "K"}
 
@@ -214,23 +229,59 @@ def _rope_at(x, pos, cfg: LlamaConfig, p):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
-def _mm(x, p, name):
+def _mm(x, p, name, aidx=None):
     """x @ weight, through the int8 weight-only path when the decoder
     quantized this matrix: the int8 matmul kernel for decode-sized row
     counts (at most 64; it keeps the scale in f32 and rounds once), and
     for larger prefills the JAX package's own form, a matmul against the
-    weight cast to x's dtype times the scale in x's dtype."""
+    weight cast to x's dtype times the scale in x's dtype.
+
+    ``aidx`` (B,) adds each row's LoRA delta when ``p`` holds the stacks
+    ``lora.<name>.A`` / ``.B``: ``(x @ A[aidx]) @ B[aidx]`` in the stacks'
+    dtype, cast to the base output's dtype and added after the base
+    product (``_lora_delta``). Row 0 adds exact zeros."""
     q = p.get(name + ":int8")
     if q is None:
-        return x @ p[name]
-    scale = p[name + ":scale"]
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if _i8.supported(x2, q):
-        out = _i8.int8_matmul(x2.contiguous(), q, scale)
+        out = x @ p[name]
     else:
-        out = (x2 @ q.to(x.dtype)) * scale.to(x.dtype)
-    return out.reshape(*lead, q.shape[1])
+        scale = p[name + ":scale"]
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if _i8.supported(x2, q):
+            out = _i8.int8_matmul(x2.contiguous(), q, scale)
+        else:
+            out = (x2 @ q.to(x.dtype)) * scale.to(x.dtype)
+        out = out.reshape(*lead, q.shape[1])
+    if aidx is not None:
+        A = p.get("lora." + name + ".A")
+        if A is not None:
+            d = _lora_delta(x, A, p["lora." + name + ".B"], aidx)
+            out = out + d.to(out.dtype)
+    return out
+
+
+def _lora_delta(x, A, B, aidx):
+    """Each row's ``(x @ A[i]) @ B[i]``: x (B, d_in) or (B, S, d_in), the
+    stacks (N+1, d_in, r) and (N+1, r, d_out) gathered at ``aidx`` (B,),
+    two batched matmuls in the stacks' dtype (an f32 stack never on TF32,
+    as the JAX package's f32 einsums are exact f32)."""
+    xa = x.to(A.dtype)
+    flat = xa.dim() == 2
+    if flat:
+        xa = xa[:, None]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        d = torch.bmm(torch.bmm(xa, A[aidx]), B[aidx])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return d[:, 0] if flat else d
+
+
+def _lora_stacks(p) -> tuple:
+    """The decoder's ``lora.*`` stacks, in name order: what a captured
+    graph that reads them must keep alive."""
+    return tuple(p[k] for k in sorted(p) if k.startswith("lora."))
 
 
 def _cache_layer(kc, li: int):
@@ -348,15 +399,16 @@ def _dense_attention(q, kc_l, vc_l, pos, max_len: int, head_major: bool):
 
 
 def _block_forward(p, cfg: LlamaConfig, li: int, h, kc, vc, pos,
-                   max_len: int):
+                   max_len: int, aidx=None):
     """One decoder block over h (B, S, hidden), writing this step's K/V
-    into the cache at [pos, pos+S) before attending over it."""
+    into the cache at [pos, pos+S) before attending over it. ``aidx``
+    routes the four projections through each row's LoRA deltas."""
     B, S, _ = h.shape
     H, KV, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     pre = f"model.layers.{li}."
 
     x = _rms(h, p[pre + "input_layernorm.weight"], cfg.rms_norm_eps)
-    qkv = _mm(x, p, pre + "self_attn.qkv.weight")
+    qkv = _mm(x, p, pre + "self_attn.qkv.weight", aidx)
     q = qkv[..., :H * D].reshape(B, S, H, D)
     k = qkv[..., H * D:H * D + KV * D].reshape(B, S, KV, D)
     v = qkv[..., H * D + KV * D:].reshape(B, S, KV, D)
@@ -385,23 +437,25 @@ def _block_forward(p, cfg: LlamaConfig, li: int, h, kc, vc, pos,
         out = out.reshape(B, S, H * D)
     else:
         out = _dense_attention(q, kc_l, vc_l, pos, max_len, head_major)
-    h = h + _mm(out, p, pre + "self_attn.o_proj.weight")
+    h = h + _mm(out, p, pre + "self_attn.o_proj.weight", aidx)
 
     x = _rms(h, p[pre + "post_attention_layernorm.weight"],
              cfg.rms_norm_eps)
-    gu = _mm(x, p, pre + "mlp.gate_up.weight")
+    gu = _mm(x, p, pre + "mlp.gate_up.weight", aidx)
     f = gu.shape[-1] // 2
     return h + _mm(F.silu(gu[..., :f]) * gu[..., f:], p,
-                   pre + "mlp.down_proj.weight")
+                   pre + "mlp.down_proj.weight", aidx)
 
 
 def _forward_cached(p, cfg: LlamaConfig, ids, kc, vc, pos, max_len: int,
-                    return_all: bool = False):
+                    return_all: bool = False, aidx=None):
     """ids (B, S) -> f32 logits of the LAST position (B, V), or of all S
-    positions (B, S, V) with ``return_all``; the caches update in place."""
+    positions (B, S, V) with ``return_all``; the caches update in place.
+    ``aidx`` (B,): per-row LoRA adapter index (projections only: the head
+    stays base)."""
     h = p["model.embed_tokens.weight"][ids]
     for li in range(cfg.num_hidden_layers):
-        h = _block_forward(p, cfg, li, h, kc, vc, pos, max_len)
+        h = _block_forward(p, cfg, li, h, kc, vc, pos, max_len, aidx)
     h = _rms(h, p["model.norm.weight"], cfg.rms_norm_eps)
     hh = h if return_all else h[:, -1]
     if "head:int8" in p:
@@ -519,18 +573,26 @@ class LlamaDecoder:
         return torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                                device=self.device)
 
-    def _fwd(self, ids, kc, vc, pos, return_all=False):
+    def _fwd(self, ids, kc, vc, pos, return_all=False, aidx=None):
         return _forward_cached(self.params, self.cfg, ids, kc, vc, pos,
-                               self.max_len, return_all)
+                               self.max_len, return_all, aidx)
 
     # -- counted entries: one dispatch each --------------------------------
     def _prefill(self, ids, kc, vc):
         self.dispatch_count += 1
         return self._fwd(ids, kc, vc, 0)
 
+    def _as_long(self, a) -> Optional[torch.Tensor]:
+        """Host ints (or None) as an int64 tensor on the decoder's
+        device."""
+        if a is None:
+            return None
+        return torch.as_tensor(np.asarray(a), dtype=torch.long,
+                               device=self.device)
+
     @torch.inference_mode()
     def admit_prefill(self, ids, true_len, pos0, kc=None, vc=None,
-                      return_all: bool = False, prepare=None):
+                      return_all: bool = False, prepare=None, aidx=None):
         """Length-bucketed admission prefill: ``ids`` (N, bucket) right-
         padded rows land in the cache at ``[pos0, pos0 + bucket)`` per
         row; returns ``(logits, kc, vc)`` with each row's logits taken at
@@ -539,27 +601,29 @@ class LlamaDecoder:
         or all positions' logits (N, bucket, V) with ``return_all``.
         ``kc``/``vc`` default to fresh batch-N caches, which ``prepare(kc,
         vc)`` may preload (the prefix cache's slabs) before the forward.
+        ``aidx`` (N,) prefills each row through its LoRA adapter's deltas.
 
         Without caches or ``return_all``, on a card, the first call of a
-        key (rows, bucket, quant, every flag's value) runs eagerly, the
-        second captures a CUDA graph and later ones replay it: the graph
-        owns its caches, which are zeroed and handed to ``prepare`` before
-        each replay, and the returned caches are the graph's, valid until
-        the key's next call."""
+        key (rows, bucket, quant, the adapter stacks, every flag's value)
+        runs eagerly, the second captures a CUDA graph and later ones
+        replay it: the graph owns its caches, which are zeroed and handed
+        to ``prepare`` before each replay, and the returned caches are the
+        graph's, valid until the key's next call."""
         ids = self._ids(ids)
         N, w = ids.shape
-        as_long = lambda a: torch.as_tensor(     # noqa: E731
-            np.asarray(a), dtype=torch.long, device=self.device)
-        args = (ids, as_long(true_len), as_long(pos0))
+        aidx = self._as_long(aidx)
+        args = (ids, self._as_long(true_len), self._as_long(pos0), aidx)
         self.dispatch_count += 1
-        key = ("admit", N, w, self.quant, flags.snapshot())
+        key = ("admit", N, w, self.quant, self._adapter_key(aidx),
+               flags.snapshot())
         if (kc is None and not return_all and self.device.type == "cuda"
                 and not _warm_up(self._prefill_graphs, key,
                                  _PREFILL_GRAPHS)):
             graphs = self._prefill_graphs
             if graphs[key] is None:
-                graphs[key] = _PrefillGraph(self, args, self._admit_body,
-                                            zero=False)
+                graphs[key] = _PrefillGraph(
+                    self, args, lambda ids, tl, p0, a, kc, vc:
+                    self._admit_body(ids, tl, p0, kc, vc, a), zero=False)
             g = graphs[key]
             for c in g.caches:
                 _zero_cache(c)
@@ -571,21 +635,32 @@ class LlamaDecoder:
         if prepare is not None:
             prepare(kc, vc)
         if return_all:
-            return self._fwd(ids, kc, vc, args[2], return_all=True), kc, vc
-        return self._admit_body(*args, kc, vc), kc, vc
+            return (self._fwd(ids, kc, vc, args[2], return_all=True,
+                              aidx=aidx), kc, vc)
+        return self._admit_body(*args[:3], kc, vc, aidx), kc, vc
 
-    def _admit_body(self, ids, true_len, pos0, kc, vc):
+    def _adapter_key(self, aidx) -> Optional[tuple]:
+        """The adapter part of a graph key: None for a base-only call,
+        else the stacks' addresses (a captured graph reads the stacks it
+        saw, so replaced stacks need another graph)."""
+        if aidx is None:
+            return None
+        return tuple(t.data_ptr() for t in _lora_stacks(self.params))
+
+    def _admit_body(self, ids, true_len, pos0, kc, vc, aidx=None):
         """``admit_prefill``'s forward: each row's logits at position
         ``true_len - 1``."""
-        logits = self._fwd(ids, kc, vc, pos0, return_all=True)
+        logits = self._fwd(ids, kc, vc, pos0, return_all=True, aidx=aidx)
         return logits[torch.arange(ids.shape[0], device=ids.device),
                       true_len - 1]
 
-    def _ring_prefill(self, ids, true_len, pos0, idx, kc, vc, ring):
+    def _ring_prefill(self, ids, true_len, pos0, idx, kc, vc, ring,
+                      aidx=None):
         """``ring_admit_prefill``'s body: prefill ``ids`` into the fresh
-        batch-N caches ``kc``/``vc``, then stage each row's logits at
-        position ``true_len - 1`` and its K/V into ring rows ``idx``."""
-        logits = self._admit_body(ids, true_len, pos0, kc, vc)
+        batch-N caches ``kc``/``vc`` (through each row's adapter with
+        ``aidx``), then stage each row's logits at position ``true_len -
+        1`` and its K/V into ring rows ``idx``."""
+        logits = self._admit_body(ids, true_len, pos0, kc, vc, aidx)
         ring.logits.index_copy_(0, idx, logits)
         _row_scatter(ring.kc, kc, idx)
         _row_scatter(ring.vc, vc, idx)
@@ -595,7 +670,7 @@ class LlamaDecoder:
         kc, vc)`` over fresh batch-N caches (of ``cfg``, default the
         target's): eager on the CPU and at a key's first call on a card,
         then one CUDA graph a key, whose own caches are zeroed inside
-        it."""
+        it. An ``args`` entry may be None (no adapters)."""
         self.dispatch_count += 1
         if self.device.type != "cuda" or _warm_up(self._prefill_graphs,
                                                   key, _PREFILL_GRAPHS):
@@ -608,22 +683,25 @@ class LlamaDecoder:
 
     @torch.inference_mode()
     def ring_admit_prefill(self, ids, true_len, pos0, ring: "AdmissionRing",
-                           ring_idx) -> None:
+                           ring_idx, aidx=None) -> None:
         """``admit_prefill`` that stages its results on the device: each
         row's logits and K/V land in ring rows ``ring_idx`` (distinct free
         rows) of ``ring`` in the same dispatch, and the next chunk splices
-        them into the carry. On a card the first call of a key (rows,
-        bucket, quant, the ring's buffers, every flag's value) runs
-        eagerly, the second captures a CUDA graph and later ones replay
-        it: the JAX package's one compiled program per (rows, bucket)."""
+        them into the carry. ``aidx`` (N,) prefills each row through its
+        LoRA adapter's deltas. On a card the first call of a key (rows,
+        bucket, quant, the ring's buffers, the adapter stacks, every
+        flag's value) runs eagerly, the second captures a CUDA graph and
+        later ones replay it: the JAX package's one compiled program per
+        (rows, bucket)."""
         ids = self._ids(ids)
-        as_long = lambda a: torch.as_tensor(     # noqa: E731
-            np.asarray(a), dtype=torch.long, device=self.device)
-        args = (ids, as_long(true_len), as_long(pos0), as_long(ring_idx))
+        aidx = self._as_long(aidx)
+        args = (ids, self._as_long(true_len), self._as_long(pos0),
+                self._as_long(ring_idx), aidx)
         N, w = ids.shape
-        key = ("ring", N, w, self.quant, ring.addresses(), flags.snapshot())
-        self._staged(key, args,
-                     lambda *a: self._ring_prefill(*a, ring=ring))
+        key = ("ring", N, w, self.quant, ring.addresses(),
+               self._adapter_key(aidx), flags.snapshot())
+        self._staged(key, args, lambda ids, tl, p0, idx, a, kc, vc:
+                     self._ring_prefill(ids, tl, p0, idx, kc, vc, ring, a))
 
     @torch.inference_mode()
     def ring_admit_draft(self, ids, ring: "AdmissionRing", ring_idx,
@@ -632,8 +710,7 @@ class LlamaDecoder:
         caches: one counted dispatch a group (the JAX engine's
         ``ring_admit_draft``), one CUDA graph a key on a card."""
         ids = self._ids(ids)
-        idx = torch.as_tensor(np.asarray(ring_idx), dtype=torch.long,
-                              device=self.device)
+        idx = self._as_long(ring_idx)
         N, w = ids.shape
         key = ("draft", N, w, self.quant, eng["ekey"], ring.addresses(),
                flags.snapshot())
@@ -697,7 +774,8 @@ class LlamaDecoder:
             tok = torch.where(done, fill, tok)
             done = done | (tok == eos)
             toks.append(tok)
-            logits = self._fwd(tok[:, None], st.kc, st.vc, pos)
+            logits = self._fwd(tok[:, None], st.kc, st.vc, pos,
+                               aidx=st.adapter_idx)
             pos = torch.clamp(pos + 1, max=self.max_len - 1)
         return torch.stack(toks, 1), dataclasses.replace(
             st, logits=logits, pos=pos, keys=keys, done=done)
@@ -706,13 +784,15 @@ class LlamaDecoder:
                       ring: Optional["AdmissionRing"] = None):
         """One counted dispatch of ``_chunk_steps``. On a card, the first
         chunk of a key (batch, T, quant recipe, the caches' addresses, the
-        sampling statics, the ring's buffers, every flag's value) runs
-        eagerly; the second captures the chunk into a CUDA graph and every
-        later one replays it. A failed capture raises."""
+        sampling statics, the ring's buffers, the adapter stacks, every
+        flag's value) runs eagerly; the second captures the chunk into a
+        CUDA graph and every later one replays it. A failed capture
+        raises."""
         self.dispatch_count += 1
         key = (st.logits.shape[0], steps, self.quant, _addresses(st.kc),
                _addresses(st.vc), sample,
-               None if ring is None else ring.addresses(), flags.snapshot())
+               None if ring is None else ring.addresses(),
+               self._adapter_key(st.adapter_idx), flags.snapshot())
         body = lambda s: self._chunk_steps(s, steps, sample, ring)  # noqa
         return self._graphed_chunk(key, st, body, _CARRY, ())
 
@@ -725,7 +805,8 @@ class LlamaDecoder:
             return body(st)
         graphs = self._chunk_graphs
         if graphs[key] is None:
-            graphs[key] = _ChunkGraph(st, body, fields, outs)
+            graphs[key] = _ChunkGraph(st, body, fields, outs,
+                                      keep=_lora_stacks(self.params))
         return graphs[key].run(st)
 
     # -- speculative decoding ----------------------------------------------
@@ -802,7 +883,7 @@ class LlamaDecoder:
                         self.max_len)
 
     def _spec_round(self, eng, tok, pos, keys, done, kc, vc, dkc, dvc,
-                    eos, temp, K: int, sample, spec_on=None):
+                    eos, temp, K: int, sample, spec_on=None, aidx=None):
         """One draft-propose / target-verify / accept round (the JAX
         package's ``_spec_round`` and ``_spec_round_rows`` in one). ``pos``
         (B,) is per row. ``keys``: one batch key (2,) split once a round
@@ -810,7 +891,10 @@ class LlamaDecoder:
         per-row keys (B, 2) with per-row ``temp`` (B,) (the chunks). ``eos``
         (B,), -1 = none; done rows flush their eos fill at the full K + 1
         rate. ``spec_on`` (B,) bool demotes False rows to verify-free
-        decode (acceptance 0, the target's own pick). The draft runs K + 1
+        decode (acceptance 0, the target's own pick). ``aidx`` (B,) routes
+        the TARGET's verify through each row's LoRA deltas; the draft
+        stays base (a mismatched draft costs acceptance, never
+        correctness: every emitted token is verified). The draft runs K + 1
         single-token forwards (the last keeps its cache whole when every
         proposal is accepted), the target one forward over the K + 1
         positions. Returns ``(emit (B, K + 1), a (B,), tok_next (B,),
@@ -853,7 +937,7 @@ class LlamaDecoder:
             props.append(cur)
         props = torch.stack(props, 1)                        # (B, K)
         all_lg = self._fwd(torch.cat([tok[:, None], props], 1), kc, vc,
-                           pos, return_all=True)             # (B, K+1, V)
+                           pos, return_all=True, aidx=aidx)  # (B, K+1, V)
         V = all_lg.shape[-1]
 
         def at(x, idx):     # x (B, n, V) at per-row position idx (B,)
@@ -1047,7 +1131,7 @@ class LlamaDecoder:
             live = ~done if son is None else ~done & son
             emit, a, tok, logits, keys, done = self._spec_round(
                 eng, tok, pos, keys, done, st.kc, st.vc, st.dkc, st.dvc,
-                eos, st.temp, K, sample, son)
+                eos, st.temp, K, sample, son, st.adapter_idx)
             buf.scatter_(1, torch.where(jidx <= a[:, None],
                                         cnt[:, None] + jidx, W), emit)
             sr = sr + live.long()
@@ -1063,14 +1147,14 @@ class LlamaDecoder:
                            ring: Optional["AdmissionRing"] = None):
         """One counted dispatch of ``_spec_chunk_steps``; on a card one
         CUDA graph a key (batch, T, K, quant, the caches' addresses, the
-        draft, the sampling statics, the ring's buffers, every flag's
-        value), its first call eager."""
+        draft, the sampling statics, the ring's buffers, the adapter
+        stacks, every flag's value), its first call eager."""
         self.dispatch_count += 1
         key = ("spec", st.logits.shape[0], steps, K, self.quant,
                _addresses(st.kc), _addresses(st.vc), _addresses(st.dkc),
                _addresses(st.dvc), st.spec["ekey"], st.spec_on is None,
                sample, None if ring is None else ring.addresses(),
-               flags.snapshot())
+               self._adapter_key(st.adapter_idx), flags.snapshot())
         body = lambda s: self._spec_chunk_steps(  # noqa: E731
             s, steps, K, sample, ring)
         return self._graphed_chunk(key, st, body, _SPEC_CARRY, ("nv",))
@@ -1101,28 +1185,37 @@ class LlamaDecoder:
         speculative: the draft's prefilled caches (one more counted
         dispatch), the pending-token sentinel ``tok = -1`` and zeroed
         acceptance counts; ``speculative`` (B,) bools turn rows off
-        (verify-free decode in the same chunk). ``adapter_idx`` is
-        refused as not ported."""
+        (verify-free decode in the same chunk). ``adapter_idx`` (B,) ints
+        route each row through its LoRA adapter (the params must carry the
+        ``lora.*`` stacks, ``serving/lora``): the prefill then runs as the
+        admission prefill with every row at its full length, one counted
+        dispatch, so each row's prompt K/V is its tenant's."""
         if speculative is not None and draft_model is None:
             raise ValueError("speculative=(B,) row mask requires a "
                              "draft_model")
         K = self._resolve_k(draft_model, num_speculative_tokens,
                             draft_quant)
-        if adapter_idx is not None:
-            raise _not_ported("LoRA routing (adapter_idx=)", "LoRA")
         eng = self._spec_engine(draft_model, draft_quant) if K else None
         ids = self._ids(input_ids)
         B, S = ids.shape
         kc, vc = self._empty_cache(B)
-        logits = self._prefill(ids, kc, vc)
-        eos = _normalize_eos(eos_token_id)
+        aidx = self._as_long(adapter_idx)
         dev = self.device
-        kw = {}
+        if aidx is None:
+            logits = self._prefill(ids, kc, vc)
+        else:
+            self.dispatch_count += 1
+            logits = self._admit_body(
+                ids, torch.full((B,), S, dtype=torch.long, device=dev),
+                torch.zeros((B,), dtype=torch.long, device=dev), kc, vc,
+                aidx)
+        eos = _normalize_eos(eos_token_id)
+        kw = {"adapter_idx": aidx}
         if eng is not None:
             dkc, dvc = self._empty_cache(B, eng["cfg"])
             self._draft_prefill(eng, ids, dkc, dvc)
             zeros = torch.zeros((B,), dtype=torch.long, device=dev)
-            kw = dict(dkc=dkc, dvc=dvc, tok=torch.full_like(zeros, -1),
+            kw.update(dkc=dkc, dvc=dvc, tok=torch.full_like(zeros, -1),
                       spec_rounds=zeros, spec_accepted=zeros.clone(),
                       spec={"ekey": eng["ekey"], "K": K})
             if speculative is not None:
@@ -1379,7 +1472,8 @@ class AdmissionRing:
     and the carry's caches with one extra batch row, row B, the dump row
     that empty ring rows write into (``_ring_splice``). A speculative
     carry's ring also stages the draft's caches (``ring_admit_draft``)
-    and each row's speculative switch ``son``."""
+    and each row's speculative switch ``son``; a LoRA carry's ring each
+    row's adapter index ``aidx``."""
 
     logits: torch.Tensor   # (R, V) f32
     kc: Any
@@ -1396,18 +1490,21 @@ class AdmissionRing:
     carry_dkc: Any = None  # the carry's draft caches, B + 1 batch rows
     carry_dvc: Any = None
     son: Optional[torch.Tensor] = None   # (R,) bool
+    aidx: Optional[torch.Tensor] = None  # (R,) int64, LoRA carries
 
     @classmethod
     def allocate(cls, dec: LlamaDecoder, R: int, carry_kc, carry_vc,
                  draft_cfg: Optional[LlamaConfig] = None, carry_dkc=None,
-                 carry_dvc=None):
+                 carry_dvc=None, lora: bool = False):
         dev = dec.device
         kc, vc = dec._empty_cache(R)
         long = dict(dtype=torch.long, device=dev)
         spec = {}
+        if lora:
+            spec["aidx"] = torch.zeros((R,), **long)
         if draft_cfg is not None:
             dkc, dvc = dec._empty_cache(R, draft_cfg)
-            spec = dict(dkc=dkc, dvc=dvc, carry_dkc=carry_dkc,
+            spec.update(dkc=dkc, dvc=dvc, carry_dkc=carry_dkc,
                         carry_dvc=carry_dvc,
                         son=torch.ones((R,), dtype=torch.bool, device=dev))
         return cls(
@@ -1420,7 +1517,7 @@ class AdmissionRing:
             temp=torch.ones((R,), dtype=torch.float32, device=dev),
             carry_kc=carry_kc, carry_vc=carry_vc, **spec)
 
-    def load(self, slot, pos, keys, eos, temp, son=None) -> None:
+    def load(self, slot, pos, keys, eos, temp, son=None, aidx=None) -> None:
         """Copy the host's splice metadata (numpy arrays) into the device
         buffers the chunk reads."""
         host = [(self.slot, np.asarray(slot, np.int64)),
@@ -1430,6 +1527,8 @@ class AdmissionRing:
                 (self.temp, np.asarray(temp, np.float32))]
         if son is not None:
             host.append((self.son, np.asarray(son, np.bool_)))
+        if aidx is not None:
+            host.append((self.aidx, np.asarray(aidx, np.int64)))
         for dst, a in host:
             dst.copy_(torch.from_numpy(a))
 
@@ -1440,15 +1539,18 @@ class AdmissionRing:
         if self.dkc is not None:
             out += (*_addresses(self.dkc), *_addresses(self.dvc),
                     *_addresses(self.carry_dkc), *_addresses(self.carry_dvc))
+        if self.aidx is not None:
+            out += (self.aidx.data_ptr(),)
         return out
 
 
 def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
     """The ring prologue of the JAX package's ``ring_chunk_decode`` and
     ``spec_chunk``: each staged ring row lands in the carry at its slot
-    (K/V, logits, pos, key, eos, temperature; ``done`` cleared; under
-    speculation also the draft's K/V and the row's switch, with the
-    pending token and the acceptance counts reset). torch has no dropping
+    (K/V, logits, pos, key, eos, temperature, a LoRA carry's adapter
+    index; ``done`` cleared; under speculation also the draft's K/V and
+    the row's switch, with the pending token and the acceptance counts
+    reset). torch has no dropping
     scatter, so the K/V rows go through ``index_copy_`` with empty ring
     rows pointed at the carry caches' dump row B (never read: the carry
     is the first B rows), and the per-row fields through a select over a
@@ -1475,16 +1577,18 @@ def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
                     spec_rounds=torch.where(has, 0, st.spec_rounds),
                     spec_accepted=torch.where(has, 0, st.spec_accepted),
                     spec_on=put(st.spec_on, ring.son))
+    if ring.aidx is not None:
+        spec["adapter_idx"] = put(st.adapter_idx, ring.aidx)
     return dataclasses.replace(
         st, logits=put(st.logits, ring.logits), pos=put(st.pos, ring.pos),
         keys=put(st.keys, ring.keys), done=st.done & ~has,
         eos=put(st.eos, ring.eos), temp=put(st.temp, ring.temp), **spec)
 
 
-# the carry fields a captured chunk copies in and clones out; a
-# speculative chunk's too (``spec_on`` when the carry has it), and its
-# output ``nv``
-_CARRY = ("logits", "pos", "keys", "done", "eos", "temp")
+# the carry fields a captured chunk copies in and clones out (``adapter_idx``
+# when the carry has it); a speculative chunk's too (``spec_on`` likewise),
+# and its output ``nv``
+_CARRY = ("logits", "pos", "keys", "done", "eos", "temp", "adapter_idx")
 _SPEC_CARRY = _CARRY + ("tok", "spec_rounds", "spec_accepted", "spec_on")
 
 
@@ -1495,9 +1599,12 @@ class _ChunkGraph:
     (the serving engine writes admitted rows into them between chunks).
     ``run`` copies a carry in, replays, and returns clones of the tokens
     and of the output fields (``fields`` plus ``outs``), so an earlier
-    ``DecodeState`` keeps its values when a later chunk replays."""
+    ``DecodeState`` keeps its values when a later chunk replays. ``keep``
+    holds the tensors the body reads outside the carry that another
+    owner may drop (the LoRA stacks), for the graph's lifetime."""
 
-    def __init__(self, st: DecodeState, body, fields, outs=()):
+    def __init__(self, st: DecodeState, body, fields, outs=(), keep=()):
+        self.keep = keep
         self.fields = tuple(n for n in fields if getattr(st, n) is not None)
         self.outs = self.fields + tuple(outs)
         self.inputs = dataclasses.replace(
@@ -1525,12 +1632,14 @@ class _PrefillGraph:
     caches (of ``cfg``, default the target's), zeroed inside the graph
     as a fresh prefill's are when ``zero``; else the caller prepares them
     before ``run``. Every buffer the graph reads or writes lives on this
-    object for the graph's lifetime. ``run`` copies the inputs in,
-    replays, and returns the body's output."""
+    object for the graph's lifetime, the decoder's LoRA stacks included.
+    An ``args`` entry may be None (passed through). ``run`` copies the
+    inputs in, replays, and returns the body's output."""
 
     def __init__(self, dec: LlamaDecoder, args, body, cfg=None,
                  zero: bool = True):
-        self.args = tuple(a.clone() for a in args)
+        self.keep = _lora_stacks(dec.params)
+        self.args = tuple(None if a is None else a.clone() for a in args)
         self.caches = dec._empty_cache(args[0].shape[0], cfg)
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
@@ -1544,7 +1653,8 @@ class _PrefillGraph:
 
     def run(self, *args):
         for dst, src in zip(self.args, args):
-            dst.copy_(src)
+            if dst is not None:
+                dst.copy_(src)
         self.graph.replay()
         self.replays += 1
         _kernels.add_launches(self.launches)

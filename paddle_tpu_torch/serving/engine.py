@@ -38,6 +38,17 @@ moves by exactly ``prefill_dispatches + draft_prefill_dispatches +
 chunk_dispatches``. The ring metadata copies, host row copies and row
 retirement are in-place tensor updates outside the counted sites.
 
+Multi-tenant LoRA (``adapter_store=``, ``submit(adapter=)``): the
+backend merges the store's stacked deltas into the decoder's params, each
+admitted row carries its adapter's index into the stacks on every
+admission route (the ring's ``aidx`` column, the host row copy), and the
+chunk gathers each row's deltas, so mixed tenants share one chunk
+dispatch. A hot swap (``AdapterStore.update``/``register``) applies
+between chunks once no in-flight row pins a revision it changes
+(``apply_adapter_swap``; ``AdapterVersionError`` names the blocking row
+otherwise), and requests naming a pending revision wait for it. The
+prefix cache keys an adapter's prompts by ``name@rev``.
+
 Sampling (``do_sample``, ``top_k``, ``top_p`` engine-wide; ``temperature``
 and ``seed`` per request) draws each row from its own key,
 ``split(PRNGKey(seed), 1)[0]`` at admission on every route, so a
@@ -48,7 +59,7 @@ batch neighbours or its prefix-cache hit class.
 ``torch.inference_mode()``, so serving records no autograd graph.
 
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: LoRA adapters, snapshot/restore,
+``NotImplementedError`` when asked for: snapshot/restore,
 deadlines and SLOs, the obs exporter, meshes, AOT bundle backends, the
 HTTP front-end, request-keyed keys (router) and the degradation ladder
 (the per-token rung and the speculative-to-chunked demotion).
@@ -71,6 +82,8 @@ from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
 from paddle_tpu_torch.quantization.kv_cache import (QuantMismatchError,
                                                     canonical_quant)
 from paddle_tpu_torch.runtime.resilience import GenerateResult
+from paddle_tpu_torch.serving.lora import (AdapterVersionError,
+                                           UnknownAdapterError)
 from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, SlabOps,
                                                    prefix_digests,
                                                    resolve_prefix_cache_bytes)
@@ -86,7 +99,6 @@ _LATER_ENGINE = {
     "snapshot_dir": ("snapshot", None),
     "snapshot_every_chunks": ("snapshot", 0),
     "replica_tag": ("router", None), "request_keyed_rng": ("router", False),
-    "adapter_store": ("LoRA", None),
 }
 _LATER_SUBMIT = {
     "latency_class": ("deadlines and SLOs", "default"),
@@ -94,7 +106,7 @@ _LATER_SUBMIT = {
     "slo_latency_s": ("deadlines and SLOs", None),
     "deadline_s": ("deadlines and SLOs", None),
     "rng_request_id": ("router", None), "rng_tokens_emitted": ("router", 0),
-    "adapter": ("LoRA", None), "on_tokens": ("HTTP front-end", None),
+    "on_tokens": ("HTTP front-end", None),
 }
 _HIT_CLASSES = ("full", "partial", "miss")
 
@@ -135,13 +147,20 @@ class _DecoderBackend:
     prefills and ring chunk entries (plain or speculative), and the
     host-scatter route's admission prefill, row copy and plain chunk. The
     carry's caches (the draft's too) hold one batch row more than the
-    slots: the ring's dump row."""
+    slots: the ring's dump row. With an ``adapter_store`` it keeps the
+    store's stacks merged into the decoder's params (``lora_version`` is
+    the store version they serve)."""
 
     def __init__(self, dec: LlamaDecoder, num_slots: int, do_sample,
                  top_k, top_p, quant=None, draft_model=None,
-                 num_speculative_tokens=None, draft_quant=None):
+                 num_speculative_tokens=None, draft_quant=None,
+                 adapter_store=None):
         _check_quant_ask(quant, dec.quant, "this LlamaDecoder")
         self.dec = dec
+        self.lora = adapter_store
+        self.lora_version = -1
+        if adapter_store is not None:
+            self.refresh_adapters()
         self.quant = dec.quant
         self.num_slots = int(num_slots)
         self.max_len = dec.max_len
@@ -153,6 +172,34 @@ class _DecoderBackend:
                          if self.K else None)
         self.ring: Optional[AdmissionRing] = None
         self._carry = self._dcarry = None
+
+    def refresh_adapters(self) -> bool:
+        """(Re)merge the store's stacked ``lora.*`` tensors into the
+        decoder's params, on its device. The shapes are validated against
+        the live params first (an int8 base keeps its matrix geometry in
+        the ``:int8`` tensor). The stacks are new tensors each time, so a
+        captured graph keyed on the old ones is never replayed over them
+        (the graphs hold the old ones). Returns True when the stacks
+        moved."""
+        store = self.lora
+        if store is None or store.version == self.lora_version:
+            return False
+        p = self.dec.params
+        shapes = {}
+        for pn in store.param_names():
+            w = p.get(pn)
+            if w is None:
+                w = p.get(pn + ":int8")
+            if w is None:
+                raise ValueError(
+                    f"adapter store targets decoder param {pn!r} which "
+                    f"this model does not have")
+            shapes[pn] = tuple(int(s) for s in w.shape[-2:])
+        stacks = store.stacks(param_shapes=shapes)
+        p.update({k: torch.from_numpy(v).to(self.dec.device)
+                  for k, v in stacks.items()})
+        self.lora_version = store.version
+        return True
 
     def new_state(self) -> DecodeState:
         B, dev = self.num_slots, self.dec.device
@@ -172,6 +219,9 @@ class _DecoderBackend:
                       nv=zeros.clone(),
                       spec_on=torch.ones((B,), dtype=torch.bool, device=dev),
                       spec={"ekey": self.spec_eng["ekey"], "K": self.K})
+        if self.lora is not None:
+            kw["adapter_idx"] = torch.zeros((B,), dtype=torch.long,
+                                            device=dev)
         return DecodeState(
             logits=torch.zeros((B, self.dec.cfg.vocab_size),
                                dtype=torch.float32, device=dev),
@@ -190,13 +240,15 @@ class _DecoderBackend:
         if self.spec_eng is not None:
             spec = dict(draft_cfg=self.spec_eng["cfg"],
                         carry_dkc=self._dcarry[0], carry_dvc=self._dcarry[1])
-        self.ring = AdmissionRing.allocate(self.dec, R, *self._carry, **spec)
+        self.ring = AdmissionRing.allocate(self.dec, R, *self._carry,
+                                           lora=self.lora is not None, **spec)
 
-    def ring_admit(self, ids, true_len, pos0, ring_idx) -> None:
+    def ring_admit(self, ids, true_len, pos0, ring_idx, aidx=None) -> None:
         """ONE counted admission-prefill dispatch whose rows stage
-        straight into ring rows ``ring_idx``."""
+        straight into ring rows ``ring_idx``; ``aidx`` prefills each row
+        through its adapter's deltas."""
         self.dec.ring_admit_prefill(ids, true_len, pos0, self.ring,
-                                    ring_idx)
+                                    ring_idx, aidx)
 
     def ring_admit_draft(self, ids, ring_idx) -> None:
         """ONE counted draft prefill staged into the ring's draft caches."""
@@ -206,7 +258,7 @@ class _DecoderBackend:
         """Load the splice metadata (``ServingEngine._ring_args``), then
         one chunk dispatch that splices the staged rows in before its
         steps."""
-        self.ring.load(*splice)
+        self.ring.load(**splice)
         return self.dec._chunk_decode(st, int(chunk_size), self.sample,
                                       self.ring)
 
@@ -215,27 +267,30 @@ class _DecoderBackend:
         """One speculative chunk dispatch over the serving carry after
         the ring's splice: returns ``(buf (B, T (K + 1) + 1), nv, new
         state)``. ``K`` overrides the draft length for this chunk."""
-        self.ring.load(*splice)
+        self.ring.load(**splice)
         K = self.K if K is None else int(K)
         toks, st = self.dec._spec_chunk_decode(st, int(chunk_size), K,
                                                self.sample, self.ring)
         return toks, st.nv, st
 
     # -- host-scatter route (the prefix cache's) ---------------------------
-    def admit_prefill(self, ids, true_len, pos0, prepare=None):
+    def admit_prefill(self, ids, true_len, pos0, prepare=None, aidx=None):
         """One (possibly batched) admission-prefill dispatch: ``ids``
         (N, bucket) right-padded rows, per-row ``true_len``/``pos0``;
-        ``prepare(kc, vc)`` preloads the prefix cache's slabs. Returns
-        ``(logits, kc, vc)``."""
-        return self.dec.admit_prefill(ids, true_len, pos0, prepare=prepare)
+        ``prepare(kc, vc)`` preloads the prefix cache's slabs; ``aidx``
+        routes each row through its adapter's deltas. Returns ``(logits,
+        kc, vc)``."""
+        return self.dec.admit_prefill(ids, true_len, pos0, prepare=prepare,
+                                      aidx=aidx)
 
     def scatter(self, st: DecodeState, slot: int, logits1, kc1, vc1,
-                src: int, pos1: int, key, eos: int, temp: float) -> None:
+                src: int, pos1: int, key, eos: int, temp: float,
+                aidx: int = 0) -> None:
         """Copy row ``src`` of an admission's row state (a batched
         prefill's output or a batch-1 slab, possibly shorter on the length
-        axis) into carry row ``slot``, with the row's key, eos and
-        temperature: the JAX engine's ``_admit_row``. ``slot`` is a slot
-        index, never the dump row."""
+        axis) into carry row ``slot``, with the row's key, eos,
+        temperature and, on a LoRA carry, adapter index: the JAX engine's
+        ``_admit_row``. ``slot`` is a slot index, never the dump row."""
         _row_copy(st.kc, kc1, slot, src, self.head_major)
         _row_copy(st.vc, vc1, slot, src, self.head_major)
         st.logits[slot].copy_(logits1[src])
@@ -245,6 +300,8 @@ class _DecoderBackend:
         st.done[slot] = False
         st.eos[slot] = eos
         st.temp[slot] = float(np.float32(temp))
+        if st.adapter_idx is not None:
+            st.adapter_idx[slot] = aidx
 
     def decode_chunk(self, st: DecodeState, chunk_size: int):
         return self.dec._chunk_decode(st, int(chunk_size), self.sample)
@@ -279,8 +336,10 @@ class ServingEngine:
     (default: on with the cache) orders cached digests first.
     ``draft_model`` / ``num_speculative_tokens`` / ``draft_quant`` serve
     speculatively (not with a prefix cache); ``adaptive_k`` sets each
-    chunk's K from the running acceptance mean. The engine runs on its
-    decoder's device."""
+    chunk's K from the running acceptance mean. ``adapter_store``: an
+    ``AdapterStore`` whose adapters requests name with
+    ``submit(adapter=)``; base rows keep the base model's tokens. The
+    engine runs on its decoder's device."""
 
     def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
@@ -297,7 +356,7 @@ class ServingEngine:
                  num_speculative_tokens: Optional[int] = None,
                  draft_quant: Optional[str] = None,
                  ring_slots: Optional[int] = None,
-                 adaptive_k: bool = False, **later):
+                 adaptive_k: bool = False, adapter_store=None, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
         if not isinstance(backend, LlamaDecoder):
             raise TypeError(
@@ -311,13 +370,23 @@ class ServingEngine:
             backend, num_slots, do_sample, top_k, top_p, quant=quant,
             draft_model=draft_model,
             num_speculative_tokens=num_speculative_tokens,
-            draft_quant=draft_quant)
+            draft_quant=draft_quant, adapter_store=adapter_store)
         self._spec_configured = self._b.spec_eng is not None
         if adaptive_k and not self._spec_configured:
             raise ValueError("adaptive_k requires a draft_model")
         self.adaptive_k = bool(adaptive_k)
         self._k_now = self._b.K
         self._accept_ewma: Optional[float] = None
+        self.adapter_store = adapter_store
+        # the revisions the device stacks serve (the store's at every
+        # applied swap) and the adapters they hold
+        self._served_rev: Dict[str, int] = (
+            {} if adapter_store is None
+            else {n: adapter_store.revision(n)
+                  for n in adapter_store.names()})
+        self._adapters_active = (0 if adapter_store is None
+                                 else len(adapter_store))
+        self._adapter_rows: Dict[str, int] = collections.Counter()
         self.scheduler = Scheduler(num_slots, policy=policy,
                                    prompt_buckets=prompt_buckets)
         self.state = self._b.new_state()
@@ -402,18 +471,79 @@ class ServingEngine:
         (the prefix cache's); 0 when the device ring serves admission."""
         return self._n["host_scattered"]
 
+    # -- multi-tenant LoRA --------------------------------------------------
+    def _adapter_tag(self, name: Optional[str]) -> Optional[str]:
+        """The prefix-cache content tag of a request's adapter,
+        ``"name@rev"``, or None for base rows (base digests stay those of
+        a cache without adapters)."""
+        if name is None or self.adapter_store is None:
+            return None
+        return self.adapter_store.tag(name)
+
+    def _adapter_index(self, name: Optional[str]) -> int:
+        return (0 if self.adapter_store is None
+                else self.adapter_store.index(name))
+
+    def _swap_blocker(self) -> Optional[AdapterVersionError]:
+        """The refusal of a pending swap: an in-flight row that still
+        decodes through a revision the swap would change, or None."""
+        store = self.adapter_store
+        for i, slot in self.scheduler.slots.occupied():
+            ad = slot.request.adapter
+            if ad is None or slot.adapter_rev is None:
+                continue
+            cur = store.revision(ad)
+            if cur != slot.adapter_rev:
+                return AdapterVersionError(
+                    f"adapter {ad!r} staged rev {cur} but request "
+                    f"{slot.request.id} (slot {i}) still decodes "
+                    f"through rev {slot.adapter_rev}; the swap applies "
+                    f"once those rows drain",
+                    adapter=ad, pinned_rev=slot.adapter_rev,
+                    store_rev=cur)
+        return None
+
+    def apply_adapter_swap(self) -> bool:
+        """Apply the store's pending registrations and updates to the
+        decoder's stacks. Refused with ``AdapterVersionError`` while an
+        in-flight row still decodes through a revision the swap would
+        change (a KV cache computed under one revision and continued under
+        another is neither tenant's output). ``step()`` applies a pending
+        swap as soon as nothing blocks it; requests naming the pending
+        revision wait for it. Returns True when the stacks moved."""
+        store = self.adapter_store
+        if store is None or store.version == self._b.lora_version:
+            return False
+        err = self._swap_blocker()
+        if err is not None:
+            raise err
+        self._b.refresh_adapters()
+        self._n["adapter_swaps"] += 1
+        self._adapters_active = len(store)
+        self._served_rev = {n: store.revision(n) for n in store.names()}
+        return True
+
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
                eos_token_id: Optional[int] = None,
                temperature: float = 1.0, seed: int = 0,
                priority: int = 0, speculative: Optional[bool] = None,
-               **later) -> int:
+               adapter: Optional[str] = None, **later) -> int:
         """Queue one request; returns its id (results key).
         ``temperature`` and ``seed`` act on a sampling engine: the row's
         key is ``split(PRNGKey(seed), 1)[0]``. ``speculative=False`` opts
         the request out of speculation on a draft-equipped engine (its row
-        decodes verify-free in the same chunk)."""
+        decodes verify-free in the same chunk). ``adapter`` serves the
+        request through a registered LoRA adapter of the engine's
+        ``adapter_store``: an unknown name, or any name on an engine
+        without a store, is an ``UnknownAdapterError`` here."""
         _refuse_later(later, _LATER_SUBMIT, "submit")
+        if adapter is not None:
+            if self.adapter_store is None:
+                raise UnknownAdapterError(
+                    f"request names adapter {adapter!r} but this engine "
+                    f"serves no AdapterStore (pass adapter_store=)")
+            self.adapter_store.index(adapter)   # the typed unknown-name check
         if speculative and not self._spec_configured:
             raise ValueError(
                 "submit(speculative=True) needs a draft_model-equipped "
@@ -448,11 +578,15 @@ class ServingEngine:
             eos_token_id=_normalize_eos(eos_token_id),
             temperature=float(temperature), seed=int(seed),
             priority=int(priority), submit_time=time.monotonic(),
+            adapter=adapter,
             speculative=None if speculative is None else bool(speculative))
         if self.scheduler.cache_aware:
-            # the grouping key: the prompt's first block-boundary digest
+            # the grouping key: the prompt's first block-boundary digest,
+            # seeded by the adapter's tag (another tenant's KV is other
+            # content)
             req.prefix_group = prefix_digests(
-                prompt, self.prefix_cache.block_tokens)[-1][1]
+                prompt, self.prefix_cache.block_tokens,
+                adapter=self._adapter_tag(adapter))[-1][1]
         self.scheduler.push(req)
         self._queue_depth_peak = max(self._queue_depth_peak,
                                      len(self.scheduler))
@@ -463,8 +597,14 @@ class ServingEngine:
     def step(self) -> List[Tuple[int, Any]]:
         """One iteration: admit into free slots, run ONE chunk dispatch,
         harvest finished rows. Returns ``[(request_id, result), ...]``
-        finished this step (also retrievable via ``result(id)``)."""
+        finished this step (also retrievable via ``result(id)``). A staged
+        adapter swap applies first, once no in-flight row pins a revision
+        it changes."""
         now = time.monotonic()
+        store = self.adapter_store
+        if (store is not None and store.version != self._b.lora_version
+                and self._swap_blocker() is None):
+            self.apply_adapter_swap()
         self._samples["queue_depth"].append(len(self.scheduler))
         admitted = self.scheduler.admissions()
         if admitted:
@@ -654,7 +794,23 @@ class ServingEngine:
         verdict: a FULL hit is one host row copy of its slab (no prefill
         dispatch); the rest group by padded suffix bucket and prefill one
         dispatch a group with ``batch_admission`` (else one each), with
-        each partial row's slab loaded under its suffix."""
+        each partial row's slab loaded under its suffix. While an adapter
+        swap is pending, requests naming an adapter whose revision the
+        stacks do not serve yet go back to the head of their tier."""
+        store = self.adapter_store
+        if store is not None and store.version != self._b.lora_version:
+            keep = []
+            for slot_idx, req in admitted:
+                if (req.adapter is not None
+                        and self._served_rev.get(req.adapter)
+                        != store.revision(req.adapter)):
+                    self.scheduler.slots.release(slot_idx)
+                    self.scheduler.push_front(req)
+                else:
+                    keep.append((slot_idx, req))
+            admitted = keep
+            if not admitted:
+                return
         if self._ring_slots:
             self._admit_all_ring(admitted, now)
             return
@@ -663,7 +819,9 @@ class ServingEngine:
         for slot_idx, req in admitted:
             t0 = time.monotonic()
             S = len(req.prompt)
-            hit = cache.lookup(req.prompt) if cache is not None else None
+            hit = (cache.lookup(req.prompt,
+                                adapter=self._adapter_tag(req.adapter))
+                   if cache is not None else None)
             if hit is not None and hit.kind == "full":
                 cache.pin(hit.slab)
                 self._scatter(slot_idx, req, hit.slab.logits, hit.slab.kc,
@@ -726,7 +884,9 @@ class ServingEngine:
         for j, (_, req) in enumerate(grp):
             ids[j, :len(req.prompt)] = req.prompt
             true_len[j] = len(req.prompt)
-        self._b.ring_admit(ids, true_len, np.zeros((N,), np.int64), rows)
+        aidx = self._group_aidx(grp)
+        self._b.ring_admit(ids, true_len, np.zeros((N,), np.int64), rows,
+                           aidx)
         self._n["prefill"] += 1
         if self._spec_configured:
             self._b.ring_admit_draft(ids, rows)
@@ -735,39 +895,52 @@ class ServingEngine:
             self._n["batched_groups"] += 1
             self._n["disp_saved"] += N - 1
         for j, (slot_idx, req) in enumerate(grp):
+            # the splice metadata, under ``AdmissionRing.load``'s names
             self._ring_meta[rows[j]] = {
                 "slot": slot_idx, "pos": len(req.prompt),
-                "key": _row_key(req.seed),
+                "keys": _row_key(req.seed),
                 "eos": (-1 if req.eos_token_id is None
                         else req.eos_token_id),
                 "temp": req.temperature,
-                "spec_on": (req.speculative if req.speculative is not None
-                            else True)}
+                "aidx": 0 if aidx is None else int(aidx[j]),
+                "son": (req.speculative if req.speculative is not None
+                        else True)}
             self._n["ring_staged"] += 1
             self._note_admit(slot_idx, req, now, t0, "miss",
                              tokens_saved=0, dispatches=int(j == 0),
                              slab=None)
 
-    def _ring_args(self) -> Tuple[tuple, int]:
+    def _group_aidx(self, grp) -> Optional[np.ndarray]:
+        """The adapter indices of an admission group's requests (each
+        item's second entry), or None without a store."""
+        if self.adapter_store is None:
+            return None
+        return np.asarray([self._adapter_index(item[1].adapter)
+                           for item in grp], np.int64)
+
+    def _ring_args(self) -> Tuple[dict, int]:
         """The chunk's splice metadata per ring row (slot -1 = empty,
         resume pos, key, eos, temperature; the speculative switch under
-        speculation) and the staged count."""
+        speculation, the adapter index with a store), as
+        ``AdmissionRing.load``'s keywords, and the staged count."""
         R = self._ring_slots
-        slot = np.full((R,), -1, np.int64)
-        pos = np.zeros((R,), np.int64)
-        keys = np.zeros((R, 2), np.uint32)
-        eos = np.full((R,), -1, np.int64)
-        temp = np.ones((R,), np.float32)
-        son = np.ones((R,), np.bool_)
+        out = dict(slot=np.full((R,), -1, np.int64),
+                   pos=np.zeros((R,), np.int64),
+                   keys=np.zeros((R, 2), np.uint32),
+                   eos=np.full((R,), -1, np.int64),
+                   temp=np.ones((R,), np.float32))
+        if self._spec_configured:
+            out["son"] = np.ones((R,), np.bool_)
+        if self.adapter_store is not None:
+            out["aidx"] = np.zeros((R,), np.int64)
         n = 0
         for r, m in enumerate(self._ring_meta):
             if m is None:
                 continue
-            slot[r], pos[r], keys[r] = m["slot"], m["pos"], m["key"]
-            eos[r], temp[r], son[r] = m["eos"], m["temp"], m["spec_on"]
+            for k, a in out.items():
+                a[r] = m[k]
             n += 1
-        out = (slot, pos, keys, eos, temp)
-        return (out + (son,) if self._spec_configured else out), n
+        return out, n
 
     def _ring_drained(self, n: Optional[int]) -> None:
         """The chunk spliced the staged rows in: clear the metadata and
@@ -803,7 +976,8 @@ class ServingEngine:
                 ops.load(kc, vc, slab.kc, slab.vc, j)
 
         logitsN, kcN, vcN = self._b.admit_prefill(
-            ids, true_len, pos0, prepare if loads else None)
+            ids, true_len, pos0, prepare if loads else None,
+            self._group_aidx(grp))
         self._n["prefill"] += 1
         if N > 1:
             self._n["batched_groups"] += 1
@@ -818,7 +992,8 @@ class ServingEngine:
                     skc, svc, slg = ops.extract(kcN, vcN, logitsN, j,
                                                 bucket)
                     cache.insert(req.prompt, skc, svc, slg, bucket,
-                                 digests=digests)
+                                 digests=digests,
+                                 adapter=self._adapter_tag(req.adapter))
             self._note_admit(slot_idx, req, now, t0,
                              "partial" if cached else "miss",
                              tokens_saved=cached, dispatches=int(j == 0),
@@ -828,19 +1003,25 @@ class ServingEngine:
                  src: int, pos1: int) -> None:
         """The host-scatter admission: row ``src`` of the given row state
         lands in carry row ``slot_idx`` with the request's key
-        (``split(PRNGKey(seed), 1)[0]``, as the ring gives it), eos and
-        temperature. A full hit's whole admission is one of these."""
+        (``split(PRNGKey(seed), 1)[0]``, as the ring gives it), eos,
+        temperature and adapter index. A full hit's whole admission is one
+        of these."""
         self._n["host_scattered"] += 1
         self._b.scatter(self.state, slot_idx, logits1, kc1, vc1, src, pos1,
                         _row_key(req.seed),
                         -1 if req.eos_token_id is None
-                        else req.eos_token_id, req.temperature)
+                        else req.eos_token_id, req.temperature,
+                        self._adapter_index(req.adapter))
 
     def _note_admit(self, slot_idx: int, req: Request, now: float,
                     t0: float, cls: str, tokens_saved: int,
                     dispatches: int, slab) -> None:
         slot = self.scheduler.slots.entries[slot_idx]
         slot.admitted_at = now
+        if self.adapter_store is not None:
+            slot.adapter_rev = (None if req.adapter is None
+                                else self.adapter_store.revision(req.adapter))
+            self._adapter_rows[req.adapter or "base"] += 1
         enabled = self.prefix_cache is not None
         slot.prefix_hit = cls if enabled else None
         slot.prefill_tokens_saved = int(tokens_saved)
@@ -908,6 +1089,9 @@ class ServingEngine:
                 },
             },
         }
+        if req.adapter is not None:
+            record["serving"]["adapter"] = req.adapter
+            record["serving"]["adapter_rev"] = slot.adapter_rev
         out = np.concatenate([req.prompt,
                               seq.astype(req.prompt.dtype)])[None]
         return GenerateResult.wrap(out, record)
@@ -988,7 +1172,13 @@ class ServingEngine:
             "prefix_cache": (None if self.prefix_cache is None
                              else self.prefix_cache.snapshot()),
             "speculative": self._speculative(status=True),
-            "adapters": None,
+            "adapters": (None if self.adapter_store is None else {
+                **self.adapter_store.describe(),
+                "served_version": int(self._b.lora_version),
+                "swap_pending": bool(self.adapter_store.version
+                                     != self._b.lora_version),
+                "rows_by_adapter": dict(sorted(self._adapter_rows.items())),
+            }),
             "admission_ring": self._ring(status=True),
         }
 
@@ -1063,6 +1253,11 @@ class ServingEngine:
             "draft_prefill_dispatches": n["draft_prefill"],
             "speculative": self._speculative(status=False),
             "admission_ring": self._ring(status=False),
-            "adapters": None,
+            "adapters": (None if self.adapter_store is None else {
+                "active": self._adapters_active,
+                "swaps": self._n["adapter_swaps"],
+                "store_version": int(self.adapter_store.version),
+                "rows_by_adapter": dict(sorted(self._adapter_rows.items())),
+            }),
             "stream_ttft_p50_s": {},
         }

@@ -68,6 +68,10 @@ class Request:
     # prefix-cache grouping key (the prompt's first block-boundary
     # digest, stamped by the engine when cache-aware admission is on)
     prefix_group: Optional[str] = None
+    # multi-tenant LoRA routing: the adapter NAME this request decodes
+    # through (None = base model); the engine resolves it to a row of the
+    # stacked deltas at admission and pins its revision
+    adapter: Optional[str] = None
     # per-request speculative toggle (speculative engines only): False
     # decodes this row verify-free in the same speculative chunk; None =
     # the engine default (on)
@@ -99,6 +103,9 @@ class Slot:
     spec_rounds: int = 0
     spec_accepted: int = 0
     spec_overflow: int = 0
+    # the adapter revision pinned at admission (None = base): a hot swap
+    # of this adapter while the row is in flight is a typed refusal
+    adapter_rev: Optional[int] = None
 
 
 class SlotTable:

@@ -183,10 +183,14 @@ def test_typed_refusals_match_jax(models, ids, jax_ref):
             with pytest.raises(ValueError, match=match):
                 call(d, m)
     # valid asks the port does not take yet name their ROADMAP item
-    for call in (lambda: dec.init_decode_state(ids, adapter_idx=[0, 0]),
-                 lambda: LlamaDecoder(tm, mesh="dp:2", device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LlamaDecoder(tm, mesh="dp:2", device="cpu")
+    # LoRA routing is ported (tests/test_torch_lora.py): without stacks in
+    # the params every row decodes as the base model, as in the JAX package
+    st = dec.init_decode_state(ids, adapter_idx=[0] * ids.shape[0])
+    np.testing.assert_array_equal(
+        dec.decode_chunk(st, 4)[0].numpy(),
+        np.asarray(dec.generate(ids, 4))[:, ids.shape[1]:])
     # speculative decoding is ported (tests/test_torch_speculative.py):
     # greedy speculation gives the plain greedy tokens, K from the flag
     np.testing.assert_array_equal(

@@ -517,6 +517,27 @@ def test_rms_norm_kernels_match_plain_on_card(dtype):
 
 
 @pytest.mark.gpu
+def test_rms_norm_fwd_check_over_seeds_on_card():
+    """``chip_smoke.rms_fwd_check``, the smoke run's gate of the RMSNorm
+    forward, at the served shape (8192 x 768, bf16) over 8 seeds: inv
+    within the f32 tolerance of the plain inv, and the output within two
+    bf16 spacings of the plain output formed from the kernel's own inv.
+    The plain version's own output (it rounds twice) may sit further off
+    by the rounding an inv one ulp off moves; its ratio is not gated."""
+    _need_card()
+    from chip_smoke import rms_fwd_check
+    for seed in range(8):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(8192, 768, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(768, generator=g, device="cuda")).to(
+            torch.bfloat16)
+        out, inv = rn.rms_fwd(x, w, 1e-6)
+        e_out, e_inv, _ = rms_fwd_check(x, w, 1e-6, out, inv)
+        assert e_out[1] <= 1 and e_inv[1] <= 1, (seed, e_out, e_inv)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain_on_card(dtype):
     """Ragged lengths (Sq and Sk off the 64- and 128-row tiles, so TMA's

@@ -113,9 +113,19 @@ def test_engine_priority_and_refusals(models):
         ServingEngine(dec, quant="int8wk")
     with pytest.raises(ValueError, match="exceeds"):
         eng.submit(np.arange(60), 8)
-    for kw in ({"adapter_store": object()}, {"request_keyed_rng": True}):
+    for kw in ({"snapshot_dir": "snapshots"}, {"request_keyed_rng": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(dec, **kw)
+    # every argument still refused is one of the JAX engine's, and the
+    # value that leaves it off is the JAX engine's default
+    import inspect
+
+    from paddle_tpu_torch.serving import engine as port_engine
+    for table, fn in ((port_engine._LATER_ENGINE, JaxEngine.__init__),
+                      (port_engine._LATER_SUBMIT, JaxEngine.submit)):
+        params = inspect.signature(fn).parameters
+        for name, (_, off) in table.items():
+            assert params[name].default == off, name
     # the prefix cache and speculative serving are ported: the engine
     # takes them (tests/test_torch_prefix_cache.py and
     # tests/test_torch_speculative.py hold them to the JAX engine)

@@ -150,6 +150,18 @@ smoke run is made, nothing else is built.
    the plain twin's, the device ms and launches a decode step the
    adapter path adds (its profile against the twin's), and the graph keys
    and reserved bytes before and after the swap.
+   The snapshot line (``serve_snapshot``, unquantized and ``int8wk``):
+   the serving line's 16 requests through 8-slot engines; a snapshot
+   after the third chunk (in-flight and queued requests) restored over a
+   new decoder, a 4-slot snapshot restored into 8 slots, two in-flight
+   rows and two queued requests migrated between two engines (greedy,
+   and the sampled line's requests unquantized), an expired submit, an
+   in-flight row cut by its deadline, and a graceful drain that
+   snapshots, then a restore. Tokens equal the plain and sampled lines'
+   bit for bit, or else pass the decisive (or top-50) gate, with the
+   divergences printed; it prints the snapshot's and the restore's ms
+   and bytes, extract and absorb ms and bytes a row, the resumed drain's
+   tokens/s beside the plain line's and the restored decoder's graphs.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -200,7 +212,8 @@ smoke run is made, nothing else is built.
    kernel's, launched by the sampled line, and two rows at the
    speculative shapes: decode attention at a draft's per-row lengths and
    the int8 matmul at a verify's 40 rows; the decode-attention and int8
-   rows count the LoRA lines' launches too), the card line, and last
+   rows count the LoRA and snapshot lines' launches too), the card line,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the exit code is not 0. Without a card the
@@ -1378,6 +1391,23 @@ def redraw_chunks(eng, top_k, top_p):
     return tally
 
 
+def top50_gate(tag, logits, gens):
+    """The gate of sampled tokens against their teacher-forced re-score
+    (``logits``, per request): every drawn token inside the re-score's
+    top 50, or within 4 bf16 spacings of its 50th logit. Returns the
+    worst gap in bf16 spacings."""
+    worst = -math.inf
+    for j, (rows, g) in enumerate(zip(logits, gens)):
+        tok = torch.as_tensor(g, device=rows.device)
+        kth = rows.topk(50, dim=-1).values[:, -1]
+        gap = (kth - rows.gather(1, tok[:, None])[:, 0]) / bf16_spacing(kth)
+        worst = max(worst, gap.max().item())
+        check(gap.max().item() <= 4, f"{tag}: request {j} drew a token "
+              f"{gap.max().item()} bf16 spacings below the re-score's "
+              f"50th logit")
+    return worst
+
+
 def serve_sampled(model, reqs, greedy, V, card):
     """The 16 requests, unquantized, through ``ServingEngine(do_sample=True,
     top_k=50, top_p=0.9)``: request j has seed 1000 + j and temperature
@@ -1425,15 +1455,7 @@ def serve_sampled(model, reqs, greedy, V, card):
     check(n_da == L * steps, f"{tag}: decode_attention launches {n_da}")
 
     logits = rescore(dec, reqs, gens)
-    worst = -math.inf
-    for j, (rows, g) in enumerate(zip(logits, gens)):
-        tok = torch.as_tensor(g, device=rows.device)
-        kth = rows.topk(50, dim=-1).values[:, -1]
-        gap = (kth - rows.gather(1, tok[:, None])[:, 0]) / bf16_spacing(kth)
-        worst = max(worst, gap.max().item())
-        check(gap.max().item() <= 4, f"{tag}: request {j} drew a token "
-              f"{gap.max().item()} bf16 spacings below the re-score's "
-              f"50th logit")
+    worst = top50_gate(tag, logits, gens)
     g0, s0 = greedy[0], gens[0]
     n = min(len(g0), len(s0))
     diff = np.flatnonzero(g0[:n] != s0[:n])
@@ -1499,13 +1521,14 @@ def serve_sampled(model, reqs, greedy, V, card):
     emit(info)
     del eeng, edec, eng, dec
     torch.cuda.empty_cache()
-    return info
+    return info, gens
 
 
 def serving_phase(card):
     """The serving lines on one model: greedy unquantized and int8wk,
     then sampled; ``serve_prefix``, unquantized and int8wk;
-    ``serve_spec``; and ``serve_lora``, unquantized and int8wk."""
+    ``serve_spec``; ``serve_lora``, unquantized and int8wk; and
+    ``serve_snapshot``, unquantized and int8wk."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -1528,14 +1551,19 @@ def serving_phase(card):
     for q in (None, "int8wk"):
         info, plain[q] = serve(model, q, reqs, cfg.vocab_size, card)
         runs.append(info)
-    sampled = serve_sampled(model, reqs, plain[None], cfg.vocab_size, card)
+    sampled, sampled_gens = serve_sampled(model, reqs, plain[None],
+                                          cfg.vocab_size, card)
     prefix = [serve_prefix(model, q, card) for q in (None, "int8wk")]
     spec = serve_spec(model, card)
     # the LoRA line comes after every earlier line, so their inputs and
     # random streams are those they had before it
     lora = [serve_lora(model, q, reqs, plain[q], info, card)
             for q, info in zip((None, "int8wk"), runs)]
-    return runs, sampled, prefix, spec, lora
+    # the snapshot line comes after the LoRA line, for the same reason
+    snap = [serve_snapshot(model, q, reqs, plain[q], info,
+                           sampled_gens if q is None else None, card)
+            for q, info in zip((None, "int8wk"), runs)]
+    return runs, sampled, prefix, spec, lora, snap
 
 
 # -- prefix cache and speculative serving --------------------------------
@@ -2280,6 +2308,290 @@ def serve_lora_prefix(model, store, card):
 
 
 # -- the multi-tensor Adam / AdamW kernel ------------------------------------
+
+# -- snapshot/restore, row migration and deadlines ------------------------
+
+def snapshot_dir(name):
+    """A fresh directory for one snapshot under the checkout's ``build/``
+    (``.gitignore`` lists it)."""
+    import os
+    import shutil
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "snapshots", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def collect(out, reqs, ids):
+    """Served tokens per request (prompt stripped) from a result dict."""
+    gens = []
+    for (p, _, _), rid in zip(reqs, ids):
+        res = np.asarray(out[rid])[0]
+        check(np.array_equal(res[:len(p)], p), "prompt echoed")
+        gens.append(res[len(p):])
+    return gens
+
+
+def hold_to(tag, dec, reqs, gens, want, sampled=False):
+    """A resumed, remapped or migrated run's tokens against the run it
+    stands in for: the record says whether every request is bit-equal and
+    names the first divergent positions. A request that differs must
+    pass the decisive teacher-forced gate (ROADMAP §3 entry 2), or, when
+    ``sampled``, the top-50 gate; nothing wider."""
+    differ = []
+    for j, (a, b) in enumerate(zip(gens, want)):
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            d = np.flatnonzero(a[:n] != b[:n])
+            differ.append(dict(request=j, position=int(d[0]) if len(d)
+                               else n, lengths=[len(a), len(b)]))
+    rec = dict(bit_equal=not differ, requests_differing=len(differ),
+               first_divergence=differ[:4])
+    if differ:
+        which = [d["request"] for d in differ]
+        if sampled:
+            rec["top50_worst_gap_bf16_spacings"] = top50_gate(
+                tag, rescore(dec, [reqs[j] for j in which],
+                             [gens[j] for j in which]),
+                [gens[j] for j in which])
+        else:
+            rec["gate"] = teacher_forced(tag, dec, reqs, gens, which)
+    return rec
+
+
+def serve_snapshot(model, quant, reqs, plain_gens, plain_info, sampled_gens,
+                   card):
+    """The snapshot line: the serving line's 16 requests through 8-slot
+    engines (chunk 16, max_len 256, the ring, graphed chunks and
+    prefills). (a) A snapshot after the third chunk, holding in-flight
+    and queued requests, restored into a fresh engine over a NEW
+    ``LlamaDecoder`` of the model (a restarted process), drained: every
+    request's tokens against the plain line's (``hold_to``: bit for bit,
+    else the decisive gate), and the kernels' launches of that drain. (b)
+    A 4-slot engine's snapshot restored into an 8-slot one (row remap),
+    held by the decisive gate, its bit-equality printed. (c) Two 8-slot
+    engines over one decoder: after the second chunk two in-flight rows
+    and two queued requests move from one to the other; every request
+    against the plain line, and unquantized the same with the sampled
+    line's requests against its tokens. (d) A submit with an expired
+    budget is ``DeadlineExceededError``; an in-flight row whose deadline
+    is moved into the past returns partial and flagged, its tokens a
+    prefix of the plain line's; ``drain(deadline_s=0.0,
+    snapshot_path=)`` after two chunks, then a restore, finishes against
+    the plain line. Prints the snapshot's ms and bytes, the restore's ms,
+    extract and absorb ms and payload bytes a row, the resumed drain's
+    tokens/s beside the plain line's, and the restored decoder's graph
+    keys and captures."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.runtime.resilience import DeadlineExceededError
+    from paddle_tpu_torch.serving import ServingEngine, bucket_length
+
+    t_start = time.perf_counter()
+    cfg = model.config
+    V = cfg.vocab_size
+    tag = f"snapshot {quant or 'none'}"
+    kw = dict(num_slots=8, chunk_size=16)
+    dec = LlamaDecoder(model, max_len=256, quant=quant)
+
+    def submit(eng, rs, sampling=None):
+        kws = ([{}] * len(rs) if sampling is None else
+               [dict(seed=sd, temperature=t) for sd, t in sampling])
+        return [eng.submit(p, n, eos_token_id=e, **k)
+                for (p, n, e), k in zip(rs, kws)]
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    info = dict(phase="serve_snapshot", quant=quant or "none", card=card,
+                requests=len(reqs))
+    # (a) snapshot after the third chunk, restore into a new decoder
+    eng = ServingEngine(dec, **kw)
+    ids = submit(eng, reqs)
+    got = {}
+    for _ in range(3):
+        got.update(eng.step())
+    sdir = snapshot_dir(f"a_{quant or 'none'}")
+    _, snap_s = synced(lambda: eng.snapshot(sdir))
+    n_bytes = sum(os.path.getsize(os.path.join(sdir, f))
+                  for f in os.listdir(sdir))
+    in_flight, queued = (len(eng.scheduler.slots.occupied()),
+                         len(eng.scheduler))
+    check(in_flight >= 1 and queued >= 1, f"{tag}: the snapshot holds "
+          f"{in_flight} in-flight and {queued} queued requests")
+    del eng
+    rdec = LlamaDecoder(model, max_len=256, quant=quant)
+    fresh = ServingEngine(rdec, **kw)
+    rinfo, restore_s = synced(lambda: fresh.restore(sdir))
+    check(rinfo == dict(in_flight=in_flight, queued=queued,
+                        remapped_rows=0), f"{tag}: restore gave {rinfo}")
+    before = sum(len(t) for _, s in fresh.scheduler.slots.occupied()
+                 for t in s.tokens)
+    # the restored queue's ring prefills of at most 64 rows run the int8
+    # kernel, as on the serving line
+    small = sum(1 for r in fresh.scheduler.queued()
+                if bucket_length(len(r.prompt)) <= 64)
+    d0 = rdec.dispatch_count
+    da.launches = i8.launches = 0
+    out, drain_s = synced(fresh.drain)
+    n_da, n_i8 = da.launches, i8.launches
+    got.update(out)
+    gens = collect(got, reqs, ids)
+    check_lengths(tag, reqs, gens, V)
+    m = fresh.metrics()
+    check(m["corrupt_rows"] == 0, f"{tag}: non-finite logits in a row")
+    check(m["prefill_dispatches"] == queued,
+          f"{tag}: one prefill each restored queued request")
+    check(rdec.dispatch_count - d0
+          == m["prefill_dispatches"] + m["chunk_dispatches"],
+          f"{tag}: dispatch identity")
+    check_ring(tag, m, queued)
+    steps = m["chunk_dispatches"] * fresh.chunk_size
+    L = cfg.num_hidden_layers
+    check(n_da == L * steps, f"{tag}: decode_attention launches {n_da} != "
+          f"{L} x {steps}")
+    want_i8 = (4 * L + 1) * (steps + small) if quant else 0
+    check(n_i8 == want_i8,
+          f"{tag}: int8_matmul launches {n_i8} != {want_i8}")
+    # the tokens the restored engine decoded
+    resumed = sum(len(gens[ids.index(r)]) for r in out) - before
+    info["restore"] = dict(
+        hold_to(f"{tag} (a)", rdec, reqs, gens, plain_gens),
+        in_flight=in_flight, queued=queued, snapshot_ms=1e3 * snap_s,
+        snapshot_bytes=n_bytes, restore_ms=1e3 * restore_s,
+        resumed_tokens=resumed,
+        resumed_drain_s=drain_s, resumed_tokens_per_s=resumed / drain_s,
+        plain_tokens_per_s=plain_info["tokens_per_s"],
+        chunk_dispatches=m["chunk_dispatches"],
+        chunk_graphs_captured=sum(g is not None
+                                  for g in rdec._chunk_graphs.values()),
+        chunk_graph_replays=sum(g.replays for g in rdec._chunk_graphs.values()
+                                if g is not None),
+        graphs=graph_memory(rdec))
+    info["decode_attention_launches"] = n_da
+    info["int8_matmul_launches"] = n_i8
+    del fresh, rdec
+    shutil.rmtree(sdir, ignore_errors=True)
+
+    # (b) row remap: a 4-slot snapshot restored into an 8-slot engine
+    small = ServingEngine(dec, num_slots=4, chunk_size=16)
+    ids = submit(small, reqs)
+    got = {}
+    for _ in range(3):
+        got.update(small.step())
+    sdir = snapshot_dir(f"b_{quant or 'none'}")
+    small.snapshot(sdir)
+    big = ServingEngine(dec, **kw)
+    rinfo = big.restore(sdir)
+    check(rinfo["remapped_rows"] == 4 and rinfo["in_flight"] >= 1,
+          f"{tag}: remap restore gave {rinfo}")
+    got.update(big.drain())
+    gens = collect(got, reqs, ids)
+    check_lengths(f"{tag} (b)", reqs, gens, V)
+    rec = hold_to(f"{tag} (b)", dec, reqs, gens, plain_gens)
+    if rec["bit_equal"]:
+        rec["gate"] = teacher_forced(f"{tag} (b)", dec, reqs, gens)
+    info["remap"] = dict(rec, **rinfo)
+    del small, big
+    shutil.rmtree(sdir, ignore_errors=True)
+
+    # (c) migration of two in-flight rows and two queued requests
+    def migrate(ekw, sampling, want, sampled):
+        src, dst = ServingEngine(dec, **kw, **ekw), \
+            ServingEngine(dec, **kw, **ekw)
+        ids = submit(src, reqs, sampling)
+        done = {}
+        for _ in range(2):
+            done.update(src.step())
+        occ = [s.request.id for _, s in src.scheduler.slots.occupied()]
+        qd = [r.id for r in src.scheduler.queued()]
+        check(len(occ) >= 2 and len(qd) >= 2, f"{tag} (c): {len(occ)} "
+              f"in flight and {len(qd)} queued after two chunks")
+        move = occ[:2] + qd[:2]
+        payload, ext_s = synced(lambda: src.extract_rows(move))
+        mapping, abs_s = synced(lambda: dst.absorb_rows(payload))
+        done.update(src.drain())
+        moved = dst.drain()
+        gens = collect({r: (moved[mapping[r]] if r in mapping
+                            else done[r]) for r in ids}, reqs, ids)
+        t = f"{tag} (c{' sampled' if sampled else ''})"
+        check_lengths(t, reqs, gens, V)
+        check(src.metrics()["rows_migrated_out"] == 4
+              and dst.metrics()["rows_migrated_in"] == 4,
+              f"{t}: migration counters")
+        # absorbed rows are copied into the carry, not admitted: only the
+        # moved queued requests go through the destination's ring
+        check_ring(f"{t} source", src.metrics(), len(reqs) - 2)
+        check_ring(f"{t} destination", dst.metrics(), 2)
+        return dict(hold_to(t, dec, reqs, gens, want, sampled),
+                    extract_ms_per_row=1e3 * ext_s / 2,
+                    absorb_ms_per_row=1e3 * abs_s / 2,
+                    payload_bytes=len(payload["data"]),
+                    payload_bytes_per_row=(len(payload["data"]) / 2))
+
+    info["migrate"] = migrate({}, None, plain_gens, False)
+    if sampled_gens is not None:
+        sampling = [(1000 + j, 1e-4 if j == 0 else 0.7 + 0.3 * j / 15)
+                    for j in range(len(reqs))]
+        info["migrate_sampled"] = migrate(
+            dict(do_sample=True, top_k=50, top_p=0.9), sampling,
+            sampled_gens, True)
+
+    # (d) deadlines, driven by budget values
+    eng = ServingEngine(dec, **kw)
+    p, n, e = reqs[0]
+    try:
+        eng.submit(p, n, eos_token_id=e, deadline_s=0.0)
+        check(False, f"{tag}: an expired budget was accepted")
+    except DeadlineExceededError:
+        pass
+    rid = eng.submit(p, n, eos_token_id=e, deadline_s=3600.0)
+    eng.step()
+    slot = next(s for _, s in eng.scheduler.slots.occupied())
+    slot.request.deadline_at = time.monotonic() - 1.0
+    res = dict(eng.step())[rid]
+    part = np.asarray(res)[0, len(p):]
+    check(res.resilience["serving"]["deadline_expired"] is True
+          and 0 < len(part) < len(plain_gens[0])
+          and np.array_equal(part, plain_gens[0][:len(part)]),
+          f"{tag} (d): the expired row returned {len(part)} tokens, not a "
+          f"flagged prefix of the plain line's {len(plain_gens[0])}")
+    m = eng.metrics()
+    check(m["shed_deadline"] == 1 and m["deadline_expired_rows"] == 1,
+          f"{tag} (d): shed counters {m['shed_deadline']} / "
+          f"{m['deadline_expired_rows']}")
+    eng = ServingEngine(dec, **kw)
+    ids = submit(eng, reqs)
+    got = {}
+    for _ in range(2):
+        got.update(eng.step())
+    sdir = snapshot_dir(f"d_{quant or 'none'}")
+    got.update(eng.drain(deadline_s=0.0, snapshot_path=sdir))
+    check(eng.scheduler.slots.occupied() and eng.metrics()["snapshots"] == 1,
+          f"{tag} (d): the graceful drain did not snapshot its work")
+    fresh = ServingEngine(dec, **kw)
+    fresh.restore(sdir)
+    got.update(fresh.drain())
+    gens = collect(got, reqs, ids)
+    check_lengths(f"{tag} (d)", reqs, gens, V)
+    info["deadlines"] = dict(
+        partial_tokens=len(part), plain_tokens=len(plain_gens[0]),
+        graceful_drain=hold_to(f"{tag} (d)", dec, reqs, gens, plain_gens))
+    shutil.rmtree(sdir, ignore_errors=True)
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    del eng, fresh, dec
+    torch.cuda.empty_cache()
+    return info
+
 
 def _adam_lists(states):
     """The per-state lists ``adam_update`` takes after params and grads."""
@@ -3040,7 +3352,7 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs, sampled, prefix, spec, lora = serving_phase(card)
+    runs, sampled, prefix, spec, lora, snap = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
@@ -3049,10 +3361,11 @@ def main() -> int:
           f"serving {t3 - t2:.1f} s (prefix "
           f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
           f"{spec['phase_s']:.1f} s, lora "
-          f"{sum(x['phase_s'] for x in lora):.1f} s), llama training "
+          f"{sum(x['phase_s'] for x in lora):.1f} s, snapshot "
+          f"{sum(x['phase_s'] for x in snap):.1f} s), llama training "
           f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
           flush=True)
-    served = runs + prefix + lora
+    served = runs + prefix + lora + snap
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in served),
         decode_attention_draft=spec["skip3"]["decode_attention_launches"],

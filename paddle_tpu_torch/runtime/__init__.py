@@ -1,1 +1,2 @@
-"""Runtime support of the port (result carriers)."""
+"""Runtime support of the port: typed failures, write-fault injection and
+result carriers."""

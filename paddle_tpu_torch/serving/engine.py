@@ -55,19 +55,44 @@ and ``seed`` per request) draws each row from its own key,
 request's tokens depend only on its seed, not on the engine's shape, its
 batch neighbours or its prefix-cache hit class.
 
+Deadlines and load shedding (``submit(deadline_s=)``): an expired budget
+is refused at submit, and so is a request whose budget the estimated
+queue delay already exceeds (backpressure); a queued request that expires
+is shed at the next admission round as a typed ``DeadlineExceededError``
+value, and an in-flight row past its deadline is frozen like eos at a
+chunk boundary and returned partial, flagged ``deadline_expired``. SLO
+targets (``slo_targets=``, ``submit(latency_class=, slo_ttft_s=,
+slo_latency_s=)``) only count violations per latency class.
+
+Crash recovery and fleet moves: ``snapshot(dir)`` writes the carry's slot
+rows plus the slot table and the queue as the JAX engine's payload (the
+same npz layout, dtypes and sha256 manifest, so either package restores
+the other's), ``restore(dir)`` resumes it on a fresh engine, row-remapped
+into a larger one, and ``extract_rows`` / ``absorb_rows`` move chosen
+requests between live engines (``"paddle_tpu.row_migration"``). Both
+copy into the engine's existing carry in place: the ring's splice and
+every captured chunk graph hold that carry's addresses.
+``snapshot_every_chunks=`` snapshots on a chunk cadence and
+``drain(deadline_s=)`` snapshots instead of discarding unfinished work.
+
 ``step`` (admission, the chunk dispatch, harvest) runs under
-``torch.inference_mode()``, so serving records no autograd graph.
+``torch.inference_mode()``, so serving records no autograd graph; so do
+the methods that write the carry between steps.
 
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: snapshot/restore,
-deadlines and SLOs, the obs exporter, meshes, AOT bundle backends, the
-HTTP front-end, request-keyed keys (router) and the degradation ladder
-(the per-token rung and the speculative-to-chunked demotion).
+``NotImplementedError`` when asked for: the obs exporter and registry
+([10]), meshes ([13]), AOT bundle backends ([12]), the HTTP front-end and
+request-keyed keys ([11]) and the degradation ladder ([9]: retries, the
+per-token rung and the speculative-to-chunked demotion).
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
+import io
+import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -75,19 +100,27 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import random as rnd
+from paddle_tpu_torch.distributed.checkpoint import _np_restore, _np_storable
 from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
                                                  LlamaDecoder, _batch_rows,
                                                  _normalize_eos, _not_ported,
-                                                 _row_copy, _sample_spec)
+                                                 _row_copy, _sample_spec,
+                                                 _zero_cache)
+from paddle_tpu_torch.inference.sharding import MeshMismatchError
 from paddle_tpu_torch.quantization.kv_cache import (QuantMismatchError,
-                                                    canonical_quant)
-from paddle_tpu_torch.runtime.resilience import GenerateResult
+                                                    canonical_quant,
+                                                    is_quantized_kv)
+from paddle_tpu_torch.runtime.resilience import (CorruptCheckpointError,
+                                                 DeadlineExceededError,
+                                                 GenerateResult,
+                                                 SlabTransferError,
+                                                 atomic_write_bytes)
 from paddle_tpu_torch.serving.lora import (AdapterVersionError,
                                            UnknownAdapterError)
 from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, SlabOps,
                                                    prefix_digests,
                                                    resolve_prefix_cache_bytes)
-from paddle_tpu_torch.serving.scheduler import Request, Scheduler
+from paddle_tpu_torch.serving.scheduler import Request, Scheduler, Slot
 
 __all__ = ["ServingEngine"]
 
@@ -95,20 +128,20 @@ __all__ = ["ServingEngine"]
 # port: name -> (ROADMAP item, the value that leaves the feature off).
 # Passing anything else raises NotImplementedError.
 _LATER_ENGINE = {
-    "slo_targets": ("deadlines and SLOs", None), "mesh": ("mesh", None),
-    "snapshot_dir": ("snapshot", None),
-    "snapshot_every_chunks": ("snapshot", 0),
+    "mesh": ("mesh", None),
     "replica_tag": ("router", None), "request_keyed_rng": ("router", False),
 }
 _LATER_SUBMIT = {
-    "latency_class": ("deadlines and SLOs", "default"),
-    "slo_ttft_s": ("deadlines and SLOs", None),
-    "slo_latency_s": ("deadlines and SLOs", None),
-    "deadline_s": ("deadlines and SLOs", None),
     "rng_request_id": ("router", None), "rng_tokens_emitted": ("router", 0),
     "on_tokens": ("HTTP front-end", None),
 }
 _HIT_CLASSES = ("full", "partial", "miss")
+# the payload dtypes of the carry's small fields: the JAX carry's (the port
+# holds positions and eos ids as int64 and key words as int32)
+_WIRE = {"logits": np.float32, "pos": np.int32, "keys": np.uint32,
+         "done": np.bool_, "eos": np.int32, "temp": np.float32}
+_SNAP_KIND = "paddle_tpu.decode_snapshot"
+_MIGRATION_KIND = "paddle_tpu.row_migration"
 
 
 def _refuse_later(kwargs: dict, table: dict, where: str) -> None:
@@ -140,6 +173,44 @@ def _check_quant_ask(quant, have, what: str) -> None:
             f"{what} serves quant recipe {have or 'none'!r} but the "
             f"engine asked for {want or 'none'!r}; rebuild the backend "
             f"with the matching quant= (or drop the ask)")
+
+
+def _cache_leaves(cache) -> list:
+    """A stacked cache's leaves in ``jax.tree_util`` order: the tensor, or
+    a quantized cache's ``q`` then ``s``."""
+    if is_quantized_kv(cache):
+        return [cache[k] for k in sorted(cache)]
+    return [cache]
+
+
+def _carry_leaves(st: DecodeState) -> List[Tuple[str, torch.Tensor]]:
+    """``(field, tensor)`` per leaf of the JAX engine's snapshot carry
+    ``(logits, kc, vc, pos, keys, done, eos, temp)``, in its flatten
+    order."""
+    return ([("logits", st.logits)]
+            + [("kc", t) for t in _cache_leaves(st.kc)]
+            + [("vc", t) for t in _cache_leaves(st.vc)]
+            + [(n, getattr(st, n))
+               for n in ("pos", "keys", "done", "eos", "temp")])
+
+
+def _to_wire(field: str, t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A carry leaf (or rows of it) as the payload stores it, with its
+    dtype tag: caches in their own dtype (bf16 as tagged ``uint16``
+    bits), the small fields in the JAX carry's dtypes (key words as
+    ``uint32``)."""
+    if field in ("kc", "vc"):
+        return _np_storable(t)
+    a = t.detach().cpu().numpy()
+    a = a.view(np.uint32) if field == "keys" else a.astype(_WIRE[field])
+    return a, str(a.dtype)
+
+
+def _wire_tag(field: str, t: torch.Tensor) -> str:
+    """The dtype tag a payload leaf must carry to fit carry leaf ``t``."""
+    if field in ("kc", "vc"):
+        return _np_storable(torch.empty((0,), dtype=t.dtype))[1]
+    return np.dtype(_WIRE[field]).name
 
 
 class _DecoderBackend:
@@ -202,16 +273,24 @@ class _DecoderBackend:
         return True
 
     def new_state(self) -> DecodeState:
+        """A fresh carry, every slot free. The caches are allocated on the
+        first call and zeroed in place on later ones: the ring's splice
+        and the captured chunk graphs hold their addresses."""
         B, dev = self.num_slots, self.dec.device
-        self._carry = self.dec._empty_cache(B + 1)
+        if self._carry is None:
+            self._carry = self.dec._empty_cache(B + 1)
+            if self.spec_eng is not None:
+                self._dcarry = self.dec._empty_cache(B + 1,
+                                                     self.spec_eng["cfg"])
+        else:
+            for c in self._carry + (self._dcarry or ()):
+                _zero_cache(c)
         kc, vc = (_batch_rows(c, B) for c in self._carry)
         kw = {}
         if self.spec_eng is not None:
             # the speculative carry: draft caches (ring-staged at
             # admission), the pending-token sentinel and zeroed per-row
             # acceptance counts
-            self._dcarry = self.dec._empty_cache(B + 1,
-                                                 self.spec_eng["cfg"])
             dkc, dvc = (_batch_rows(c, B) for c in self._dcarry)
             zeros = torch.zeros((B,), dtype=torch.long, device=dev)
             kw = dict(dkc=dkc, dvc=dvc, tok=torch.full_like(zeros, -1),
@@ -285,12 +364,13 @@ class _DecoderBackend:
 
     def scatter(self, st: DecodeState, slot: int, logits1, kc1, vc1,
                 src: int, pos1: int, key, eos: int, temp: float,
-                aidx: int = 0) -> None:
+                aidx: Optional[int] = None) -> None:
         """Copy row ``src`` of an admission's row state (a batched
         prefill's output or a batch-1 slab, possibly shorter on the length
         axis) into carry row ``slot``, with the row's key, eos,
-        temperature and, on a LoRA carry, adapter index: the JAX engine's
-        ``_admit_row``. ``slot`` is a slot index, never the dump row."""
+        temperature and, on a LoRA carry given ``aidx``, adapter index:
+        the JAX engine's ``_admit_row``. ``slot`` is a slot index, never
+        the dump row."""
         _row_copy(st.kc, kc1, slot, src, self.head_major)
         _row_copy(st.vc, vc1, slot, src, self.head_major)
         st.logits[slot].copy_(logits1[src])
@@ -300,7 +380,7 @@ class _DecoderBackend:
         st.done[slot] = False
         st.eos[slot] = eos
         st.temp[slot] = float(np.float32(temp))
-        if st.adapter_idx is not None:
+        if st.adapter_idx is not None and aidx is not None:
             st.adapter_idx[slot] = aidx
 
     def decode_chunk(self, st: DecodeState, chunk_size: int):
@@ -338,8 +418,19 @@ class ServingEngine:
     speculatively (not with a prefix cache); ``adaptive_k`` sets each
     chunk's K from the running acceptance mean. ``adapter_store``: an
     ``AdapterStore`` whose adapters requests name with
-    ``submit(adapter=)``; base rows keep the base model's tokens. The
-    engine runs on its decoder's device."""
+    ``submit(adapter=)``; base rows keep the base model's tokens.
+
+    ``slo_targets`` maps a latency class to its default targets,
+    ``{"ttft_s": ..., "latency_s": ...}``; ``submit(slo_ttft_s=,
+    slo_latency_s=)`` override them per request. Every finished request
+    of a class with a target counts in ``slo_counters()`` (the JAX
+    registry's ``serving.slo.<class>.*`` names) and ``metrics()
+    ["slo_violations"]``. ``submit(deadline_s=)`` is a hard budget (see
+    the module docstring). ``snapshot_dir`` / ``snapshot_every_chunks``:
+    write a resumable snapshot into ``snapshot_dir`` every N chunk
+    dispatches (not with a draft model, whose carry the payload does not
+    hold); ``snapshot_dir`` is also ``drain(deadline_s=)``'s default
+    destination. The engine runs on its decoder's device."""
 
     def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
@@ -356,7 +447,10 @@ class ServingEngine:
                  num_speculative_tokens: Optional[int] = None,
                  draft_quant: Optional[str] = None,
                  ring_slots: Optional[int] = None,
-                 adaptive_k: bool = False, adapter_store=None, **later):
+                 adaptive_k: bool = False, adapter_store=None,
+                 slo_targets: Optional[Dict[str, Dict[str, float]]] = None,
+                 snapshot_dir: Optional[str] = None,
+                 snapshot_every_chunks: int = 0, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
         if not isinstance(backend, LlamaDecoder):
             raise TypeError(
@@ -387,6 +481,12 @@ class ServingEngine:
         self._adapters_active = (0 if adapter_store is None
                                  else len(adapter_store))
         self._adapter_rows: Dict[str, int] = collections.Counter()
+        if self._spec_configured and (snapshot_dir or snapshot_every_chunks):
+            raise ValueError(
+                "speculative serving does not snapshot yet: the carry's "
+                "draft caches and pending-token fields are outside the "
+                "snapshot payload — drop snapshot_dir/"
+                "snapshot_every_chunks or serve without draft_model")
         self.scheduler = Scheduler(num_slots, policy=policy,
                                    prompt_buckets=prompt_buckets)
         self.state = self._b.new_state()
@@ -434,6 +534,22 @@ class ServingEngine:
                             "tpot_s", "occupancy", "queue_depth")
             + tuple(f"admission_s.{c}" for c in _HIT_CLASSES)}
         self._queue_depth_peak = 0
+        self._latency_sum = 0.0     # running sum of latency_s: O(1) mean
+        # crash recovery: the snapshot cadence, the last snapshot (its
+        # monotonic time and path) and the carry's decode steps, which the
+        # JAX carry keeps as ``DecodeState.steps_done``
+        self._snap_dir = snapshot_dir
+        self._snap_every = int(snapshot_every_chunks or 0)
+        if self._snap_every and not self._snap_dir:
+            raise ValueError(
+                "snapshot_every_chunks needs snapshot_dir to write into")
+        self._snap_last_chunks = 0
+        self._last_snapshot: Optional[Tuple[float, str]] = None
+        self._steps_done = 0
+        self.slo_targets = {k: dict(v)
+                            for k, v in (slo_targets or {}).items()}
+        # per-class SLO counts under the JAX registry's names
+        self._slo: Dict[str, int] = collections.Counter()
 
     @staticmethod
     def _resolve_prefix_cache(prefix_cache, bytes_, block):
@@ -527,11 +643,20 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int,
                eos_token_id: Optional[int] = None,
                temperature: float = 1.0, seed: int = 0,
-               priority: int = 0, speculative: Optional[bool] = None,
+               priority: int = 0, latency_class: str = "default",
+               slo_ttft_s: Optional[float] = None,
+               slo_latency_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               speculative: Optional[bool] = None,
                adapter: Optional[str] = None, **later) -> int:
         """Queue one request; returns its id (results key).
         ``temperature`` and ``seed`` act on a sampling engine: the row's
-        key is ``split(PRNGKey(seed), 1)[0]``. ``speculative=False`` opts
+        key is ``split(PRNGKey(seed), 1)[0]``. ``latency_class`` buckets
+        the request's SLO counts; ``slo_ttft_s`` / ``slo_latency_s``
+        override the class's targets. ``deadline_s`` is a hard budget
+        from now: an expired one, or one below
+        ``estimated_queue_delay_s()``, raises ``DeadlineExceededError``
+        here, before any prefill. ``speculative=False`` opts
         the request out of speculation on a draft-equipped engine (its row
         decodes verify-free in the same chunk). ``adapter`` serves the
         request through a registered LoRA adapter of the engine's
@@ -571,6 +696,22 @@ class ServingEngine:
                 f"prompt {len(prompt)} (bucket {bucket}) + "
                 f"{max_new_tokens} new tokens{extra} exceeds the "
                 f"backend's max_len {self._b.max_len}")
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if deadline_s <= 0:
+                # the cheapest shed: the budget is gone before any work
+                self._n["shed_deadline"] += 1
+                raise DeadlineExceededError(
+                    f"request deadline ({deadline_s:.4f}s) already "
+                    f"expired at submit; shed before any prefill")
+            est = self.estimated_queue_delay_s()
+            if est > deadline_s:
+                self._n["shed_backpressure"] += 1
+                raise DeadlineExceededError(
+                    f"estimated queue delay {est:.4f}s (depth "
+                    f"{len(self.scheduler)} over {self.num_slots} "
+                    f"slots) already exceeds the {deadline_s:.4f}s "
+                    f"deadline; shed at submit")
         rid = self._next_id
         self._next_id += 1
         req = Request(
@@ -578,6 +719,8 @@ class ServingEngine:
             eos_token_id=_normalize_eos(eos_token_id),
             temperature=float(temperature), seed=int(seed),
             priority=int(priority), submit_time=time.monotonic(),
+            latency_class=str(latency_class), slo_ttft_s=slo_ttft_s,
+            slo_latency_s=slo_latency_s, deadline_s=deadline_s,
             adapter=adapter,
             speculative=None if speculative is None else bool(speculative))
         if self.scheduler.cache_aware:
@@ -592,26 +735,40 @@ class ServingEngine:
                                      len(self.scheduler))
         return rid
 
+    def estimated_queue_delay_s(self) -> float:
+        """The backpressure signal: how long a new submit would likely
+        wait for a slot, (queued ahead / slots) admission waves at the
+        mean request latency observed so far. 0.0 until a request has
+        finished or while the queue is empty."""
+        n = len(self._samples["latency_s"])
+        if not n or not len(self.scheduler):
+            return 0.0
+        return len(self.scheduler) / self.num_slots * (self._latency_sum / n)
+
     # -- the serving loop --------------------------------------------------
     @torch.inference_mode()
     def step(self) -> List[Tuple[int, Any]]:
-        """One iteration: admit into free slots, run ONE chunk dispatch,
-        harvest finished rows. Returns ``[(request_id, result), ...]``
-        finished this step (also retrievable via ``result(id)``). A staged
-        adapter swap applies first, once no in-flight row pins a revision
-        it changes."""
+        """One iteration: shed and freeze expired deadlines, admit into
+        free slots, run ONE chunk dispatch, harvest finished rows. Returns
+        ``[(request_id, result), ...]`` finished this step (also
+        retrievable via ``result(id)``); a request shed for an expired
+        deadline finishes as a typed ``DeadlineExceededError`` value. A
+        staged adapter swap applies first, once no in-flight row pins a
+        revision it changes. With ``snapshot_every_chunks`` the step ends
+        with a snapshot when the cadence is due."""
         now = time.monotonic()
         store = self.adapter_store
         if (store is not None and store.version != self._b.lora_version
                 and self._swap_blocker() is None):
             self.apply_adapter_swap()
+        pre = self._enforce_deadlines(now)
         self._samples["queue_depth"].append(len(self.scheduler))
         admitted = self.scheduler.admissions()
         if admitted:
             self._admit_all(admitted, now)
         occupied = self.scheduler.slots.occupied()
         if not occupied:
-            return []
+            return pre
         self._samples["occupancy"].append(len(occupied) / self.num_slots)
         toks = self._dispatch_chunk()
         nv = self._last_nv
@@ -665,7 +822,13 @@ class ServingEngine:
             self._spec_adapt()
         if freed:
             self._freeze_rows(freed)
-        return finished
+        if self._snap_every and (self.chunk_dispatches
+                                 - self._snap_last_chunks
+                                 >= self._snap_every):
+            # at the end of the step the carry and the host token
+            # buffers agree: every chunk's tokens are in slot.tokens
+            self.snapshot(self._snap_dir)
+        return pre + finished
 
     def _unpin(self, slot) -> None:
         """The request's slab outlived its flight: unpinned, it becomes
@@ -706,18 +869,74 @@ class ServingEngine:
                                      int(np.ceil(self._accept_ewma)) + 1))
 
     def _freeze_rows(self, rows: Sequence[int]) -> None:
-        """Freeze carry rows until re-admission: they keep riding the
-        batched chunk, pinned to their eos fill, and their output is
-        discarded."""
+        """Freeze carry rows until re-admission (freed slots, expired
+        deadlines, rows migrated out): they keep riding the batched chunk,
+        pinned to their eos fill, and their output is discarded."""
         self.state.done[torch.as_tensor(list(rows),
                                         device=self.state.done.device)] = True
 
-    def drain(self, max_steps: Optional[int] = None) -> Dict[int, Any]:
+    def _enforce_deadlines(self, now: float) -> List[Tuple[int, Any]]:
+        """The deadline sweep at the top of every step: (a) queued
+        requests whose deadline passed are shed as typed errors before
+        they cost a prefill; (b) in-flight rows past their deadline are
+        frozen like eos and finished partial, flagged
+        ``deadline_expired``, and their slots free for this step's
+        admission. Returns the ``(request_id, outcome)`` pairs resolved
+        here."""
+        out: List[Tuple[int, Any]] = []
+        for req in self.scheduler.shed_expired(now):
+            self._n["shed_queue_deadline"] += 1
+            err = DeadlineExceededError(
+                f"request {req.id} deadline expired after "
+                f"{now - req.submit_time:.4f}s in queue "
+                f"(budget {req.deadline_s:.4f}s); shed at admission",
+                request_id=req.id)
+            self._results[req.id] = err
+            out.append((req.id, err))
+        frozen = []
+        for i, slot in self.scheduler.slots.occupied():
+            req = slot.request
+            if req.deadline_at is None or now <= req.deadline_at:
+                continue
+            seq = (np.concatenate(slot.tokens) if slot.tokens
+                   else np.zeros((0,), np.int64))[:req.max_new_tokens]
+            self._n["deadline_expired_rows"] += 1
+            res = self._finish(slot, seq, i, deadline_expired=True)
+            self._results[req.id] = res
+            out.append((req.id, res))
+            self._unpin(slot)
+            self.scheduler.slots.release(i)
+            frozen.append(i)
+        if frozen:
+            self._freeze_rows(frozen)
+        return out
+
+    def drain(self, max_steps: Optional[int] = None,
+              deadline_s: Optional[float] = None,
+              snapshot_path: Optional[str] = None) -> Dict[int, Any]:
         """Step until the queue and every slot are empty; returns
-        ``{request_id: result}`` for everything finished while draining."""
+        ``{request_id: outcome}`` for everything finished while draining
+        (results, or typed deadline errors).
+
+        ``deadline_s`` is the graceful drain's budget: when it runs out
+        with work left, the engine snapshots to ``snapshot_path`` (or its
+        ``snapshot_dir``) instead of discarding accepted work and returns
+        what finished; ``restore()`` on a fresh engine resumes the rest.
+        With no destination it raises ``ValueError`` before any work."""
+        if deadline_s is not None and not (snapshot_path
+                                           or self._snap_dir):
+            raise ValueError(
+                "drain(deadline_s=) needs snapshot_path or an engine "
+                "snapshot_dir: a graceful drain SNAPSHOTS unfinished "
+                "work, it never discards it")
+        t0 = time.monotonic()
         out: Dict[int, Any] = {}
         steps = 0
         while len(self.scheduler) or self.scheduler.slots.occupied():
+            if deadline_s is not None \
+                    and time.monotonic() - t0 > deadline_s:
+                self.snapshot(snapshot_path or self._snap_dir)
+                break
             for rid, res in self.step():
                 out[rid] = res
             steps += 1
@@ -728,6 +947,474 @@ class ServingEngine:
 
     def result(self, request_id: int):
         return self._results.get(request_id)
+
+    # -- crash recovery: snapshot / restore --------------------------------
+    _SNAP_DATA = "state.npz"
+    _SNAP_MANIFEST = "manifest.json"
+
+    def _refuse_moves(self, what: str) -> None:
+        """The refusals snapshot and migration share: a draft model's
+        carry is not in the payload, and staged ring rows are not in the
+        carry yet."""
+        if self._spec_configured:
+            raise ValueError(
+                f"speculative serving does not {what} yet: the draft "
+                f"cache / pending-token carry is not in the payload; "
+                f"serve without draft_model= to {what}")
+        if any(m is not None for m in self._ring_meta):
+            raise RuntimeError(
+                f"{what} with staged-but-unscattered admission ring rows: "
+                f"run one more step() so the pending ring splice lands in "
+                f"the carry, then {what} at the chunk boundary")
+
+    def _check_payload(self, meta: dict, what: str) -> None:
+        """The quant recipe and mesh a payload recorded must be this
+        engine's (the port serves no mesh: ``mesh_axes`` is None)."""
+        if meta.get("quant") != self._b.quant:
+            raise QuantMismatchError(
+                f"{what} carries quant recipe "
+                f"{meta.get('quant') or 'none'!r} but this engine's "
+                f"backend serves {self._b.quant or 'none'!r}")
+        if meta.get("mesh_axes") is not None:
+            raise MeshMismatchError(
+                f"{what} recorded mesh {meta.get('mesh_axes')} but this "
+                f"engine serves None")
+
+    @torch.inference_mode()
+    def snapshot(self, path: str) -> str:
+        """Write everything needed to resume this engine's accepted work
+        into directory ``path``: the carry's B slot rows (never the
+        ring's dump row) as the JAX engine's leaves — ``logits``, the
+        ``kc`` and ``vc`` leaves (a quantized cache's ``q`` then ``s``),
+        ``pos``, ``keys``, ``done``, ``eos``, ``temp``, in the JAX
+        carry's dtypes, bf16 as tagged ``uint16`` bits — plus each slot's
+        request and tokens so far and the queued requests, each deadline
+        as its remaining budget. One ``state.npz`` under a
+        ``manifest.json`` with its sha256, both written atomically (data
+        first), so a torn or flipped file is refused at restore. The
+        meta's ``steps_done`` is this engine's count of decode steps (the
+        JAX carry's ``DecodeState.steps_done``). Taken between steps,
+        where the carry and the host token buffers agree, so a restored
+        greedy row continues exactly. A draft-model engine raises
+        ``ValueError``, staged ring rows ``RuntimeError``."""
+        self._refuse_moves("snapshot")
+        os.makedirs(path, exist_ok=True)
+        arrays: Dict[str, np.ndarray] = {}
+        leaf_meta = []
+        for i, (field, leaf) in enumerate(_carry_leaves(self.state)):
+            arrays[f"leaf_{i}"], tag = _to_wire(field, leaf)
+            leaf_meta.append({"dtype": tag})
+        now = time.monotonic()
+        slots_meta = [self._pack_slot(arrays, "slot", i, slot, now)
+                      for i, slot in self.scheduler.slots.occupied()]
+        queue_meta = []
+        for j, req in enumerate(self.scheduler.queued()):
+            arrays[f"queue{j}_prompt"] = np.asarray(req.prompt)
+            queue_meta.append(self._req_meta(req, now))
+        meta = {
+            "kind": _SNAP_KIND, "version": 1, "time_unix": time.time(),
+            "num_slots": self.num_slots, "chunk_size": self.chunk_size,
+            "quant": self._b.quant, "mesh_axes": None,
+            "steps_done": int(self._steps_done), "next_id": self._next_id,
+            "leaves": leaf_meta, "slots": slots_meta, "queue": queue_meta,
+        }
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        payload = buf.getvalue()
+        manifest = {"kind": meta["kind"], "data": self._SNAP_DATA,
+                    "sha256": hashlib.sha256(payload).hexdigest(),
+                    "bytes": len(payload), "meta": meta}
+        # data first, manifest second: a crash between the two leaves a
+        # digest mismatch, refused at restore
+        atomic_write_bytes(os.path.join(path, self._SNAP_DATA), payload)
+        atomic_write_bytes(os.path.join(path, self._SNAP_MANIFEST),
+                           json.dumps(manifest, indent=1).encode())
+        self._n["snapshots"] += 1
+        self._snap_last_chunks = self.chunk_dispatches
+        self._last_snapshot = (time.monotonic(), path)
+        return path
+
+    @torch.inference_mode()
+    def restore(self, path: str) -> Dict[str, int]:
+        """Resume a :meth:`snapshot` (of either package) on a fresh engine
+        over a same-shape backend. Refused typed, before anything is
+        written: an unreadable manifest, missing data, a sha256 mismatch
+        or a carry layout that does not fit (``CorruptCheckpointError``);
+        a snapshot with more slots (``ValueError``); an engine that has
+        taken submissions (``RuntimeError``); another quant recipe
+        (``QuantMismatchError``) or a mesh (``MeshMismatchError``). Every
+        leaf is copied into the engine's existing carry in place. A
+        snapshot with fewer slots lands in rows ``[0:snap_slots]``, and
+        the other rows stay free. Each restored row's adapter index comes
+        from its request's adapter name. Returns ``{"in_flight",
+        "queued", "remapped_rows"}`` (``remapped_rows`` 0 on an
+        exact-shape restore)."""
+        if self._spec_configured:
+            raise ValueError(
+                "speculative serving does not snapshot yet: restore into "
+                "an engine built without draft_model=")
+        if self._next_id or len(self.scheduler) \
+                or self.scheduler.slots.occupied():
+            raise RuntimeError(
+                "restore() needs a fresh engine (no submissions yet): "
+                "build a new ServingEngine over the same backend shape "
+                "and restore into that")
+        mpath = os.path.join(path, self._SNAP_MANIFEST)
+        dpath = os.path.join(path, self._SNAP_DATA)
+        try:
+            with open(mpath) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError) as e:
+            raise CorruptCheckpointError(
+                f"snapshot manifest unreadable at {mpath}: {e}") from e
+        try:
+            with open(dpath, "rb") as f:
+                raw = f.read()
+        except OSError as e:
+            raise CorruptCheckpointError(
+                f"snapshot data missing at {dpath}: {e}") from e
+        got = hashlib.sha256(raw).hexdigest()
+        want = manifest.get("sha256", "")
+        if got != want:
+            raise CorruptCheckpointError(
+                f"snapshot data is corrupt: sha256 {got[:16]}… != "
+                f"manifest {want[:16]}… — refusing to resume from a "
+                f"torn/corrupt snapshot")
+        meta = manifest["meta"]
+        snap_slots = int(meta["num_slots"])
+        if snap_slots > self.num_slots:
+            raise ValueError(
+                f"snapshot was taken with num_slots={snap_slots}, this "
+                f"engine has only {self.num_slots}; a snapshot restores "
+                f"1:1 or INTO a larger batch (row-remapping), never a "
+                f"smaller one")
+        self._check_payload(meta, "snapshot")
+        npz = np.load(io.BytesIO(raw), allow_pickle=False)
+        targets = _carry_leaves(self.state)
+        lm = meta["leaves"]
+        if len(lm) != len(targets):
+            raise CorruptCheckpointError(
+                f"snapshot carry layout mismatch: {len(lm)} leaves "
+                f"recorded, backend expects {len(targets)}")
+        # check every leaf before the first copy: a refusal leaves the
+        # carry as it was
+        copies = []
+        for i, ((field, tgt), m) in enumerate(zip(targets, lm)):
+            arr = npz[f"leaf_{i}"]
+            if m["dtype"] != _wire_tag(field, tgt):
+                raise CorruptCheckpointError(
+                    f"snapshot leaf {i} ({field}) has dtype {m['dtype']}, "
+                    f"backend expects {_wire_tag(field, tgt)}")
+            tshape = tuple(tgt.shape)
+            if tuple(arr.shape) == tshape:
+                copies.append((tgt, arr, m["dtype"]))
+                continue
+            # row remap: the only tolerated difference is the batch axis,
+            # the snapshot's rows landing in [0:snap_slots]
+            diff = ([ax for ax, (a, b) in enumerate(zip(arr.shape, tshape))
+                     if a != b] if arr.ndim == tgt.dim() else [])
+            if (snap_slots == self.num_slots or len(diff) != 1
+                    or arr.shape[diff[0]] != snap_slots
+                    or tshape[diff[0]] != self.num_slots):
+                raise CorruptCheckpointError(
+                    f"snapshot leaf {i} has shape {arr.shape}, backend "
+                    f"expects {tshape} (snapshot rows {snap_slots}, "
+                    f"engine rows {self.num_slots})")
+            copies.append((tgt.narrow(diff[0], 0, snap_slots), arr,
+                           m["dtype"]))
+        for tgt, arr, tag in copies:
+            tgt.copy_(_np_restore(arr, tag))
+        self._steps_done = int(meta["steps_done"])
+        now = time.monotonic()
+        for sm in meta["slots"]:
+            i = int(sm["slot"])
+            self.scheduler.slots.entries[i] = slot = self._unpack_slot(
+                npz, "slot", sm, now)
+            self._route_adapter(i, slot.request)
+        for j, qm in enumerate(meta["queue"]):
+            self.scheduler.push(
+                self._req_from_meta(qm, npz[f"queue{j}_prompt"], now))
+        self._next_id = int(meta["next_id"])
+        return {"in_flight": len(meta["slots"]),
+                "queued": len(meta["queue"]),
+                "remapped_rows": (snap_slots
+                                  if snap_slots != self.num_slots else 0)}
+
+    def _route_adapter(self, i: int, req: Request) -> None:
+        """A restored or absorbed row's adapter routing, from its
+        request's adapter name (bookkeeping, not payload): the carry's
+        index into the stacks and the slot's pinned revision. An adapter
+        the store does not know is ``UnknownAdapterError``."""
+        st = self.state
+        if st.adapter_idx is None:
+            return
+        st.adapter_idx[i] = self._adapter_index(req.adapter)
+        if req.adapter is not None:
+            self.scheduler.slots.entries[i].adapter_rev = \
+                self.adapter_store.revision(req.adapter)
+
+    @classmethod
+    def _pack_slot(cls, arrays: Dict[str, np.ndarray], key: str, idx: int,
+                   slot: Slot, now: float) -> dict:
+        """One occupied slot into a snapshot (``key`` "slot") or migration
+        payload (``key`` "row"): its prompt and token pieces as the arrays
+        ``{key}{idx}_prompt`` / ``{key}{idx}_piece{j}``, its record as the
+        returned meta. :meth:`_unpack_slot` is its inverse."""
+        arrays[f"{key}{idx}_prompt"] = np.asarray(slot.request.prompt)
+        for j, piece in enumerate(slot.tokens):
+            arrays[f"{key}{idx}_piece{j}"] = np.asarray(piece, np.int32)
+        return {key: idx, "request": cls._req_meta(slot.request, now),
+                "pieces": len(slot.tokens), "chunks": slot.chunks}
+
+    @classmethod
+    def _unpack_slot(cls, npz, key: str, sm: dict, now: float) -> Slot:
+        idx = int(sm[key])
+        return Slot(
+            request=cls._req_from_meta(sm["request"],
+                                       npz[f"{key}{idx}_prompt"], now),
+            admitted_at=now, chunks=int(sm["chunks"]),
+            tokens=[np.asarray(npz[f"{key}{idx}_piece{j}"])
+                    for j in range(int(sm["pieces"]))])
+
+    @staticmethod
+    def _req_meta(req: Request, now: float) -> dict:
+        """The serialized request of :meth:`snapshot` and
+        :meth:`extract_rows`, the JAX engine's record; a deadline crosses
+        as its remaining budget (a monotonic clock does not survive a
+        restart). :meth:`_req_from_meta` is its inverse."""
+        return {
+            "id": req.id, "max_new_tokens": req.max_new_tokens,
+            "eos_token_id": req.eos_token_id,
+            "temperature": req.temperature, "seed": req.seed,
+            "priority": req.priority,
+            "latency_class": req.latency_class,
+            "slo_ttft_s": req.slo_ttft_s,
+            "slo_latency_s": req.slo_latency_s,
+            "deadline_remaining_s": (None if req.deadline_at is None
+                                     else req.deadline_at - now),
+            "rng_request_id": req.rng_request_id,
+            "rng_tokens_emitted": req.rng_tokens_emitted,
+            "adapter": req.adapter,
+            "speculative": req.speculative,
+        }
+
+    @staticmethod
+    def _req_from_meta(m: dict, prompt: np.ndarray, now: float) -> Request:
+        # an already-negative remaining budget is shed on the first step
+        rem = m.get("deadline_remaining_s")
+        return Request(
+            id=int(m["id"]), prompt=np.asarray(prompt),
+            max_new_tokens=int(m["max_new_tokens"]),
+            eos_token_id=m.get("eos_token_id"),
+            temperature=float(m["temperature"]), seed=int(m["seed"]),
+            priority=int(m["priority"]), submit_time=now,
+            latency_class=m.get("latency_class", "default"),
+            slo_ttft_s=m.get("slo_ttft_s"),
+            slo_latency_s=m.get("slo_latency_s"),
+            deadline_s=rem, deadline_at=None if rem is None else now + rem,
+            rng_request_id=m.get("rng_request_id"),
+            rng_tokens_emitted=int(m.get("rng_tokens_emitted") or 0),
+            adapter=m.get("adapter"), speculative=m.get("speculative"))
+
+    # -- replica plumbing --------------------------------------------------
+    def export_inflight(self) -> List[Tuple[Request, np.ndarray, int]]:
+        """``(request, tokens generated so far, chunk pieces)`` per
+        occupied slot: the requeue payload of a dead replica (host
+        bookkeeping only)."""
+        out = []
+        for _, slot in self.scheduler.slots.occupied():
+            toks = (np.concatenate(slot.tokens) if slot.tokens
+                    else np.zeros((0,), np.int64))
+            out.append((slot.request, toks, len(slot.tokens)))
+        return out
+
+    def take_queued(self) -> List[Request]:
+        """Pop every queued request (the requeue export of a dead
+        replica)."""
+        return self.scheduler.take_all()
+
+    def clear_inflight(self) -> None:
+        """Release every occupied slot (and unpin its prefix slab): the
+        fence of a replica whose work was exported."""
+        for i, slot in self.scheduler.slots.occupied():
+            self._unpin(slot)
+            self.scheduler.slots.release(i)
+
+    @torch.inference_mode()
+    def reset_state(self) -> None:
+        """A fresh carry, every slot free: its caches are zeroed in place,
+        so the ring keeps splicing into the carry the engine then serves
+        and the chunk graphs keep their keys."""
+        if self.scheduler.slots.occupied():
+            raise RuntimeError(
+                "reset_state with occupied slots would orphan in-flight "
+                "requests; export/clear them first")
+        self.state = self._b.new_state()
+        self._steps_done = 0
+
+    # -- live row migration ------------------------------------------------
+    @torch.inference_mode()
+    def extract_rows(self, request_ids) -> Dict[str, Any]:
+        """Serialize the chosen requests into one migration payload, the
+        row subset of :meth:`snapshot`. An in-flight request ships its
+        carry rows (logits, the ``kc`` / ``vc`` leaves, pos, its live key,
+        eos, temperature; gathered on the batch axis in the JAX carry's
+        dtypes) and its tokens so far; a queued one its prompt and
+        record. Ownership leaves with the payload: the source releases the
+        slots (unpinning their slabs) and freezes the rows, and removes
+        the queue entries. Ids neither in a slot nor queued are refused
+        (``ValueError``) before anything is touched. Call it between
+        steps. Returns ``{"kind", "meta", "data" (npz bytes),
+        "sha256"}``."""
+        self._refuse_moves("extract_rows")
+        want = [int(i) for i in request_ids]
+        by_slot = {int(s.request.id): (i, s)
+                   for i, s in self.scheduler.slots.occupied()}
+        queued_ids = {int(r.id) for r in self.scheduler.queued()}
+        unknown = [i for i in want
+                   if i not in by_slot and i not in queued_ids]
+        if unknown:
+            raise ValueError(
+                f"extract_rows: request ids {unknown} are neither in a "
+                f"slot nor queued on this engine (already finished, or "
+                f"never submitted here)")
+        inflight = [(rid,) + by_slot[rid] for rid in want if rid in by_slot]
+        rows = [slot_idx for _, slot_idx, _ in inflight]
+        arrays: Dict[str, np.ndarray] = {}
+        leaf_meta: Dict[str, Any] = {"kc": [], "vc": []}
+        if rows:
+            st = self.state
+            idx = torch.as_tensor(rows, device=st.logits.device)
+            for name in ("kc", "vc"):
+                for i, leaf in enumerate(_cache_leaves(getattr(st, name))):
+                    arrays[f"{name}_leaf_{i}"], tag = _to_wire(
+                        name, leaf.index_select(1, idx))
+                    leaf_meta[name].append({"dtype": tag})
+            for name in ("logits", "pos", "keys", "eos", "temp"):
+                arrays[name], tag = _to_wire(
+                    name, getattr(st, name).index_select(0, idx))
+                leaf_meta[name] = {"dtype": tag}
+        now = time.monotonic()
+        slots_meta = [self._pack_slot(arrays, "row", j, slot, now)
+                      for j, (_, _, slot) in enumerate(inflight)]
+        queue_meta = []
+        for j, req in enumerate(self.scheduler.remove(
+                [rid for rid in want if rid not in by_slot])):
+            arrays[f"queue{j}_prompt"] = np.asarray(req.prompt)
+            queue_meta.append(self._req_meta(req, now))
+        for _, slot_idx, slot in inflight:
+            self._unpin(slot)
+            self.scheduler.slots.release(slot_idx)
+        if rows:
+            self._freeze_rows(rows)
+        meta = {
+            "kind": _MIGRATION_KIND, "version": 1,
+            "rows": len(inflight), "quant": self._b.quant,
+            "mesh_axes": None, "leaves": leaf_meta, "slots": slots_meta,
+            "queue": queue_meta,
+        }
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        payload = buf.getvalue()
+        self._n["migrated_out"] += len(want)
+        return {"kind": meta["kind"], "meta": meta, "data": payload,
+                "sha256": hashlib.sha256(payload).hexdigest()}
+
+    @torch.inference_mode()
+    def absorb_rows(self, payload: Dict[str, Any]) -> Dict[int, int]:
+        """The destination of a live migration: verify the payload's
+        sha256 (``SlabTransferError``), its quant recipe
+        (``QuantMismatchError``), mesh (``MeshMismatchError``) and cache
+        layout, and that enough slots are free (``RuntimeError``), all
+        before anything is written. Each shipped row is then copied into a
+        free slot of the existing carry by the host row copy
+        (``_DecoderBackend.scatter``) with its SHIPPED key, so a sampled
+        stream continues where the source left it; this holds on the ring
+        route and the prefix cache's. Its adapter index comes from the
+        request's adapter name. Shipped queued requests join this queue.
+        Every absorbed request gets a new id; returns ``{source id: new
+        id}``."""
+        if self._spec_configured:
+            raise ValueError(
+                "speculative serving does not migrate rows yet: absorb "
+                "into an engine built without draft_model=")
+        if payload.get("kind") != _MIGRATION_KIND:
+            raise ValueError(
+                f"absorb_rows: payload kind {payload.get('kind')!r} is "
+                f"not a row-migration payload")
+        raw = payload["data"]
+        got = hashlib.sha256(raw).hexdigest()
+        want = payload.get("sha256", "")
+        if got != want:
+            raise SlabTransferError(
+                f"migration payload is corrupt: sha256 {got[:16]}… != "
+                f"{want[:16]}… — refusing to scatter corrupt rows into "
+                f"a live carry", key="row_migration")
+        meta = payload["meta"]
+        self._check_payload(meta, "migration payload")
+        n = int(meta["rows"])
+        free = self.scheduler.slots.free_slots()
+        if len(free) < n:
+            raise RuntimeError(
+                f"absorb_rows needs {n} free slots, this engine has "
+                f"{len(free)} — migrate to a less-loaded worker")
+        npz = np.load(io.BytesIO(raw), allow_pickle=False)
+        now = time.monotonic()
+        mapping: Dict[int, int] = {}
+        if n:
+            lm = meta["leaves"]
+            dev = self.state.logits.device
+
+            def cache(name):
+                tl = _cache_leaves(getattr(self.state, name))
+                recorded = lm[name]
+                if len(recorded) != len(tl):
+                    raise SlabTransferError(
+                        f"migration payload cache layout mismatch: "
+                        f"{len(recorded)} {name} leaves recorded, backend "
+                        f"expects {len(tl)}", key=name)
+                got = [_np_restore(npz[f"{name}_leaf_{i}"], m["dtype"])
+                       .to(dev) for i, m in enumerate(recorded)]
+                for g, t in zip(got, tl):
+                    if g.dtype != t.dtype or g.shape[2:] != t.shape[2:] \
+                            or g.shape[0] != t.shape[0]:
+                        raise SlabTransferError(
+                            f"migration payload {name} leaf "
+                            f"{tuple(g.shape)} {g.dtype} does not fit the "
+                            f"carry's {tuple(t.shape)} {t.dtype}", key=name)
+                return (dict(zip(("q", "s"), got)) if len(got) == 2
+                        else got[0])
+
+            kc1, vc1 = cache("kc"), cache("vc")
+            logits1 = _np_restore(npz["logits"],
+                                  lm["logits"]["dtype"]).to(dev)
+            pos1, keys1, eos1, temp1 = (npz[k] for k in
+                                        ("pos", "keys", "eos", "temp"))
+            for sm in meta["slots"]:
+                j = int(sm["row"])
+                slot = self._unpack_slot(npz, "row", sm, now)
+                req = slot.request
+                old_id = int(req.id)
+                req.id = self._next_id
+                self._next_id += 1
+                slot_idx = self.scheduler.slots.occupy(req)
+                self.scheduler.slots.entries[slot_idx] = slot
+                # the shipped key is the row's live stream state: no
+                # re-derivation from the seed
+                self._b.scatter(self.state, slot_idx, logits1, kc1, vc1, j,
+                                int(pos1[j]), keys1[j], int(eos1[j]),
+                                float(temp1[j]))
+                self._route_adapter(slot_idx, req)
+                mapping[old_id] = req.id
+        for j, qm in enumerate(meta["queue"]):
+            req = self._req_from_meta(qm, npz[f"queue{j}_prompt"], now)
+            old_id = int(req.id)
+            req.id = self._next_id
+            self._next_id += 1
+            self.scheduler.push(req)
+            mapping[old_id] = req.id
+        self._n["migrated_in"] += len(mapping)
+        return mapping
 
     # -- disaggregated prefill (slab payloads) -----------------------------
     @torch.inference_mode()
@@ -1048,16 +1735,18 @@ class ServingEngine:
             toks, self.state = self._b.decode_chunk(self.state,
                                                     self.chunk_size)
         self._n["chunk"] += 1
+        self._steps_done += self.chunk_size
         self._n["slot_steps"] += self.num_slots * self.chunk_size
         self._ring_drained(n_staged)
         return toks.cpu().numpy()
 
     def _finish(self, slot, seq: np.ndarray, slot_idx: int,
-                corrupt_row: bool = False):
+                deadline_expired: bool = False, corrupt_row: bool = False):
         req = slot.request
         fin = time.monotonic()
         latency = fin - req.submit_time
         self._samples["latency_s"].append(latency)
+        self._latency_sum += latency
         ttft = (slot.first_token_at - slot.admitted_at
                 if slot.first_token_at is not None else None)
         n_tok = int(seq.shape[0])
@@ -1065,6 +1754,7 @@ class ServingEngine:
         if slot.first_token_at is not None and n_tok > 1:
             tpot = max(0.0, fin - slot.first_token_at) / (n_tok - 1)
             self._samples["tpot_s"].append(tpot)
+        slo = self._check_slo(req, ttft, latency)
         record = {
             "level": "chunked", "requested_level": "chunked",
             "retries": 0, "degradations": [], "events": [],
@@ -1072,11 +1762,11 @@ class ServingEngine:
                 "queue_delay_s": slot.admitted_at - req.submit_time,
                 "latency_s": latency, "ttft_s": ttft, "tpot_s": tpot,
                 "chunks": slot.chunks, "slot": slot_idx,
-                "latency_class": "default", "slo": None,
+                "latency_class": req.latency_class, "slo": slo,
                 "prefix_hit": slot.prefix_hit,
                 "prefill_tokens_saved": slot.prefill_tokens_saved,
                 "admission_dispatches": slot.admission_dispatches,
-                "deadline_expired": False,
+                "deadline_expired": bool(deadline_expired),
                 "corrupt_row": bool(corrupt_row),
                 "speculative": None if not self._spec_configured else {
                     "rounds": int(slot.spec_rounds),
@@ -1095,6 +1785,43 @@ class ServingEngine:
         out = np.concatenate([req.prompt,
                               seq.astype(req.prompt.dtype)])[None]
         return GenerateResult.wrap(out, record)
+
+    def _check_slo(self, req: Request, ttft: Optional[float],
+                   latency: float) -> Optional[dict]:
+        """The request against its SLO targets (its own, else its
+        class's): counts the class's requests and violations and returns
+        the record's ``slo`` block (None when the class has no target). A
+        request that produced no token has no TTFT, which violates a TTFT
+        target."""
+        cls = req.latency_class
+        defaults = self.slo_targets.get(cls, {})
+        t_ttft = (req.slo_ttft_s if req.slo_ttft_s is not None
+                  else defaults.get("ttft_s"))
+        t_lat = (req.slo_latency_s if req.slo_latency_s is not None
+                 else defaults.get("latency_s"))
+        if t_ttft is None and t_lat is None:
+            return None
+        key = f"serving.slo.{cls}."
+        self._slo[key + "requests"] += 1
+        out = {"class": cls, "violated": False}
+        if t_ttft is not None:
+            out["ttft_target_s"] = t_ttft
+            if ttft is None or ttft > t_ttft:
+                out["violated"] = out["ttft_violated"] = True
+                self._slo[key + "ttft_violations"] += 1
+        if t_lat is not None:
+            out["latency_target_s"] = t_lat
+            if latency > t_lat:
+                out["violated"] = out["latency_violated"] = True
+                self._slo[key + "latency_violations"] += 1
+        return out
+
+    def slo_counters(self) -> Dict[str, int]:
+        """The per-class SLO counts under the JAX engine's registry names:
+        ``serving.slo.<class>.requests``, ``.ttft_violations`` and
+        ``.latency_violations`` (a name appears once it counts). The obs
+        registry that would export them is ROADMAP item [10]."""
+        return dict(sorted(self._slo.items()))
 
     # -- observability -----------------------------------------------------
     def _pct(self, k, q) -> float:
@@ -1143,7 +1870,8 @@ class ServingEngine:
                 continue
             slots.append({
                 "slot": i, "state": "occupied",
-                "request": e.request.id, "latency_class": "default",
+                "request": e.request.id,
+                "latency_class": e.request.latency_class,
                 "prompt_len": int(len(e.request.prompt)),
                 "max_new_tokens": e.request.max_new_tokens,
                 "tokens_produced": int(sum(len(t) for t in e.tokens)),
@@ -1165,10 +1893,18 @@ class ServingEngine:
             "requests_completed": len(self._results),
             "resilience": {"ladder_rung": "chunked", "degradations": 0,
                            "step_dispatches": self.step_dispatches},
-            "slo_targets": {},
-            "shed": {"deadline": 0, "backpressure": 0,
-                     "queue_deadline": 0, "expired_rows": 0},
-            "snapshot": None,
+            "slo_targets": self.slo_targets,
+            "shed": {"deadline": self._n["shed_deadline"],
+                     "backpressure": self._n["shed_backpressure"],
+                     "queue_deadline": self._n["shed_queue_deadline"],
+                     "expired_rows": self._n["deadline_expired_rows"]},
+            "snapshot": (None if self._last_snapshot is None else {
+                "path": self._last_snapshot[1],
+                "age_s": round(time.monotonic()
+                               - self._last_snapshot[0], 4),
+                "count": self._n["snapshots"],
+                "every_chunks": self._snap_every or None,
+            }),
             "prefix_cache": (None if self.prefix_cache is None
                              else self.prefix_cache.snapshot()),
             "speculative": self._speculative(status=True),
@@ -1226,16 +1962,19 @@ class ServingEngine:
             "ttft_p99_s": self._pct("ttft_s", 99),
             "tpot_mean_s": mean("tpot_s"),
             "tpot_p50_s": self._pct("tpot_s", 50),
-            "slo_violations": 0,
-            "shed_deadline": 0,
-            "shed_backpressure": 0,
-            "shed_queue_deadline": 0,
-            "deadline_expired_rows": 0,
+            "slo_violations": sum(v for k, v in self._slo.items()
+                                  if k.endswith("_violations")),
+            "shed_deadline": n["shed_deadline"],
+            "shed_backpressure": n["shed_backpressure"],
+            "shed_queue_deadline": n["shed_queue_deadline"],
+            "deadline_expired_rows": n["deadline_expired_rows"],
             "corrupt_rows": n["corrupt_rows"],
-            "rows_migrated_out": 0,
-            "rows_migrated_in": 0,
-            "snapshots": 0,
-            "snapshot_age_s": None,
+            "rows_migrated_out": n["migrated_out"],
+            "rows_migrated_in": n["migrated_in"],
+            "snapshots": n["snapshots"],
+            "snapshot_age_s": (
+                None if self._last_snapshot is None
+                else round(time.monotonic() - self._last_snapshot[0], 4)),
             "admission_dispatches_saved": n["disp_saved"],
             "admission_cache_reordered": self.scheduler.cache_reordered,
             "batched_admission_groups": n["batched_groups"],

@@ -13,8 +13,10 @@ Pure host-side bookkeeping: the request queue (FIFO or priority), the
 slot table, and prompt length bucketing. The device-side state assembly
 lives in ``serving/engine.py``. With ``cache_aware`` the pop order within
 a priority tier bends toward prefix-slab reuse (the JAX scheduler's
-``_cache_aware_pops``). The JAX scheduler's deadline shedding, requeue
-export and dp grouping arrive with their features (ROADMAP.md queue 1).
+``_cache_aware_pops``). ``shed_expired`` drops queued requests past their
+deadline; ``queued``, ``take_all`` and ``remove`` export the queue to a
+snapshot or a migration payload. The JAX scheduler's dp grouping arrives
+with meshes (ROADMAP.md queue 1, item [13]).
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ class Request:
     a sampling engine's per-row key stream; ``priority`` orders admission
     under the 'priority' policy (lower = sooner), ties broken FIFO.
     ``submit_time`` is a ``time.monotonic()`` stamp; ``Scheduler.push``
-    stamps it when the caller didn't."""
+    stamps it when the caller didn't, and ``deadline_at`` from
+    ``deadline_s``."""
     id: int
     prompt: np.ndarray            # (S,) token ids
     max_new_tokens: int
@@ -65,6 +68,17 @@ class Request:
     seed: int = 0
     priority: int = 0
     submit_time: float = 0.0      # time.monotonic(); 0.0 = unset
+    # SLO bucket and targets (None = the engine's default for the class,
+    # or no target): they only count violations
+    latency_class: str = "default"
+    slo_ttft_s: Optional[float] = None
+    slo_latency_s: Optional[float] = None
+    # hard deadline: ``deadline_s`` is the budget in seconds from submit,
+    # ``deadline_at`` the absolute ``time.monotonic()`` expiry. The engine
+    # sheds at submit and in the queue, and freezes an in-flight row past
+    # it at a chunk boundary (partial, flagged ``deadline_expired``)
+    deadline_s: Optional[float] = None
+    deadline_at: Optional[float] = None
     # prefix-cache grouping key (the prompt's first block-boundary
     # digest, stamped by the engine when cache-aware admission is on)
     prefix_group: Optional[str] = None
@@ -72,6 +86,11 @@ class Request:
     # through (None = base model); the engine resolves it to a row of the
     # stacked deltas at admission and pins its revision
     adapter: Optional[str] = None
+    # request-keyed RNG stream inputs of the JAX engine's router: carried
+    # through snapshot and migration payloads only (the router is ROADMAP
+    # item [11])
+    rng_request_id: Optional[int] = None
+    rng_tokens_emitted: int = 0
     # per-request speculative toggle (speculative engines only): False
     # decodes this row verify-free in the same speculative chunk; None =
     # the engine default (on)
@@ -176,6 +195,8 @@ class Scheduler:
     def push(self, request: Request) -> None:
         if not request.submit_time:
             request.submit_time = time.monotonic()
+        if request.deadline_s is not None and request.deadline_at is None:
+            request.deadline_at = request.submit_time + request.deadline_s
         pr = request.priority if self.policy == "priority" else 0
         heapq.heappush(self._heap, (pr, next(self._seq), request))
 
@@ -187,6 +208,49 @@ class Scheduler:
         lands frontmost."""
         pr = request.priority if self.policy == "priority" else 0
         heapq.heappush(self._heap, (pr, -next(self._seq), request))
+
+    def shed_expired(self, now: float) -> List[Request]:
+        """Drop queued requests whose deadline already passed (checked
+        every admission round before slots are filled, so an expired
+        request never costs a prefill). The rest keep their sequence
+        numbers."""
+        if not self._heap:
+            return []
+        keep, out = [], []
+        for e in self._heap:
+            req = e[2]
+            if req.deadline_at is not None and now > req.deadline_at:
+                out.append(req)
+            else:
+                keep.append(e)
+        if out:
+            self._heap = keep
+            heapq.heapify(self._heap)
+        return out
+
+    def queued(self) -> List[Request]:
+        """The queue in admission order, left in place."""
+        return [e[2] for e in sorted(self._heap,
+                                     key=lambda e: (e[0], e[1]))]
+
+    def take_all(self) -> List[Request]:
+        """Pop every queued request, in admission order."""
+        out = []
+        while self._heap:
+            out.append(heapq.heappop(self._heap)[2])
+        return out
+
+    def remove(self, ids) -> List[Request]:
+        """Pop the queued requests whose ``id`` is in ``ids`` (in
+        admission order); every other entry keeps its place."""
+        want = {int(i) for i in ids}
+        keep, out = [], []
+        for e in self._heap:
+            (out if e[2].id in want else keep).append(e)
+        if out:
+            self._heap = keep
+            heapq.heapify(self._heap)
+        return [e[2] for e in sorted(out, key=lambda e: (e[0], e[1]))]
 
     def admissions(self) -> List[Tuple[int, Request]]:
         """Fill every free slot from the queue; returns the

@@ -1,6 +1,7 @@
 """Package boundaries of the PyTorch port: paddle_tpu_torch, chip_smoke.py
 and the kernel-variant scripts import neither ``jax`` nor anything of
-``paddle_tpu``, and the entry points refuse to start without a card unless
+``paddle_tpu`` (nor ``ml_dtypes``, which the card's machine lacks: bf16
+crosses numpy as tagged ``uint16`` bits), and the entry points refuse to start without a card unless
 the caller asks for the CPU."""
 
 import ast
@@ -38,7 +39,7 @@ def test_no_jax_or_paddle_tpu_imports():
     for path in _port_files():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "paddle_tpu"):
+            if top in ("jax", "jaxlib", "flax", "paddle_tpu", "ml_dtypes"):
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
     assert not bad, bad
 
@@ -51,8 +52,9 @@ def test_import_leaves_jax_out_and_chip_smoke_refuses_without_a_card():
             "import paddle_tpu_torch.models.llama, chip_smoke, torch\n"
             "import paddle_tpu_torch.models.unet\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'paddle_tpu')]\n"
+            "('jax', 'paddle_tpu', 'ml_dtypes')]\n"
             "assert not bad, bad\n"
             "if not torch.cuda.is_available():\n"
             "    assert chip_smoke.main() != 0\n")

@@ -113,7 +113,7 @@ def test_engine_priority_and_refusals(models):
         ServingEngine(dec, quant="int8wk")
     with pytest.raises(ValueError, match="exceeds"):
         eng.submit(np.arange(60), 8)
-    for kw in ({"snapshot_dir": "snapshots"}, {"request_keyed_rng": True}):
+    for kw in ({"mesh": "dp:2"}, {"request_keyed_rng": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(dec, **kw)
     # every argument still refused is one of the JAX engine's, and the
@@ -133,7 +133,7 @@ def test_engine_priority_and_refusals(models):
     assert ServingEngine(dec, draft_model="skip:1").metrics()[
         "speculative"]["num_speculative_tokens"] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(p, 3, deadline_s=1.0)
+        eng.submit(p, 3, on_tokens=print)
     with pytest.raises(TypeError, match="unexpected"):
         eng.submit(p, 3, bogus=1)
     # the reference's ring check, before any device work

@@ -162,6 +162,35 @@ smoke run is made, nothing else is built.
    divergences printed; it prints the snapshot's and the restore's ms
    and bytes, extract and absorb ms and bytes a row, the resumed drain's
    tokens/s beside the plain line's and the restored decoder's graphs.
+   The fault line (``serve_faults``, unquantized and ``int8wk``): the
+   serving line's 16 requests through 8-slot engines (chunk 16, the ring,
+   graphed chunks and prefills) under fault plans of the port's injector,
+   backoff 0: (a) one transient at the third chunk dispatch, retried:
+   the rows that rode it record one retry, the dispatch counts and the
+   kernels' launch identities are the plain line's; (b) every chunk from
+   the third on fails for good: the per-token rung serves (16 one-step
+   dispatches a failed chunk, ``status()`` on ``per_token``), with the
+   launch identities counting rung steps as steps; (c) with obs on and
+   the flight directory in a temporary folder, the chunks fail and the
+   rung dies with INTERNAL after the steps that finish a row (2, where
+   the plain line's lengths allow): ``DecodeFailedError``, every
+   harvested request equal to the plain line's, the postmortem's
+   ``lost_requests`` exactly the unfinished rows with their tokens;
+   (d) unquantized, the speculative line's own-weights draft engine with
+   its chunk site failing ``resilience_retries + 1`` times from its
+   second call: one ``decode.spec_demote`` dispatch, ``active`` false,
+   the tokens through the decisive gate (their bit-equality with the
+   speculative line's plain engine printed); (e) the plain drain with obs
+   on: span counts per site equal to the dispatch accounting, tokens/s
+   with obs on and off in turn (two timed drains each, over the same
+   graphs: the obs flags key none), a drain under ``DeviceTraceSession``
+   (``decode.chunk`` spans with device time, the attribution coverage),
+   the chunk's cost record (flops, bytes, measured MFU against the bf16
+   peak) and an ``ObsExporter`` on port 0 serving ``/metrics``. (a), (b)
+   and (c) are held to the plain line bit for bit or else by the decisive
+   gate with the first divergence printed. Prints tokens/s of (a), (b)
+   and (d) beside the plain lines', the time from the first failure to
+   the first rung step, the postmortem's bytes and ms.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -212,7 +241,8 @@ smoke run is made, nothing else is built.
    kernel's, launched by the sampled line, and two rows at the
    speculative shapes: decode attention at a draft's per-row lengths and
    the int8 matmul at a verify's 40 rows; the decode-attention and int8
-   rows count the LoRA and snapshot lines' launches too), the card line,
+   rows count the LoRA, snapshot and fault lines' launches too), the card
+   line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -222,6 +252,7 @@ script exits 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -1105,13 +1136,10 @@ def device_profile(prof, wall_s):
 def eager_chunks(dec):
     """Route ``dec``'s chunks through the eager chunk body
     (``_chunk_steps``, the ring's splice and the sampler included), still
-    one counted dispatch each: the route the captured chunk is held
-    against. Only this script does this."""
-    def chunk(st, steps, *args):
-        dec.dispatch_count += 1
-        return dec._chunk_steps(st, steps, *args)
-
-    dec._chunk_decode = chunk
+    one counted dispatch each through the decoder's dispatch guard: the
+    route the captured chunk is held against. Only this script does
+    this."""
+    dec._graphed_chunk = lambda key, st, body, fields, outs: body(st)
     return dec
 
 
@@ -1348,18 +1376,18 @@ def redraw_chunks(eng, top_k, top_p):
     tally = dict(rows=0, differ=0, max_near_tie=0)
     dispatch = eng._dispatch_chunk
 
-    def redrawn():
+    def redrawn(occupied):
         st = eng.state
         staged = {m["slot"] for m in eng._ring_meta if m is not None}
         done = st.done.cpu().numpy()
         rows = [i for i, _ in eng.scheduler.slots.occupied()
                 if i not in staged and not done[i]]
         if not rows:
-            return dispatch()
+            return dispatch(occupied)
         idx = torch.as_tensor(rows, device=st.logits.device)
         lg, keys, temp = (t[idx].cpu() for t in (st.logits, st.keys,
                                                  st.temp))
-        toks = dispatch()
+        toks = dispatch(occupied)
         sub = threefry_words_ref(keys, 2)[:, 1].contiguous()
         w = threefry_words_ref(sub, lg.shape[-1])
         bits = w[..., 0] ^ w[..., 1]
@@ -1524,11 +1552,13 @@ def serve_sampled(model, reqs, greedy, V, card):
     return info, gens
 
 
-def serving_phase(card):
-    """The serving lines on one model: greedy unquantized and int8wk,
-    then sampled; ``serve_prefix``, unquantized and int8wk;
-    ``serve_spec``; ``serve_lora``, unquantized and int8wk; and
-    ``serve_snapshot``, unquantized and int8wk."""
+def serving_inputs():
+    """The serving lines' model and traffic: the GQA Llama (vocab 32000,
+    hidden 768, 12 layers, 12 heads, 4 KV heads, bf16) with random
+    weights from seed 0, and 16 requests of 16-128 prompt tokens and
+    32-96 new ones (seed 0), every fourth stopping at an eos its greedy
+    stream reaches. Returns ``(model, reqs)``, each request ``(prompt,
+    budget, eos or None)``."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
@@ -1540,13 +1570,23 @@ def serving_phase(card):
     rng = np.random.default_rng(0)
     reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))),
              int(rng.integers(32, 97)), None) for _ in range(16)]
-    # every fourth request stops at an eos its greedy stream reaches
     ref = LlamaDecoder(model, max_len=256)
     for j in range(1, 16, 4):
         p, n, _ = reqs[j]
         out = np.asarray(ref.generate(p[None], n))[0]
         reqs[j] = (p, n, int(out[len(p) + n // 2]))
     del ref
+    return model, reqs
+
+
+def serving_phase(card):
+    """The serving lines on one model: greedy unquantized and int8wk,
+    then sampled; ``serve_prefix``, unquantized and int8wk;
+    ``serve_spec``; ``serve_lora``, unquantized and int8wk;
+    ``serve_snapshot``, unquantized and int8wk; and ``serve_faults``,
+    unquantized and int8wk."""
+    model, reqs = serving_inputs()
+    cfg = model.config
     runs, plain = [], {}
     for q in (None, "int8wk"):
         info, plain[q] = serve(model, q, reqs, cfg.vocab_size, card)
@@ -1563,7 +1603,10 @@ def serving_phase(card):
     snap = [serve_snapshot(model, q, reqs, plain[q], info,
                            sampled_gens if q is None else None, card)
             for q, info in zip((None, "int8wk"), runs)]
-    return runs, sampled, prefix, spec, lora, snap
+    # and the fault line after the snapshot line
+    faults = [serve_faults(model, q, reqs, plain[q], info, spec, card)
+              for q, info in zip((None, "int8wk"), runs)]
+    return runs, sampled, prefix, spec, lora, snap, faults
 
 
 # -- prefix cache and speculative serving --------------------------------
@@ -1947,7 +1990,8 @@ def serve_spec(model, card):
     del eng, dec
     torch.cuda.empty_cache()
     return dict(skip3=skip, own_weights=own, int8w=q8, sampled=smp,
-                plain=plain, phase_s=time.perf_counter() - t_start)
+                plain=plain, plain_gens=plain_gens, requests=reqs,
+                phase_s=time.perf_counter() - t_start)
 
 
 # -- multi-tenant LoRA serving -------------------------------------------
@@ -2589,6 +2633,404 @@ def serve_snapshot(model, quant, reqs, plain_gens, plain_info, sampled_gens,
     info["phase_s"] = time.perf_counter() - t_start
     emit(info)
     del eng, fresh, dec
+    torch.cuda.empty_cache()
+    return info
+
+
+# -- the degradation ladder and observability ---------------------------------
+
+def ring_schedule(reqs, lens, slots, T):
+    """The serving line's rows at each chunk, simulated from the plain
+    line's token counts (FIFO admission into freed slots, every row +T a
+    chunk): for chunk c (1-based), the tokens each occupied request still
+    needs before it. What (c) picks its failing chunk from."""
+    queue = list(range(len(reqs)))
+    rows, out = {}, []
+    while queue or rows:
+        while queue and len(rows) < slots:
+            rows[queue.pop(0)] = 0
+        out.append({j: lens[j] - n for j, n in rows.items()})
+        for j in list(rows):
+            rows[j] += T
+            if rows[j] >= lens[j]:
+                del rows[j]
+    return out
+
+
+@contextlib.contextmanager
+def flags_set(values):
+    """Set the port's flags ``values`` for the block, then give each flag
+    back the value it had (an environment's ``FLAGS_<name>`` included)."""
+    from paddle_tpu_torch.flags import flags, set_flags
+    old = {k: flags.get(k) for k in values}
+    set_flags(values)
+    try:
+        yield
+    finally:
+        set_flags(old)
+
+
+def serve_faults(model, quant, reqs, plain_gens, plain_info, spec, card):
+    """The fault line (module docstring, step 4): drills (a)-(e) on the
+    serving line's model and requests, each against the plain line, with
+    no backoff between retries."""
+    with flags_set({"resilience_backoff_s": 0.0}):
+        return _fault_drills(model, quant, reqs, plain_gens, plain_info,
+                             spec, card)
+
+
+def _fault_drills(model, quant, reqs, plain_gens, plain_info, spec, card):
+    import os
+    import tempfile
+    import urllib.request
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.flags import flags, set_flags
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.runtime.resilience import (DecodeFailedError,
+                                                     fault_injector)
+    from paddle_tpu_torch.serving import ServingEngine, bucket_length
+
+    t_start = time.perf_counter()
+    cfg = model.config
+    V, L, T = cfg.vocab_size, cfg.num_hidden_layers, 16
+    tag = f"faults {quant or 'none'}"
+    kw = dict(num_slots=8, chunk_size=T)
+    dec = LlamaDecoder(model, max_len=256, quant=quant)
+    small = sum(1 for p, _, _ in reqs if bucket_length(len(p)) <= 64)
+    plain_tps = plain_info["tokens_per_s"]
+    info = dict(phase="serve_faults", quant=quant or "none", card=card,
+                requests=len(reqs), plain_tokens_per_s=plain_tps)
+
+    def run(eng, plan, hook=None):
+        """Drain ``reqs`` under ``plan``: (tokens, results, wall s, the
+        decode-attention and int8 launches)."""
+        torch.cuda.synchronize()
+        da.launches = i8.launches = 0
+        fault_injector.configure(plan)
+        try:
+            t0 = time.perf_counter()
+            ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+            out = eng.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fault_injector.clear()
+        return collect(out, reqs, ids), out, ids, wall, (da.launches,
+                                                         i8.launches)
+
+    def identities(t, m, launches):
+        steps = m["chunk_dispatches"] * T + m["step_dispatches"]
+        want = (L * steps, (4 * L + 1) * (steps + small) if quant else 0)
+        check(launches == want, f"{t}: decode_attention / int8_matmul "
+              f"launches {launches} != {want} ({steps} steps)")
+        return steps
+
+    # (a) one transient at the third chunk dispatch, retried
+    eng = ServingEngine(dec, **kw)
+    run(eng, [])                        # the keys' warm-up and capture
+    riders = []
+    inner = eng._dispatch_chunk
+
+    def noted(occupied):
+        riders.append([s.request.id for _, s in occupied])
+        return inner(occupied)
+
+    eng._dispatch_chunk = noted
+    c0 = eng.metrics()
+    gens, out, ids, wall, launches = run(eng, [
+        {"kind": "dispatch_error", "site": "decode.chunk", "call": 3}])
+    m = eng.metrics()
+    d = {k: m[k] - c0[k] for k in ("prefill_dispatches", "chunk_dispatches",
+                                   "step_dispatches", "degradations")}
+    t = f"{tag} (a)"
+    check(d["prefill_dispatches"] == plain_info["prefill_dispatches"]
+          and d["chunk_dispatches"] == plain_info["chunk_dispatches"]
+          and d["step_dispatches"] == d["degradations"] == 0,
+          f"{t}: dispatches {d} against the plain line's "
+          f"{plain_info['prefill_dispatches']} / "
+          f"{plain_info['chunk_dispatches']}")
+    retried = sorted(rid for rid in ids if out[rid].resilience["retries"])
+    check(retried == sorted(riders[2]) and all(
+        out[rid].resilience["retries"] in (0, 1) for rid in ids),
+          f"{t}: records with a retry {retried}, rows of chunk 3 "
+          f"{riders[2]}")
+    identities(t, {"chunk_dispatches": d["chunk_dispatches"],
+                   "step_dispatches": 0}, launches)
+    n_tok = int(sum(len(g) for g in gens))
+    info["retry"] = dict(hold_to(t, dec, reqs, gens, plain_gens),
+                         tokens_per_s=n_tok / wall, wall_s=wall,
+                         retried_requests=len(retried), **d,
+                         decode_attention_launches=launches[0],
+                         int8_matmul_launches=launches[1])
+    eng._dispatch_chunk = inner
+
+    # (b) every chunk from the third on fails for good: the per-token
+    # rung, on the same warm engine (its first drain runs the rung key's
+    # eager warm-up and capture, the second replays)
+    stamps = {}
+    fire = fault_injector._fire
+
+    def fired(site, rule, detail):
+        stamps.setdefault("fault", time.perf_counter())
+        return fire(site, rule, detail)
+
+    fault_injector._fire = fired
+    rung = []
+    step = eng._b.decode_step_ring
+
+    def first_step(st, splice):
+        stamps.setdefault("rung", time.perf_counter())
+        return step(st, splice)
+
+    eng._b.decode_step_ring = first_step
+    for attempt in range(2):
+        stamps.clear()
+        c0 = eng.metrics()
+        gens, out, ids, wall, launches = run(eng, [
+            {"kind": "dispatch_error", "site": "decode.chunk", "call": 3,
+             "times": 10 ** 6}])
+        m = {k: eng.metrics()[k] - c0[k] for k in (
+            "prefill_dispatches", "chunk_dispatches", "step_dispatches",
+            "degradations")}
+        t = f"{tag} (b) run {attempt}"
+        check(m["degradations"] >= 1
+              and m["step_dispatches"] == T * m["degradations"]
+              and m["chunk_dispatches"] == 2
+              and m["prefill_dispatches"] == len(reqs),
+              f"{t}: chunks {m['chunk_dispatches']}, degradations "
+              f"{m['degradations']}, steps {m['step_dispatches']}")
+        st = eng.status()["resilience"]
+        check(st == {"ladder_rung": "per_token",
+                     "degradations": eng.metrics()["degradations"],
+                     "step_dispatches": eng.step_dispatches},
+              f"{t}: status {st}")
+        check(all(out[rid].resilience["level"] == "per_token"
+                  for rid in ids[len(ids) // 2:]),
+              f"{t}: late requests' records not on the per-token rung")
+        steps = identities(t, m, launches)
+        n_tok = int(sum(len(g) for g in gens))
+        rung.append(dict(hold_to(t, dec, reqs, gens, plain_gens),
+                         tokens_per_s=n_tok / wall, wall_s=wall,
+                         chunk_dispatches=m["chunk_dispatches"],
+                         degradations=m["degradations"],
+                         step_dispatches=m["step_dispatches"],
+                         decode_steps=steps,
+                         first_failure_to_rung_ms=1e3 * (
+                             stamps["rung"] - stamps["fault"]),
+                         decode_attention_launches=launches[0],
+                         int8_matmul_launches=launches[1]))
+    fault_injector._fire = fire
+    del eng
+    info["rung"] = rung[1]
+    info["rung"]["first_run"] = {k: rung[0][k] for k in (
+        "tokens_per_s", "first_failure_to_rung_ms", "bit_equal")}
+
+    # (c) the ladder exhausted: harvest, then the postmortem
+    lens = [len(g) for g in plain_gens]
+    sched = ring_schedule(reqs, lens, kw["num_slots"], T)
+    pick = next(((c, 2) for c, rows in enumerate(sched, 1)
+                 if any(1 <= r <= 2 for r in rows.values())), None)
+    if pick is None:
+        pick = next((c, min(r for r in rows.values() if 0 < r % T))
+                    for c, rows in enumerate(sched, 1)
+                    if any(0 < r % T for r in rows.values()))
+    fail_chunk, survive = pick
+    flight = tempfile.mkdtemp(prefix="postmortem_")
+    restore = {k: flags.get(k) for k in ("obs_enabled", "obs_flight_dir")}
+    set_flags({"obs_enabled": True, "obs_flight_dir": flight})
+    dump = obs.flight_recorder.dump
+    dumped = {}
+
+    def timed_dump(*a, **k):
+        t0 = time.perf_counter()
+        path = dump(*a, **k)
+        dumped["ms"] = 1e3 * (time.perf_counter() - t0)
+        return path
+
+    obs.flight_recorder.dump = timed_dump
+    eng = ServingEngine(dec, **kw)
+    t = f"{tag} (c)"
+    try:
+        fault_injector.configure([
+            {"kind": "dispatch_error", "site": "decode.chunk",
+             "call": fail_chunk, "times": 10 ** 6},
+            {"kind": "dispatch_error", "site": "decode.chunk_step",
+             "call": survive + 1, "times": 10 ** 6, "code": "INTERNAL"}])
+        ids = [eng.submit(p, n, eos_token_id=e) for p, n, e in reqs]
+        try:
+            eng.drain()
+            raised = False
+        except DecodeFailedError:
+            raised = True
+    finally:
+        fault_injector.clear()
+        obs.flight_recorder.dump = dump
+        set_flags(restore)
+    check(raised, f"{t}: no DecodeFailedError")
+    path = obs.flight_recorder.last_path
+    pm = json.load(open(path))
+    extra = pm["extra"]
+    done = {j: np.asarray(eng.result(rid))[0][len(reqs[j][0]):]
+            for j, rid in enumerate(ids) if eng.result(rid) is not None}
+    harvested = [ids.index(r) for r in extra["harvested_requests"]]
+    check(harvested and set(harvested) <= set(done),
+          f"{t}: harvested {extra['harvested_requests']}")
+    for j, g in done.items():
+        check(np.array_equal(g, plain_gens[j]), f"{t}: request {j} "
+              f"finished with other tokens than the plain line's")
+    live = {s.request.id: s for _, s in eng.scheduler.slots.occupied()}
+    lost = {e["request"]: e["tokens_generated"]
+            for e in extra["lost_requests"]}
+    check(lost == {rid: int(sum(len(x) for x in s.tokens))
+                   for rid, s in live.items()},
+          f"{t}: lost_requests {lost} against the unfinished rows")
+    for rid, n in lost.items():
+        j = ids.index(rid)
+        got = np.concatenate(live[rid].tokens) if n else np.zeros(0)
+        check(n < len(plain_gens[j]) and np.array_equal(
+            got, plain_gens[j][:n]), f"{t}: request {j}'s {n} tokens are "
+            f"not a prefix of the plain line's")
+    check(extra["site"] == "serve.chunk" and extra["replica"] is None
+          and pm["reason"] == "serving.ladder_exhausted",
+          f"{t}: postmortem {pm['reason']} {extra['site']}")
+    info["exhausted"] = dict(
+        fail_chunk=fail_chunk, rung_steps_survived=survive,
+        harvested_requests=len(harvested),
+        finished_requests=len(done), lost_requests=len(lost),
+        postmortem_bytes=os.path.getsize(path),
+        postmortem_ms=dumped["ms"])
+    os.remove(path)
+    os.rmdir(flight)
+    del eng
+
+    # (d) speculative -> chunked, unquantized, on the own-weights draft
+    if quant is None:
+        sreqs, K = spec["requests"], 4
+        eng = ServingEngine(dec, draft_model=model,
+                            num_speculative_tokens=K, **kw)
+        d0 = dec.dispatch_count
+        fault_injector.configure([{
+            "kind": "dispatch_error", "site": "decode.chunk", "call": 2,
+            "times": flags.resilience_retries + 1}])
+        try:
+            t0 = time.perf_counter()
+            sids = [eng.submit(p, n, eos_token_id=e) for p, n, e in sreqs]
+            out = eng.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fault_injector.clear()
+        sgens = collect(out, sreqs, sids)
+        m = eng.metrics()
+        t = f"{tag} (d)"
+        demotes = dec.dispatch_count - d0 - (
+            m["prefill_dispatches"] + m["draft_prefill_dispatches"]
+            + m["chunk_dispatches"])
+        check(demotes == 1 and m["degradations"] == 1
+              and eng.status()["speculative"]["active"] is False,
+              f"{t}: {demotes} demotions, degradations "
+              f"{m['degradations']}, status "
+              f"{eng.status()['speculative']['active']}")
+        check_lengths(t, sreqs, sgens, V)
+        n_tok = int(sum(len(g) for g in sgens))
+        info["spec_demote"] = dict(
+            teacher_forced(t, dec, sreqs, sgens),
+            bit_equal_plain=all(np.array_equal(a, b) for a, b in
+                                zip(sgens, spec["plain_gens"])),
+            tokens_per_s=n_tok / wall, wall_s=wall,
+            plain_tokens_per_s=spec["plain"]["tokens_per_s"],
+            plain_first_drain_tokens_per_s=spec["plain"]["tokens"]
+            / spec["plain"]["first_drain_wall_s"],
+            chunk_dispatches=m["chunk_dispatches"],
+            draft_prefill_dispatches=m["draft_prefill_dispatches"])
+        del eng
+
+    # (e) obs on the served path
+    eng = ServingEngine(dec, **kw)
+    restore = {"obs_enabled": flags.obs_enabled}
+    set_flags({"obs_enabled": True})
+    try:
+        obs.clear_cost_cache()
+        m0 = obs.tracer.mark()
+        gens, _, _, _, launches = run(eng, [])
+        counts = obs.tracer.counts(m0)
+        m = eng.metrics()
+        t = f"{tag} (e)"
+        check(counts.get("decode.admit_prefill") == m["prefill_dispatches"]
+              and counts.get("decode.chunk") == m["chunk_dispatches"]
+              and counts.get("serving.request") == len(reqs),
+              f"{t}: spans {counts} against prefills "
+              f"{m['prefill_dispatches']}, chunks {m['chunk_dispatches']}")
+        obs_launches = launches
+        # the second drain captures what the first warmed; the flags of
+        # obs key no graph, so obs on and off replay the same graphs:
+        # then on and off drains in turn, each timed
+        run(eng, [])
+        timed = {True: [], False: []}
+        for on in (True, False, True, False):
+            set_flags({"obs_enabled": on})
+            g, _, _, w, _ = run(eng, [])
+            timed[on].append((g, w))
+        set_flags({"obs_enabled": True})
+        cost = obs.site_costs().get("decode.chunk", {})
+        check(cost.get("flops", 0) > 0 and cost.get("bytes_per_dispatch",
+                                                    0) > 0,
+              f"{t}: decode.chunk cost record {cost}")
+        m1 = obs.tracer.mark()
+        sess = obs.DeviceTraceSession().start()
+        check(sess.active, f"{t}: the device trace did not start")
+        traced, _, _, _, _ = run(eng, [])
+        summary = sess.stop()
+        chunks = [s for s in obs.tracer.spans_since(m1)
+                  if s.name == "decode.chunk"]
+        check(summary.get("coverage", 0) > 0 and chunks and all(
+            s.attrs.get("device_ms", 0) > 0 for s in chunks),
+              f"{t}: device attribution {summary}")
+        exp = obs.ObsExporter(port=0).add_engine(eng)
+        port = exp.start()
+        try:
+            txt = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=10).read()
+        finally:
+            exp.stop()
+        check(b"serving_chunk_dispatches" in txt,
+              f"{t}: /metrics without serving_chunk_dispatches")
+    finally:
+        set_flags(restore)
+    for g in [traced] + [g for on in timed for g, _ in timed[on]]:
+        for j, (a, b) in enumerate(zip(g, gens)):
+            check(np.array_equal(a, b), f"{t}: request {j} changed "
+                  f"tokens between obs drains")
+    n_tok = int(sum(len(g) for g in gens))
+    tps = {on: [n_tok / w for _, w in timed[on]] for on in timed}
+    chunk_ms = summary.get("by_site", {}).get("decode.chunk", {}).get(
+        "device_ms_mean", 0.0)
+    info["obs"] = dict(
+        hold_to(t, dec, reqs, gens, plain_gens),
+        spans=counts, tokens_per_s_obs_on=tps[True],
+        tokens_per_s_obs_off=tps[False],
+        chunk_flops=cost["flops"],
+        chunk_bytes_per_dispatch=cost["bytes_per_dispatch"],
+        chunk_peak_bytes=cost.get("peak_bytes"),
+        chunk_peak_bytes_at_most=cost.get("peak_bytes_at_most"),
+        chunk_device_ms_mean=chunk_ms,
+        chunk_mfu=obs.mfu(cost["flops"], chunk_ms / 1e3, peak=BF16_FLOPS),
+        coverage=summary.get("coverage"),
+        device_total_ms=summary.get("device_total_ms"),
+        attributed_ms=summary.get("attributed_ms"),
+        device_ops=summary.get("device_ops"),
+        by_site=summary.get("by_site"),
+        decode_attention_launches=obs_launches[0],
+        int8_matmul_launches=obs_launches[1])
+    for k in ("decode_attention_launches", "int8_matmul_launches"):
+        info[k] = (info["retry"][k] + info["obs"][k]
+                   + sum(r[k] for r in rung))
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    del eng, dec
     torch.cuda.empty_cache()
     return info
 
@@ -3352,7 +3794,7 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs, sampled, prefix, spec, lora, snap = serving_phase(card)
+    runs, sampled, prefix, spec, lora, snap, faults = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
@@ -3362,10 +3804,11 @@ def main() -> int:
           f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
           f"{spec['phase_s']:.1f} s, lora "
           f"{sum(x['phase_s'] for x in lora):.1f} s, snapshot "
-          f"{sum(x['phase_s'] for x in snap):.1f} s), llama training "
+          f"{sum(x['phase_s'] for x in snap):.1f} s, faults "
+          f"{sum(x['phase_s'] for x in faults):.1f} s), llama training "
           f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
           flush=True)
-    served = runs + prefix + lora + snap
+    served = runs + prefix + lora + snap + faults
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in served),
         decode_attention_draft=spec["skip3"]["decode_attention_launches"],

@@ -35,7 +35,7 @@ _LAZY = {
 }
 _SUBMODULES = ("models", "inference", "serving", "quantization", "ops",
                "runtime", "convert", "device", "nn", "optimizer", "parallel",
-               "incubate")
+               "incubate", "obs")
 
 __all__ = ["flags", "__version__", *_LAZY, *_SUBMODULES]
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/flags.py`` (its own copy: the port imports
 nothing of the JAX package). The flags the serving and training paths
-read are declared, with the JAX package's names and defaults. Read one as
+read are declared, with the JAX package's names and defaults. The port
+reads them only as flags: the JAX package's ``PADDLE_TPU_OBS*`` and
+``PADDLE_TPU_FAULT_PLAN`` variables are its own. Read one as
 ``flags.<name>``; a ``FLAGS_<name>`` environment variable overrides its
 default at first read, and ``set_flags`` overrides both.
 """
@@ -61,7 +63,42 @@ _DEFAULTS: Dict[str, Any] = {
     "fused_ce_logits_budget_mb": 1536,
     # run every fused op as its canonical unfused composition
     "decompose_fused_ops": False,
+    # transient-error retries per device dispatch in
+    # runtime/resilience.resilient_call (UNAVAILABLE / DEADLINE_EXCEEDED /
+    # ABORTED, plus RESOURCE_EXHAUSTED during setup); 0 disables retrying
+    "resilience_retries": 3,
+    # base exponential-backoff delay (seconds) between retries: attempt i
+    # sleeps base * 2**(i-1)
+    "resilience_backoff_s": 0.5,
+    # total wall-clock budget (seconds) a resilient_call may spend
+    # retrying; 0 means no deadline
+    "resilience_deadline_s": 0.0,
+    # step the decode ladder down on a transient dispatch failure
+    # (speculative -> chunked -> fused -> per-token), recording a typed
+    # DegradationEvent per step; off, the first level's error propagates
+    "resilience_auto_degrade": True,
+    # master switch of the obs spine (paddle_tpu_torch/obs): dispatch
+    # spans, obs counters, dispatch cost records; off, each instrumented
+    # call pays one flag read
+    "obs_enabled": False,
+    # ring-buffer capacity (spans) of the global tracer
+    "obs_buffer_size": 8192,
+    # TCP port of the telemetry exporter (obs/exporter.py); 0 = none
+    "obs_export_port": 0,
+    # on an exhausted ladder, dump a postmortem JSON (obs/flight.py)
+    "obs_flight_recorder": True,
+    # how many of the newest spans a postmortem carries
+    "obs_flight_spans": 256,
+    # directory of postmortem dumps (empty = the working directory)
+    "obs_flight_dir": "",
+    # attach a dispatch cost record (FLOPs, bytes, peak bytes) to each
+    # dispatch span, derived once per (site, input signature)
+    "obs_cost_analysis": True,
 }
+
+
+# the prefixes of the flags that act around a dispatch, not inside it
+_AROUND_DISPATCH = ("resilience_", "obs_")
 
 
 def _parse(name: str, value: Any) -> Any:
@@ -90,11 +127,27 @@ class _Flags:
                                   else _parse(name, env))
         return self._values[name]
 
+    def get(self, name: str) -> Any:
+        return getattr(self, name)
+
+    def names(self) -> list:
+        return list(_DEFAULTS)
+
     def snapshot(self) -> tuple:
         """Every declared flag's current value, as (name, value) pairs in
-        declaration order: what a captured CUDA graph is keyed on, since a
-        replay runs whatever route the flags chose at its capture."""
+        declaration order: what a captured training step is keyed on,
+        since a replay runs whatever route the flags chose at its
+        capture."""
         return tuple((n, getattr(self, n)) for n in _DEFAULTS)
+
+    def route_snapshot(self) -> tuple:
+        """``snapshot()`` without the ``resilience_*`` and ``obs_*``
+        flags: what the decoder's captured chunks and prefills are keyed
+        on. Those flags act around a dispatch (its retries, span and cost
+        record), never inside the captured work, so switching obs on or
+        off replays the graphs it has."""
+        return tuple((n, getattr(self, n)) for n in _DEFAULTS
+                     if not n.startswith(_AROUND_DISPATCH))
 
 
 flags = _Flags()

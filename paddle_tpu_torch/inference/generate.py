@@ -38,13 +38,13 @@ admission prefill stages its rows' logits and K/V into ring rows
 (``ring_admit_prefill``), and the next chunk splices them into the carry
 at their slots before its T steps (``_ring_splice``), inside the same
 chunk graph. On a card each admission-prefill key (rows, bucket, quant,
-ring buffers, every flag's value) runs eagerly once, then replays one
-CUDA graph (``_PrefillGraph``).
+ring buffers, every route flag's value: ``flags.route_snapshot()``) runs
+eagerly once, then replays one CUDA graph (``_PrefillGraph``).
 
 The serving engine's prefix-cache route admits by host row copy instead:
 ``admit_prefill`` with a ``prepare`` callback (which copies cached slabs
 into the prefill's batch-N caches) replays one CUDA graph a (rows,
-bucket, quant, every flag's value) key on a card; the graph owns those
+bucket, quant, every route flag's value) key on a card; the graph owns those
 caches.
 
 Speculative decoding (Leviathan et al., arXiv:2211.17192; ``draft_model=``
@@ -78,8 +78,23 @@ Every entry point (``generate``, ``admit_prefill``, ``init_decode_state``,
 under ``torch.inference_mode()``: the model's parameters are trainable,
 and decoding records no autograd graph.
 
-Not ported yet (ROADMAP.md queue 1): meshes, the retry and degradation
-ladder (with ``spec_demote``), a CUDA graph of the fused loop.
+Every dispatch goes through one guard (``LlamaDecoder._dispatch``, the
+JAX decoder's ``_counted``), under the JAX package's site names
+(``decode.prefill``, ``decode.step``, ``decode.fused``, ``decode.chunk``,
+``decode.chunk_step``, ``decode.admit_prefill``, ``decode.spec_demote``,
+``spec.prefill``, ``spec.round``, ``spec.decode``; a speculative chunk
+uses the plain chunk's site): the fault hook fires before anything
+touches the carry, then the count, the obs span with its cost record, and
+the work, all inside ``resilient_call``. Because the chunk graphs write
+the carry in place, a fault that fires before the work leaves the carry
+as it was, and a retry or a lower rung runs on the same carry.
+``generate`` walks the JAX package's degradation ladder (speculative ->
+chunked -> fused -> per-token); ``spec_demote`` commits a speculative
+carry's pending tokens for the plain chunk, and ``_chunk_step`` is the
+serving ladder's one-step chunk.
+
+Not ported yet (ROADMAP.md queue 1): meshes, a CUDA graph of the fused
+loop.
 """
 
 from __future__ import annotations
@@ -93,10 +108,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch import obs
 from paddle_tpu_torch import random as rnd
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.models.llama import LlamaConfig, _rope_tables
+from paddle_tpu_torch.obs import cost as _cost
 from paddle_tpu_torch.ops import kernels as _kernels
 from paddle_tpu_torch.ops.kernels import decode_attention as _da
 from paddle_tpu_torch.ops.kernels import int8_matmul as _i8
@@ -106,7 +123,13 @@ from paddle_tpu_torch.quantization.kv_cache import (dequantize_kv,
                                                     quant_kv_zeros,
                                                     quantize_kv_rows,
                                                     resolve_decode_quant)
-from paddle_tpu_torch.runtime.resilience import GenerateResult
+from paddle_tpu_torch.runtime.resilience import (DecodeFailedError,
+                                                 DegradationEvent,
+                                                 GenerateResult,
+                                                 classify_error,
+                                                 fault_injector,
+                                                 record_event,
+                                                 resilient_call)
 
 __all__ = ["LlamaDecoder", "DecodeState", "AdmissionRing"]
 
@@ -539,6 +562,9 @@ class LlamaDecoder:
         self.params = _build_params(model, self.max_len, self.weight_dtype,
                                     self.device)
         self.dispatch_count = 0
+        # retry events of the dispatches (generate() starts it anew; the
+        # serving engine reads it by offset)
+        self._events: list = []
         self.last_resilience = None
         self.last_spec_stats = None
         # draft-model state of speculative decoding, by draft key
@@ -578,9 +604,54 @@ class LlamaDecoder:
                                self.max_len, return_all, aidx)
 
     # -- counted entries: one dispatch each --------------------------------
+    def _dispatch(self, site: str, fn, *args, graphed: bool = False,
+                  weights=None):
+        """The one guard every dispatch goes through (the JAX decoder's
+        ``_counted``). Per attempt, in order: the fault hook
+        ``fault_injector.on_call(site)``, fired before anything touches
+        the carry (a failed attempt is a dispatch that never ran, so the
+        counts stay comparable with a run without faults); the count;
+        with obs on, the span named after the site with the dispatch's
+        cost record and the ``dispatches.<site>`` counter; then the work,
+        ``fn(*args)``. The whole is wrapped in ``resilient_call``, whose
+        retry events go to ``self._events``. ``graphed``: ``fn`` replays
+        CUDA graphs on a card and enters ``_cost.eager_pass`` itself
+        around its eager runs; otherwise the whole of ``fn`` is eager.
+        ``weights``: the tensors the dispatch reads besides its arguments
+        (default the decoder's params), for the cost record's bytes."""
+        def work():
+            if graphed:
+                return fn(*args)
+            with _cost.eager_pass(self.device):
+                return fn(*args)
+
+        def attempt():
+            fault_injector.on_call(site)
+            self.dispatch_count += 1
+            if not obs.enabled():
+                return work()
+            with obs.span(site, kind="dispatch") as sp:
+                if flags.obs_cost_analysis:
+                    with _cost.cost_pass(
+                            site, args, weights=(self.params if weights
+                                                 is None else weights)
+                    ) as cp:
+                        out = work()
+                    rec = cp.finish(out)
+                    if rec:
+                        sp.annotate(**rec)
+                else:
+                    out = work()
+            obs.metrics.counter(
+                "dispatches." + site,
+                "device dispatches executed at this site").inc()
+            return out
+
+        return resilient_call(attempt, site=site,
+                              on_event=self._events.append)
+
     def _prefill(self, ids, kc, vc):
-        self.dispatch_count += 1
-        return self._fwd(ids, kc, vc, 0)
+        return self._dispatch("decode.prefill", self._fwd, ids, kc, vc, 0)
 
     def _as_long(self, a) -> Optional[torch.Tensor]:
         """Host ints (or None) as an int64 tensor on the decoder's
@@ -604,18 +675,25 @@ class LlamaDecoder:
         ``aidx`` (N,) prefills each row through its LoRA adapter's deltas.
 
         Without caches or ``return_all``, on a card, the first call of a
-        key (rows, bucket, quant, the adapter stacks, every flag's value)
+        key (rows, bucket, quant, the adapter stacks, every route flag)
         runs eagerly, the second captures a CUDA graph and later ones
         replay it: the graph owns its caches, which are zeroed and handed
         to ``prepare`` before each replay, and the returned caches are the
         graph's, valid until the key's next call."""
         ids = self._ids(ids)
-        N, w = ids.shape
         aidx = self._as_long(aidx)
         args = (ids, self._as_long(true_len), self._as_long(pos0), aidx)
-        self.dispatch_count += 1
+        return self._dispatch("decode.admit_prefill", self._admit_run,
+                              args, kc, vc, return_all, prepare,
+                              graphed=True)
+
+    def _admit_run(self, args, kc, vc, return_all, prepare):
+        """``admit_prefill``'s dispatch: a key's graph on a card, else the
+        eager forward."""
+        ids, aidx = args[0], args[3]
+        N, w = ids.shape
         key = ("admit", N, w, self.quant, self._adapter_key(aidx),
-               flags.snapshot())
+               flags.route_snapshot())
         if (kc is None and not return_all and self.device.type == "cuda"
                 and not _warm_up(self._prefill_graphs, key,
                                  _PREFILL_GRAPHS)):
@@ -630,14 +708,15 @@ class LlamaDecoder:
             if prepare is not None:
                 prepare(*g.caches)
             return (g.run(*args), *g.caches)
-        if kc is None:
-            kc, vc = self._empty_cache(N)
-        if prepare is not None:
-            prepare(kc, vc)
-        if return_all:
-            return (self._fwd(ids, kc, vc, args[2], return_all=True,
-                              aidx=aidx), kc, vc)
-        return self._admit_body(*args[:3], kc, vc, aidx), kc, vc
+        with _cost.eager_pass(self.device):
+            if kc is None:
+                kc, vc = self._empty_cache(N)
+            if prepare is not None:
+                prepare(kc, vc)
+            if return_all:
+                return (self._fwd(ids, kc, vc, args[2], return_all=True,
+                                  aidx=aidx), kc, vc)
+            return self._admit_body(*args[:3], kc, vc, aidx), kc, vc
 
     def _adapter_key(self, aidx) -> Optional[tuple]:
         """The adapter part of a graph key: None for a base-only call,
@@ -665,16 +744,21 @@ class LlamaDecoder:
         _row_scatter(ring.kc, kc, idx)
         _row_scatter(ring.vc, vc, idx)
 
-    def _staged(self, key, args, body, cfg=None) -> None:
-        """One counted dispatch of a ring-staging prefill ``body(*args,
-        kc, vc)`` over fresh batch-N caches (of ``cfg``, default the
-        target's): eager on the CPU and at a key's first call on a card,
-        then one CUDA graph a key, whose own caches are zeroed inside
-        it. An ``args`` entry may be None (no adapters)."""
-        self.dispatch_count += 1
+    def _staged(self, site, key, args, body, cfg=None,
+                weights=None) -> None:
+        """One counted dispatch at ``site`` of a ring-staging prefill
+        ``body(*args, kc, vc)`` over fresh batch-N caches (of ``cfg``,
+        default the target's): eager on the CPU and at a key's first call
+        on a card, then one CUDA graph a key, whose own caches are zeroed
+        inside it. An ``args`` entry may be None (no adapters)."""
+        self._dispatch(site, self._staged_run, key, args, body, cfg,
+                       graphed=True, weights=weights)
+
+    def _staged_run(self, key, args, body, cfg) -> None:
         if self.device.type != "cuda" or _warm_up(self._prefill_graphs,
                                                   key, _PREFILL_GRAPHS):
-            body(*args, *self._empty_cache(args[0].shape[0], cfg))
+            with _cost.eager_pass(self.device):
+                body(*args, *self._empty_cache(args[0].shape[0], cfg))
             return
         graphs = self._prefill_graphs
         if graphs[key] is None:
@@ -690,7 +774,7 @@ class LlamaDecoder:
         them into the carry. ``aidx`` (N,) prefills each row through its
         LoRA adapter's deltas. On a card the first call of a key (rows,
         bucket, quant, the ring's buffers, the adapter stacks, every
-        flag's value) runs eagerly, the second captures a CUDA graph and
+        route flag's value) runs eagerly, the second captures a CUDA graph and
         later ones replay it: the JAX package's one compiled program per
         (rows, bucket)."""
         ids = self._ids(ids)
@@ -699,8 +783,9 @@ class LlamaDecoder:
                 self._as_long(ring_idx), aidx)
         N, w = ids.shape
         key = ("ring", N, w, self.quant, ring.addresses(),
-               self._adapter_key(aidx), flags.snapshot())
-        self._staged(key, args, lambda ids, tl, p0, idx, a, kc, vc:
+               self._adapter_key(aidx), flags.route_snapshot())
+        self._staged("decode.admit_prefill", key, args,
+                     lambda ids, tl, p0, idx, a, kc, vc:
                      self._ring_prefill(ids, tl, p0, idx, kc, vc, ring, a))
 
     @torch.inference_mode()
@@ -713,22 +798,22 @@ class LlamaDecoder:
         idx = self._as_long(ring_idx)
         N, w = ids.shape
         key = ("draft", N, w, self.quant, eng["ekey"], ring.addresses(),
-               flags.snapshot())
+               flags.route_snapshot())
 
         def body(ids, idx, dkc, dvc):
             _forward_cached(eng["params"], eng["cfg"], ids, dkc, dvc, 0,
                             self.max_len)
             _row_scatter(ring.dkc, dkc, idx)
             _row_scatter(ring.dvc, dvc, idx)
-        self._staged(key, (ids, idx), body, cfg=eng["cfg"])
+        self._staged("spec.prefill", key, (ids, idx), body, cfg=eng["cfg"],
+                     weights=eng["params"])
 
-    def _fused_decode(self, logits, kc, vc, pos0: int, eos: Optional[int],
-                      steps: int, sample, temperature: float, seed: int):
+    def _fused_loop(self, logits, kc, vc, pos0: int, eos: Optional[int],
+                    steps: int, sample, temperature: float, seed: int):
         """The whole token loop (steps forwards, steps + 1 picks); rows
         that emitted ``eos`` stay pinned to it. ``sample`` is ``(top_k,
         top_p)`` for a sampled loop, whose one batch key splits once a
         pick, or None for greedy."""
-        self.dispatch_count += 1
         done = torch.zeros(logits.shape[0], dtype=torch.bool,
                            device=self.device)
         key = None if sample is None else rnd.PRNGKey(seed,
@@ -782,17 +867,29 @@ class LlamaDecoder:
 
     def _chunk_decode(self, st: DecodeState, steps: int, sample=None,
                       ring: Optional["AdmissionRing"] = None):
-        """One counted dispatch of ``_chunk_steps``. On a card, the first
-        chunk of a key (batch, T, quant recipe, the caches' addresses, the
-        sampling statics, the ring's buffers, the adapter stacks, every
-        flag's value) runs eagerly; the second captures the chunk into a
-        CUDA graph and every later one replays it. A failed capture
-        raises."""
-        self.dispatch_count += 1
+        """One counted ``decode.chunk`` dispatch of ``_chunk_steps``. On a
+        card, the first chunk of a key (batch, T, quant recipe, the
+        caches' addresses, the sampling statics, the ring's buffers, the
+        adapter stacks, every route flag's value) runs eagerly; the second
+        captures the chunk into a CUDA graph and every later one replays
+        it. A failed capture raises."""
+        return self._dispatch("decode.chunk", self._chunk_run, st, steps,
+                              sample, ring, graphed=True)
+
+    def _chunk_step(self, st: DecodeState, sample=None,
+                    ring: Optional["AdmissionRing"] = None):
+        """One counted ``decode.chunk_step`` dispatch: a one-step chunk,
+        the serving ladder's per-token rung (the JAX ``_chunk_step`` /
+        ``_ring_chunk_step``); a key of its own, eager on the CPU and
+        graphed on a card like any chunk."""
+        return self._dispatch("decode.chunk_step", self._chunk_run, st, 1,
+                              sample, ring, graphed=True)
+
+    def _chunk_run(self, st: DecodeState, steps: int, sample, ring):
         key = (st.logits.shape[0], steps, self.quant, _addresses(st.kc),
                _addresses(st.vc), sample,
                None if ring is None else ring.addresses(),
-               self._adapter_key(st.adapter_idx), flags.snapshot())
+               self._adapter_key(st.adapter_idx), flags.route_snapshot())
         body = lambda s: self._chunk_steps(s, steps, sample, ring)  # noqa
         return self._graphed_chunk(key, st, body, _CARRY, ())
 
@@ -802,7 +899,8 @@ class LlamaDecoder:
         the carry (plus output-only ``outs``) and replay it."""
         if self.device.type != "cuda" or _warm_up(self._chunk_graphs, key,
                                                   _CHUNK_GRAPHS):
-            return body(st)
+            with _cost.eager_pass(self.device):
+                return body(st)
         graphs = self._chunk_graphs
         if graphs[key] is None:
             graphs[key] = _ChunkGraph(st, body, fields, outs,
@@ -878,9 +976,9 @@ class LlamaDecoder:
 
     def _draft_prefill(self, eng, ids, dkc, dvc) -> None:
         """The draft's prompt prefill: one counted dispatch."""
-        self.dispatch_count += 1
-        _forward_cached(eng["params"], eng["cfg"], ids, dkc, dvc, 0,
-                        self.max_len)
+        self._dispatch("spec.prefill", _forward_cached, eng["params"],
+                       eng["cfg"], ids, dkc, dvc, 0, self.max_len,
+                       weights=())
 
     def _spec_round(self, eng, tok, pos, keys, done, kc, vc, dkc, dvc,
                     eos, temp, K: int, sample, spec_on=None, aidx=None):
@@ -983,16 +1081,15 @@ class LlamaDecoder:
         tok_next = emit.gather(1, a[:, None])[:, 0]
         return emit, a, tok_next, at(all_lg, a), keys, done
 
-    def _spec_decode(self, eng, logits, kc, vc, dkc, dvc, S: int,
-                     eos: Optional[int], max_new: int, K: int, sample,
-                     temperature: float, seed: int):
-        """The fused speculative loop, ONE counted dispatch: a fresh pick
+    def _spec_loop(self, eng, logits, kc, vc, dkc, dvc, S: int,
+                   eos: Optional[int], max_new: int, K: int, sample,
+                   temperature: float, seed: int):
+        """The fused speculative loop: a fresh pick
         from the prefill logits, then rounds until every row holds
         ``max_new`` tokens (a host check between rounds). Each round
         commits a per-row 1..K+1 tokens into a ``(B, max_new + 1)`` buffer
         whose last column takes the writes the JAX package drops. Returns
         ``(buf (B, max_new), rounds, accepted)`` over live rows."""
-        self.dispatch_count += 1
         B, dev = logits.shape[0], logits.device
         eos_t = torch.full((B,), -1 if eos is None else eos,
                            dtype=torch.long, device=dev)
@@ -1041,9 +1138,9 @@ class LlamaDecoder:
         dkc, dvc = self._empty_cache(B, eng["cfg"])
         logits = self._prefill(ids, kc, vc)
         self._draft_prefill(eng, ids, dkc, dvc)
-        buf, sr, sa = self._spec_decode(eng, logits, kc, vc, dkc, dvc, S,
-                                        eos, max_new, K, sample,
-                                        temperature, seed)
+        buf, sr, sa = self._dispatch("spec.decode", self._spec_loop, eng,
+                                     logits, kc, vc, dkc, dvc, S, eos,
+                                     max_new, K, sample, temperature, seed)
         self._record_spec_stats(sr, sa, K)
         return buf.cpu().numpy()
 
@@ -1076,8 +1173,8 @@ class LlamaDecoder:
         while bool((count < max_new).any()):
             active = count < max_new
             live = active & ~done.cpu().numpy()
-            self.dispatch_count += 1
-            emit, a, tok2, _, key, done2 = self._spec_round(
+            emit, a, tok2, _, key, done2 = self._dispatch(
+                "spec.round", self._spec_round,
                 eng, tok, torch.clamp(pos, max=self.max_len - K - 1),
                 key, done, kc, vc, dkc, dvc, eos_t, temperature, K, sample)
             emit_h, a_h = emit.cpu().numpy(), a.cpu().numpy()
@@ -1145,19 +1242,50 @@ class LlamaDecoder:
     def _spec_chunk_decode(self, st: DecodeState, steps: int, K: int,
                            sample=None,
                            ring: Optional["AdmissionRing"] = None):
-        """One counted dispatch of ``_spec_chunk_steps``; on a card one
-        CUDA graph a key (batch, T, K, quant, the caches' addresses, the
-        draft, the sampling statics, the ring's buffers, the adapter
-        stacks, every flag's value), its first call eager."""
-        self.dispatch_count += 1
+        """One counted dispatch of ``_spec_chunk_steps``, at the plain
+        chunk's site (``decode.chunk``: to the serving ladder and fault
+        plans there is one chunk dispatch site, whatever program backs
+        it); on a card one CUDA graph a key (batch, T, K, quant, the
+        caches' addresses, the draft, the sampling statics, the ring's
+        buffers, the adapter stacks, every route flag's value), its first
+        call eager."""
+        return self._dispatch("decode.chunk", self._spec_chunk_run, st,
+                              steps, K, sample, ring, graphed=True)
+
+    def _spec_chunk_run(self, st: DecodeState, steps: int, K: int, sample,
+                        ring):
         key = ("spec", st.logits.shape[0], steps, K, self.quant,
                _addresses(st.kc), _addresses(st.vc), _addresses(st.dkc),
                _addresses(st.dvc), st.spec["ekey"], st.spec_on is None,
                sample, None if ring is None else ring.addresses(),
-               self._adapter_key(st.adapter_idx), flags.snapshot())
+               self._adapter_key(st.adapter_idx), flags.route_snapshot())
         body = lambda s: self._spec_chunk_steps(  # noqa: E731
             s, steps, K, sample, ring)
         return self._graphed_chunk(key, st, body, _SPEC_CARRY, ("nv",))
+
+    @torch.inference_mode()
+    def spec_demote(self, st: DecodeState) -> DecodeState:
+        """The one-time speculative -> chunked demotion of a live carry
+        (the JAX decoder's ``spec_demote``): one counted masked forward
+        (``decode.spec_demote``) commits each row's pending token to the
+        target caches, giving pick-ready logits and ``pos + 1`` where a
+        token was committed; a row with no pending token (``tok < 0``)
+        keeps its logits and its ``pos``, and its placeholder write at
+        ``pos`` is overwritten by the next real write there before
+        attention could unmask it. The draft side of the carry is
+        dropped, so the plain chunk serves the state from here on."""
+        return self._dispatch("decode.spec_demote", self._spec_demote_body,
+                              st)
+
+    def _spec_demote_body(self, st: DecodeState) -> DecodeState:
+        need = st.tok >= 0
+        lg = self._fwd(torch.where(need, st.tok, 0)[:, None], st.kc, st.vc,
+                       st.pos, aidx=st.adapter_idx)
+        return dataclasses.replace(
+            st, logits=torch.where(need[:, None], lg, st.logits),
+            pos=torch.where(need, torch.clamp(st.pos + 1,
+                                              max=self.max_len - 1), st.pos),
+            dkc=None, dvc=None, tok=None, nv=None, spec=None, spec_on=None)
 
     def _record_spec_stats(self, rounds: int, accepted: int, K: int):
         self.last_spec_stats = {
@@ -1204,8 +1332,8 @@ class LlamaDecoder:
         if aidx is None:
             logits = self._prefill(ids, kc, vc)
         else:
-            self.dispatch_count += 1
-            logits = self._admit_body(
+            logits = self._dispatch(
+                "decode.admit_prefill", self._admit_body,
                 ids, torch.full((B,), S, dtype=torch.long, device=dev),
                 torch.zeros((B,), dtype=torch.long, device=dev), kc, vc,
                 aidx)
@@ -1315,8 +1443,9 @@ class LlamaDecoder:
         B, S = ids.shape
         kc, vc = self._empty_cache(B)
         logits = self._prefill(ids, kc, vc)
-        return self._fused_decode(logits, kc, vc, S, eos, max_new - 1,
-                                  sample, temperature, seed).cpu().numpy()
+        return self._dispatch("decode.fused", self._fused_loop, logits, kc,
+                              vc, S, eos, max_new - 1, sample, temperature,
+                              seed).cpu().numpy()
 
     def _generate_per_token(self, ids, max_new, eos, sample, temperature,
                             seed):
@@ -1342,8 +1471,8 @@ class LlamaDecoder:
             out.append(nxt[:, None])
             if (eos is not None and done.all()) or i == max_new - 1:
                 break
-            self.dispatch_count += 1
-            logits = self._fwd(self._ids(nxt[:, None]), kc, vc, S + i)
+            logits = self._dispatch("decode.step", self._fwd,
+                                    self._ids(nxt[:, None]), kc, vc, S + i)
         return np.concatenate(out, axis=1)
 
     @torch.inference_mode()
@@ -1368,10 +1497,25 @@ class LlamaDecoder:
         ``decode_speculative_tokens`` flag) drafts a round: two prefills
         and one decode dispatch (per round with ``decode_fallback``, per
         chunk with ``chunk_size``); greedy tokens equal plain greedy
-        decoding, and ``last_spec_stats`` holds the acceptance counts."""
+        decoding, and ``last_spec_stats`` holds the acceptance counts.
+
+        Dispatch failures walk the degradation ladder (the JAX package's:
+        speculative -> chunked -> fused -> per-token, each rung present
+        as the arguments and ``decode_fallback`` allow) when
+        ``FLAGS_resilience_auto_degrade`` is on: a transient error that
+        outlives its retries steps down with a ``DegradationEvent``; a
+        fatal one propagates as it is; an exhausted ladder (or
+        auto-degrade off) dumps the flight recorder's postmortem and
+        raises ``DecodeFailedError``. Greedy levels give the same tokens.
+        The result's ``.resilience`` (also ``last_resilience``) holds the
+        level, the requested level, the retries, the degradations and
+        every event."""
         eos = _normalize_eos(eos_token_id)
         ids_np = np.asarray(input_ids)
         B, S = ids_np.shape
+        # admission hook: batch-conditional faults fire here, before any
+        # device work
+        fault_injector.on_call("decode.generate", batch=B)
         if S + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {S} + {max_new_tokens} new tokens "
                              f"exceeds max_len {self.max_len}")
@@ -1379,7 +1523,11 @@ class LlamaDecoder:
             return ids_np
         K = self._resolve_k(draft_model, num_speculative_tokens,
                             draft_quant)
-        eng = None
+        sample = _sample_spec(do_sample, top_k, top_p)
+        ids = self._ids(ids_np)
+        fallback = decode_fallback_active()
+        args = (ids, max_new_tokens, eos, sample, temperature, seed)
+        ladder = []
         if K:
             if S + max_new_tokens + K > self.max_len:
                 raise ValueError(
@@ -1388,39 +1536,68 @@ class LlamaDecoder:
                     f"exceeds max_len {self.max_len}; build the decoder "
                     f"with more slack")
             eng = self._spec_engine(draft_model, draft_quant)
-        sample = _sample_spec(do_sample, top_k, top_p)
-        ids = self._ids(ids_np)
-        fallback = decode_fallback_active()
-        self.last_spec_stats = None
-        if eng is not None:
-            level = "speculative"
             if chunk_size is not None and not fallback:
-                toks = self._generate_chunked_spec(
-                    ids, max_new_tokens, eos, sample, temperature, seed,
-                    draft_model, draft_quant, K, chunk_size)
+                ladder.append(("speculative", lambda: (
+                    self._generate_chunked_spec(*args, draft_model,
+                                                draft_quant, K,
+                                                chunk_size))))
             else:
                 gen = (self._generate_speculative_fallback if fallback
                        else self._generate_speculative)
-                toks = gen(ids, max_new_tokens, eos, sample, temperature,
-                           seed, eng, K)
-        elif fallback:
-            level = "per_token"
-            toks = self._generate_per_token(ids, max_new_tokens, eos,
-                                            sample, temperature, seed)
-        elif chunk_size is not None:
-            level = "chunked"
-            toks = self._generate_chunked(ids, max_new_tokens, eos, sample,
-                                          temperature, seed, chunk_size)
-        else:
-            level = "fused"
-            toks = self._generate_fused(ids, max_new_tokens, eos, sample,
-                                        temperature, seed)
+                ladder.append(("speculative", lambda: gen(*args, eng, K)))
+        if chunk_size is not None and not fallback:
+            ladder.append(("chunked", lambda: self._generate_chunked(
+                *args, chunk_size)))
+        if not fallback:
+            ladder.append(("fused", lambda: self._generate_fused(*args)))
+        ladder.append(("per_token",
+                       lambda: self._generate_per_token(*args)))
+
+        self._events = []
+        self.last_resilience = None
+        # cleared before the ladder runs: a speculative rung that fails
+        # must not leave an earlier call's acceptance counts behind
+        self.last_spec_stats = None
+        degradations = []
+        toks, level = None, None
+        for li, (name, run) in enumerate(ladder):
+            try:
+                toks = run()
+                level = name
+                break
+            except Exception as e:
+                if classify_error(e) != "transient":
+                    raise
+                if (li == len(ladder) - 1
+                        or not flags.resilience_auto_degrade):
+                    obs.record_crash(
+                        "decode.ladder_exhausted", error=e,
+                        extra={"site": "decode.generate",
+                               "failed_level": name,
+                               "degradations": [d.as_dict()
+                                                for d in degradations]})
+                    raise DecodeFailedError(
+                        f"decode failed at ladder level {name!r} with no "
+                        f"further fallback: {str(e)[:300]}",
+                        events=list(self._events), last_error=e) from e
+                ev = DegradationEvent(
+                    site="decode.generate", from_level=name,
+                    to_level=ladder[li + 1][0],
+                    error_class=type(e).__name__, error=str(e)[:300])
+                record_event(ev)
+                self._events.append(ev)
+                degradations.append(ev)
         if eos is not None:
             toks = _trim_after_eos(toks, eos)
         out = np.concatenate([ids_np, toks.astype(ids_np.dtype)], axis=1)
-        self.last_resilience = {"level": level, "requested_level": level,
-                                "retries": 0, "degradations": [],
-                                "events": []}
+        self.last_resilience = {
+            "level": level,
+            "requested_level": ladder[0][0],
+            "retries": sum(1 for e in self._events
+                           if getattr(e, "kind", "") == "retry"),
+            "degradations": [e.as_dict() for e in degradations],
+            "events": [e.as_dict() for e in self._events],
+        }
         return GenerateResult.wrap(out, self.last_resilience)
 
 
@@ -1570,7 +1747,7 @@ def _ring_splice(st: DecodeState, ring: AdmissionRing) -> DecodeState:
         return torch.where(sel, staged[src], carry)
 
     spec = {}
-    if ring.dkc is not None:
+    if ring.dkc is not None and st.dkc is not None:
         _row_scatter(ring.carry_dkc, ring.dkc, tgt)
         _row_scatter(ring.carry_dvc, ring.dvc, tgt)
         spec = dict(tok=torch.where(has, -1, st.tok),

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from paddle_tpu_torch.obs import cost as _cost
 from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["supported", "split_for", "decode_attention",
@@ -141,4 +142,7 @@ def decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
         raise RuntimeError(f"decode_attention launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     launches += 1
+    # the ctypes launch is invisible to FlopCounterMode: its own count,
+    # QK^T and PV over the cache length, while a cost pass runs
+    _cost.add_flops(4 * B * H * L * D)
     return out

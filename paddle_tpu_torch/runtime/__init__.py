@@ -1,2 +1,2 @@
-"""Runtime support of the port: typed failures, write-fault injection and
-result carriers."""
+"""Runtime support of the port: typed failures and events, the retry
+loop, fault injection and result carriers."""

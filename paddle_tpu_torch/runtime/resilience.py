@@ -1,37 +1,154 @@
-"""Typed failures, write-fault injection and the decode result carrier.
+"""Resilience layer: typed events and failures, the retry loop, fault
+injection and the decode result carrier.
 
-Counterpart of ``paddle_tpu/runtime/resilience.py`` (a copy of the parts
-the port serves: the module imports nothing of the JAX package). It holds
-the typed errors of snapshot/restore, row migration and deadlines
-(``CorruptCheckpointError``, ``SlabTransferError``,
-``DeadlineExceededError``, ``InjectedFault``), the write side of the
-plan-driven ``FaultInjector`` (``torn_write`` and ``bit_flip`` rules, read
-by ``atomic_write_bytes``) and ``GenerateResult``. The injector's call,
-RPC and heartbeat hooks and the retry and degradation ladder are not
-ported yet (ROADMAP.md queue 1, items [9] and [11]); a result's record
-names the decode level that produced it.
+Counterpart of ``paddle_tpu/runtime/resilience.py`` (its own copy: the
+module imports nothing of the JAX package). One vocabulary for every
+failure path of the port:
+
+- **Typed events** -- ``RetryEvent``, ``DegradationEvent`` and
+  ``FaultEvent``, logged process-wide (``record_event`` /
+  ``drain_events`` / ``recent_events``) and, with obs on, mirrored into
+  the obs registry and tracer.
+- **resilient_call** -- the one retry loop: ``classify_error`` sorts an
+  exception into transient (the JAX package's markers, verbatim:
+  ``UNAVAILABLE``, ``DEADLINE_EXCEEDED``, ``ABORTED``, connection drops;
+  "out of memory" / ``RESOURCE_EXHAUSTED`` only in the ``"setup"``
+  phase) or fatal, and retries transients with exponential backoff.
+  On a card the markers meet few real errors: a sticky CUDA error
+  (illegal address, launch failure) matches none of them and is fatal,
+  rightly, since the context is dead, and ``torch.cuda.OutOfMemoryError``
+  ("out of memory") is transient only during setup. So on the card the
+  transient errors the ladder absorbs are the injected ones.
+- **FaultInjector** -- a deterministic plan of rules: ``dispatch_error``
+  and ``oom`` at the decoder's dispatch sites (``on_call``, fired before
+  a dispatch touches its carry), ``torn_write`` and ``bit_flip`` at
+  ``atomic_write_bytes``. The RPC and heartbeat kinds wait for the router
+  (ROADMAP.md [11]) and are refused. The port's injector reads no
+  environment plan (the JAX package's ``PADDLE_TPU_FAULT_PLAN`` is its
+  own): ``configure`` / ``clear`` install one.
+- **Typed failures** -- ``DecodeFailedError`` (every rung of the ladder
+  failed), ``CorruptCheckpointError``, ``SlabTransferError``,
+  ``DeadlineExceededError``, ``InjectedFault``.
+
+The degradation ladder itself lives in ``inference/generate.py``
+(speculative -> chunked -> fused -> per-token) and
+``serving/engine.py`` (speculative -> chunked -> the per-token rung).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import fnmatch
 import json
 import os
 import threading
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["InjectedFault", "CorruptCheckpointError",
-           "DeadlineExceededError", "SlabTransferError", "FaultEvent",
-           "FaultInjector", "fault_injector", "atomic_write_bytes",
-           "GenerateResult"]
+from paddle_tpu_torch.flags import flags as _flags
+
+__all__ = ["RetryEvent", "DegradationEvent", "FaultEvent",
+           "InjectedFault", "CorruptCheckpointError", "DecodeFailedError",
+           "DeadlineExceededError", "SlabTransferError",
+           "TRANSIENT_MARKERS", "SETUP_TRANSIENT_MARKERS",
+           "classify_error", "resilient_call", "FaultInjector",
+           "fault_injector", "atomic_write_bytes", "record_event",
+           "drain_events", "recent_events", "GenerateResult"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryEvent:
+    """One transient failure absorbed by ``resilient_call``."""
+    site: str
+    attempt: int            # 1-based attempt that failed
+    max_attempts: int
+    error_class: str
+    error: str              # truncated message
+    delay_s: float          # backoff slept before the next attempt
+    kind: str = "retry"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradationEvent:
+    """One automatic step down the decode ladder."""
+    site: str
+    from_level: str
+    to_level: str
+    error_class: str
+    error: str
+    kind: str = "degradation"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One injected fault firing (the injector's own audit record)."""
+    site: str
+    fault: str              # plan rule kind
+    detail: str
+    kind: str = "fault"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+_EVENTS: "collections.deque" = collections.deque(maxlen=512)
+_EVENTS_LOCK = threading.Lock()
+_EVENT_COUNTERS = {"retry": "resilience.retries",
+                   "degradation": "resilience.degradations",
+                   "fault": "resilience.faults_injected"}
+
+
+def record_event(ev) -> None:
+    """Append a typed event to the bounded process-wide log. With obs on
+    it also counts in the global obs registry (``resilience.retries`` /
+    ``.degradations`` / ``.faults_injected``) and lands as an instant
+    event on the trace; an obs failure is swallowed here."""
+    with _EVENTS_LOCK:
+        _EVENTS.append(ev)
+    try:
+        from paddle_tpu_torch import obs
+        if obs.enabled():
+            kind = getattr(ev, "kind", "event")
+            obs.metrics.counter(
+                _EVENT_COUNTERS.get(kind, f"resilience.{kind}"),
+                "typed resilience events by kind").inc()
+            obs.tracer.event(f"resilience.{kind}",
+                             site=getattr(ev, "site", ""),
+                             **{k: v for k, v in ev.as_dict().items()
+                                if k in ("from_level", "to_level",
+                                         "attempt", "error_class",
+                                         "fault")})
+    except Exception:
+        pass
+
+
+def drain_events() -> List[Any]:
+    """Pop and return every logged event."""
+    with _EVENTS_LOCK:
+        out = list(_EVENTS)
+        _EVENTS.clear()
+    return out
+
+
+def recent_events() -> List[Any]:
+    """The logged events, left in place."""
+    with _EVENTS_LOCK:
+        return list(_EVENTS)
 
 
 class InjectedFault(RuntimeError):
     """Raised by FaultInjector hooks. The message STARTS with the status
-    code (``DATA_LOSS: ...``), as a backend error's does."""
+    code (``UNAVAILABLE: ...``), so the marker classification treats
+    injected and real errors alike."""
 
     def __init__(self, message: str, code: str = "UNAVAILABLE"):
         super().__init__(message)
@@ -42,6 +159,17 @@ class CorruptCheckpointError(RuntimeError):
     """A checkpoint or snapshot failed integrity verification (torn file,
     sha256 mismatch, missing manifest, a carry layout that does not fit)
     and is refused rather than resumed."""
+
+
+class DecodeFailedError(RuntimeError):
+    """Every rung of the decode degradation ladder failed. Carries the
+    resilience events of the attempt and the last underlying error."""
+
+    def __init__(self, message: str, events: Optional[List[Any]] = None,
+                 last_error: Optional[BaseException] = None):
+        super().__init__(message)
+        self.events = list(events or [])
+        self.last_error = last_error
 
 
 class DeadlineExceededError(RuntimeError):
@@ -69,23 +197,111 @@ class SlabTransferError(RuntimeError):
         self.part = part
 
 
-@dataclasses.dataclass(frozen=True)
-class FaultEvent:
-    """One injected fault firing (the injector's own audit record)."""
-    site: str
-    fault: str              # plan rule kind
-    detail: str
-    kind: str = "fault"
+# markers of transient trouble in any phase (the JAX package's, verbatim)
+TRANSIENT_MARKERS: Tuple[str, ...] = (
+    "UNAVAILABLE",
+    "DEADLINE_EXCEEDED",
+    "ABORTED",
+    "socket closed",
+    "Socket closed",
+    "Connection reset",
+    "connection reset",
+    "Failed to connect",
+    "failed to connect",
+    "context deadline exceeded",
+)
+
+# transient only while setting up (a capture or a first dispatch, where a
+# neighbour's spike can hold memory); in steady state the same error
+# means the work does not fit
+SETUP_TRANSIENT_MARKERS: Tuple[str, ...] = (
+    "RESOURCE_EXHAUSTED",
+    "Out of memory",
+    "out of memory",
+)
 
 
-_WRITE_KINDS = ("torn_write", "bit_flip")
+def classify_error(exc: BaseException, phase: str = "steady") -> str:
+    """``"transient"`` (worth a backoff retry) or ``"fatal"``, from the
+    message's markers. ``phase``: ``"setup"`` or ``"steady"``."""
+    msg = str(exc)
+    if any(m in msg for m in TRANSIENT_MARKERS):
+        return "transient"
+    if phase == "setup" and any(m in msg for m in SETUP_TRANSIENT_MARKERS):
+        return "transient"
+    return "fatal"
+
+
+def resilient_call(fn: Callable, *args,
+                   retries: Optional[int] = None,
+                   backoff: Optional[float] = None,
+                   deadline_s: Optional[float] = None,
+                   jitter: float = 0.0,
+                   phase: str = "steady",
+                   site: str = "call",
+                   classify: Optional[Callable] = None,
+                   on_event: Optional[Callable] = None,
+                   sleep: Callable[[float], None] = time.sleep,
+                   **kwargs):
+    """Call ``fn(*args, **kwargs)``, retrying transient errors up to
+    ``retries`` times with backoff ``backoff * 2**(i-1)`` seconds (times
+    a uniform factor in ``[1, 1 + jitter)`` when ``jitter > 0``), within
+    ``deadline_s`` of elapsed time when given. A fatal error, and the last
+    transient one once the budget is spent, propagates unchanged. Each
+    absorbed failure emits a ``RetryEvent`` to the process log and to
+    ``on_event``. Defaults: ``FLAGS_resilience_retries`` /
+    ``_backoff_s`` / ``_deadline_s`` (0 = no deadline)."""
+    if retries is None:
+        retries = int(_flags.resilience_retries)
+    if backoff is None:
+        backoff = float(_flags.resilience_backoff_s)
+    if deadline_s is None:
+        d = float(_flags.resilience_deadline_s)
+        deadline_s = d if d > 0 else None
+    classify = classify or classify_error
+    attempts = max(1, retries + 1)
+    t0 = time.monotonic()
+    for i in range(1, attempts + 1):
+        try:
+            return fn(*args, **kwargs)
+        except Exception as e:
+            if i >= attempts or classify(e, phase) != "transient":
+                raise
+            delay = backoff * (2 ** (i - 1))
+            if jitter > 0:
+                import random
+                delay *= 1.0 + random.random() * float(jitter)
+            if deadline_s is not None and \
+                    (time.monotonic() - t0) + delay > deadline_s:
+                raise
+            ev = RetryEvent(site=site, attempt=i, max_attempts=attempts,
+                            error_class=type(e).__name__,
+                            error=str(e)[:300], delay_s=delay)
+            record_event(ev)
+            if on_event is not None:
+                on_event(ev)
+            sleep(delay)
+
+
+_PORTED_KINDS = ("dispatch_error", "oom", "torn_write", "bit_flip")
 
 
 class FaultInjector:
-    """Deterministic, plan-driven injection of write faults.
+    """Deterministic, plan-driven fault injection.
 
-    A plan is a list of rules (dicts); paths match with fnmatch patterns
-    against the file's name or its whole path:
+    A plan is a list of rules (dicts); sites and paths match with fnmatch
+    patterns (a path against the file's name or its whole path), and the
+    call schedules are exact counters, so a plan fires at the same
+    instant on every run:
+
+    - ``{"kind": "dispatch_error", "site": "decode.chunk", "call": 3,
+      "times": 1, "code": "UNAVAILABLE"}`` -- ``on_call`` raises an
+      ``InjectedFault`` on the Nth matching call (1-based; default the
+      first) and the ``times - 1`` calls after it (default 1).
+    - ``{"kind": "oom", "site": "decode.*", "above_batch": 8}`` --
+      ``RESOURCE_EXHAUSTED`` whenever an admission hook (an ``on_call``
+      given ``batch``) sees a batch above the bound (bound the firings
+      with ``times``).
 
     - ``{"kind": "torn_write", "path": "*state.npz", "at_byte": 100}`` —
       :func:`atomic_write_bytes` writes only the first ``at_byte`` bytes
@@ -95,10 +311,10 @@ class FaultInjector:
       bit of the written bytes (default the middle byte): silent media
       corruption that the sha256 manifests must catch on load.
 
-    Each rule fires ``times`` times (default 1). ``configure(plan)`` /
+    A write rule fires ``times`` times (default 1). ``configure(plan)`` /
     ``clear()`` are the only way to install a plan. Every firing appends a
-    :class:`FaultEvent` to ``self.fired``. Rules of the JAX injector's
-    other kinds (dispatch, heartbeat, RPC) have no injection site in the
+    :class:`FaultEvent` to ``self.fired`` and the process event log. The
+    JAX injector's heartbeat and RPC kinds have no injection site in the
     port yet, so ``configure`` refuses them."""
 
     def __init__(self):
@@ -109,22 +325,20 @@ class FaultInjector:
 
     def configure(self, plan) -> "FaultInjector":
         """Install a plan (list of rule dicts, a single dict, or a JSON
-        string) and reset all schedule counters. Only the write kinds
-        (``torn_write``, ``bit_flip``) are ported; any other kind raises
-        ``NotImplementedError``, so a drill never passes on a rule that
-        cannot fire."""
+        string) and reset all schedule counters. The heartbeat and RPC
+        kinds raise ``NotImplementedError``, so a drill never passes on a
+        rule that cannot fire."""
         if isinstance(plan, str):
             plan = json.loads(plan)
         if isinstance(plan, dict):
             plan = [plan]
         rules = [dict(r) for r in (plan or [])]
         for rule in rules:
-            if rule.get("kind") not in _WRITE_KINDS:
+            if rule.get("kind") not in _PORTED_KINDS:
                 raise NotImplementedError(
                     f"fault kind {rule.get('kind')!r} is not ported yet: "
-                    "dispatch faults wait for the degradation ladder "
-                    "(ROADMAP.md [9]), RPC and heartbeat faults for the "
-                    "router (ROADMAP.md [11])")
+                    "RPC and heartbeat faults wait for the router "
+                    "(ROADMAP.md queue 1: router)")
         with self._lock:
             self._rules = rules
             self._counts = {}
@@ -138,8 +352,51 @@ class FaultInjector:
         return bool(self._rules)
 
     def _fire(self, site: str, rule: dict, detail: str) -> None:
-        self.fired.append(FaultEvent(site=site, fault=rule["kind"],
-                                     detail=detail))
+        ev = FaultEvent(site=site, fault=rule["kind"], detail=detail)
+        self.fired.append(ev)
+        record_event(ev)
+
+    def on_call(self, site: str, batch: Optional[int] = None) -> None:
+        """Dispatch-shaped injection point, fired before a dispatch
+        touches its carry: raises ``InjectedFault`` where a
+        ``dispatch_error`` rule schedules a failure. ``batch`` (given by
+        admission hooks such as ``decode.generate``, not by dispatch
+        sites) arms the ``oom`` rules instead, so a plan of dispatch
+        errors never trips an admission check, and the other way round."""
+        if not self._rules:
+            return
+        with self._lock:
+            for idx, rule in enumerate(self._rules):
+                kind = rule.get("kind")
+                if not fnmatch.fnmatchcase(site, rule.get("site", "*")):
+                    continue
+                if kind == "oom":
+                    if batch is None or batch <= int(rule["above_batch"]):
+                        continue
+                    times = rule.get("times")
+                    n = self._counts.get(idx, 0)
+                    if times is not None and n >= int(times):
+                        continue
+                    self._counts[idx] = n + 1
+                    code = rule.get("code", "RESOURCE_EXHAUSTED")
+                    detail = (f"batch {batch} > {rule['above_batch']} "
+                              f"at {site}")
+                    self._fire(site, rule, detail)
+                    raise InjectedFault(
+                        f"{code}: injected OOM ({detail})", code=code)
+                if kind != "dispatch_error" or batch is not None:
+                    continue
+                n = self._counts.get(idx, 0) + 1
+                self._counts[idx] = n
+                first = int(rule.get("call", 1))
+                times = int(rule.get("times", 1))
+                if first <= n < first + times:
+                    code = rule.get("code", "UNAVAILABLE")
+                    detail = f"call {n} at {site}"
+                    self._fire(site, rule, detail)
+                    raise InjectedFault(
+                        f"{code}: injected transient dispatch error "
+                        f"({detail})", code=code)
 
     def on_write(self, path: str, data: bytes) -> Tuple[bytes, bool]:
         """Write-shaped injection point. Returns ``(bytes_to_write,
@@ -152,6 +409,8 @@ class FaultInjector:
         with self._lock:
             for idx, rule in enumerate(self._rules):
                 kind = rule["kind"]
+                if kind not in ("torn_write", "bit_flip"):
+                    continue
                 pat = rule.get("path", "*")
                 if not (fnmatch.fnmatchcase(name, pat)
                         or fnmatch.fnmatchcase(path, pat)):
@@ -209,7 +468,8 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
 
 class GenerateResult(np.ndarray):
     """An ``np.ndarray`` of tokens that also carries the record of the
-    generate/serve call that produced it (``.resilience``)."""
+    generate/serve call that produced it (``.resilience``: the final
+    ladder level, retries, degradations and typed events)."""
 
     resilience: Optional[dict] = None
 

@@ -75,15 +75,33 @@ every captured chunk graph hold that carry's addresses.
 ``snapshot_every_chunks=`` snapshots on a chunk cadence and
 ``drain(deadline_s=)`` snapshots instead of discarding unfinished work.
 
+The degradation ladder (the JAX engine's ``_dispatch_chunk``): a chunk
+dispatch retries transient errors (the decoder's guard); a speculative
+chunk that still fails demotes the carry once to the plain chunk
+(``spec_demote``); a plain chunk that still fails runs its T steps on the
+per-token rung (one-step chunks, ``step_dispatches``) over the same
+carry, whose fault fired before the failed chunk touched it. A fatal
+error, auto-degrade off, or a rung that dies harvests first the rows
+whose host tokens already finish them (their prefix slabs unpinned) and
+records the rest in the flight recorder's postmortem, then raises. Each
+result's record names its rung, retries and degradations, from the
+events of the dispatches that row rode.
+
+Accounting lives in the engine's ``registry`` (an obs
+``MetricsRegistry`` under the JAX engine's names; latency percentiles
+from each histogram's newest 4096 samples), which ``metrics()`` and
+``slo_counters()`` read and ``start_exporter`` serves; with obs on the
+engine also emits each request's timeline (queued, admitted, finished
+events and a lifetime span).
+
 ``step`` (admission, the chunk dispatch, harvest) runs under
 ``torch.inference_mode()``, so serving records no autograd graph; so do
 the methods that write the carry between steps.
 
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: the obs exporter and registry
-([10]), meshes ([13]), AOT bundle backends ([12]), the HTTP front-end and
-request-keyed keys ([11]) and the degradation ladder ([9]: retries, the
-per-token rung and the speculative-to-chunked demotion).
+``NotImplementedError`` when asked for: meshes ([13]), AOT bundle
+backends ([12]), the HTTP front-end, replica tags and request-keyed keys
+([11]).
 """
 
 from __future__ import annotations
@@ -99,6 +117,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch import obs
 from paddle_tpu_torch import random as rnd
 from paddle_tpu_torch.distributed.checkpoint import _np_restore, _np_storable
 from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
@@ -106,15 +125,21 @@ from paddle_tpu_torch.inference.generate import (AdmissionRing, DecodeState,
                                                  _normalize_eos, _not_ported,
                                                  _row_copy, _sample_spec,
                                                  _zero_cache)
+from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.inference.sharding import MeshMismatchError
+from paddle_tpu_torch.obs.metrics import MetricsRegistry
 from paddle_tpu_torch.quantization.kv_cache import (QuantMismatchError,
                                                     canonical_quant,
                                                     is_quantized_kv)
 from paddle_tpu_torch.runtime.resilience import (CorruptCheckpointError,
                                                  DeadlineExceededError,
+                                                 DecodeFailedError,
+                                                 DegradationEvent,
                                                  GenerateResult,
                                                  SlabTransferError,
-                                                 atomic_write_bytes)
+                                                 atomic_write_bytes,
+                                                 classify_error,
+                                                 record_event)
 from paddle_tpu_torch.serving.lora import (AdapterVersionError,
                                            UnknownAdapterError)
 from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, SlabOps,
@@ -141,6 +166,122 @@ _HIT_CLASSES = ("full", "partial", "miss")
 _WIRE = {"logits": np.float32, "pos": np.int32, "keys": np.uint32,
          "done": np.bool_, "eos": np.int32, "temp": np.float32}
 _SNAP_KIND = "paddle_tpu.decode_snapshot"
+# the engine's counters under the JAX engine's registry names:
+# short name -> (name, help)
+_COUNTERS = {
+    "prefill": ("serving.prefill_dispatches",
+                "admission prefills (exactly one per admitted request)"),
+    "chunk": ("serving.chunk_dispatches",
+              "fused decode_chunk dispatches (one per step with live rows)"),
+    "step": ("serving.step_dispatches",
+             "per-token degradation-rung dispatches"),
+    "degradations": ("serving.degradations",
+                     "chunk->per_token degradations"),
+    "slot_steps": ("serving.slot_steps",
+                   "slot-steps run (ALL rows compute every chunk step — the "
+                   "honest useful-token-occupancy denominator)"),
+    "done": ("serving.requests_completed", ""),
+    "prefix_full": ("serving.prefix.hits_full",
+                    "admissions served ENTIRELY from a cached slab: zero "
+                    "prefill dispatches"),
+    "prefix_partial": ("serving.prefix.hits_partial",
+                       "admissions that prefilled only the uncached "
+                       "suffix"),
+    "prefix_miss": ("serving.prefix.misses",
+                    "cold admissions (cache populated on the way through)"),
+    "prefix_insert": ("serving.prefix.insertions",
+                      "slabs inserted into the pool"),
+    "prefix_evict": ("serving.prefix.evictions",
+                     "LRU slabs evicted past the byte budget"),
+    "tokens_saved": ("serving.prefill_tokens_saved",
+                     "prompt tokens whose prefill compute a cached prefix "
+                     "avoided"),
+    "batched_groups": ("serving.admission.batched_groups",
+                       "admission rounds that batched several same-bucket "
+                       "(suffix-)prefills into one dispatch"),
+    "disp_saved": ("serving.admission.dispatches_saved",
+                   "prefill dispatches avoided vs one-per-request admission "
+                   "(batched groups + full-prefix hits)"),
+    "reordered": ("serving.admission.cache_reordered",
+                  "queued requests admitted ahead of an earlier-submitted "
+                  "same-priority peer because their prefix digest "
+                  "maximized slab reuse (cache-aware admission ordering)"),
+    "shed_deadline": ("serving.shed.deadline",
+                      "submits refused typed: the deadline was already "
+                      "expired (shed before any prefill)"),
+    "shed_backpressure": ("serving.shed.backpressure",
+                          "submits refused typed: estimated queue delay "
+                          "already blows the request's deadline"),
+    "shed_queue_deadline": ("serving.shed.queue_deadline",
+                            "queued requests shed at admission: deadline "
+                            "expired while waiting (no prefill was ever "
+                            "dispatched)"),
+    "deadline_expired_rows": ("serving.deadline.expired_rows",
+                              "in-flight rows frozen at a chunk boundary "
+                              "past their deadline and returned partial "
+                              "(flagged deadline_expired)"),
+    "snapshots": ("serving.snapshots",
+                  "resumable DecodeState snapshots written "
+                  "(crash-recovery cadence + graceful drain)"),
+    "corrupt_rows": ("serving.corrupt_rows",
+                     "rows whose harvested logits went NaN/Inf: frozen "
+                     "ALONE and returned partial (flagged corrupt_row)"),
+    "migrated_out": ("serving.rows_migrated_out",
+                     "requests extracted off this engine by a live "
+                     "migration (ownership leaves with the payload)"),
+    "migrated_in": ("serving.rows_migrated_in",
+                    "requests absorbed into this engine by a live "
+                    "migration"),
+    "ring_staged": ("serving.admission.ring_staged",
+                    "admitted rows staged into the device ring (their "
+                    "prefill dispatch scattered the row state "
+                    "device-side)"),
+    "ring_scattered": ("serving.admission.ring_scattered",
+                       "staged rows spliced into the carry by a chunk "
+                       "program's ring prologue (no host round-trip, no "
+                       "extra dispatch)"),
+    "ring_full": ("serving.admission.ring_full",
+                  "admissions deferred because the ring had no free row "
+                  "(un-admitted and re-queued at their tier's head)"),
+    "host_scattered": ("serving.admission.host_scattered",
+                       "legacy host row-scatter admissions (prefix-cache "
+                       "paths; 0 whenever the device ring serves "
+                       "admission)"),
+    "draft_prefill": ("serving.draft_prefill_dispatches",
+                      "draft-model admission prefills staged into the "
+                      "ring's draft caches (one per admission group under "
+                      "speculation)"),
+    "spec_rounds": ("serving.spec.rounds",
+                    "draft/verify/accept rounds run for live rows"),
+    "spec_accepted": ("serving.spec.accepted_drafts",
+                      "draft tokens accepted by verification"),
+    "spec_overflow": ("serving.spec.overflow_tokens",
+                      "tokens committed past the chunk boundary by a round "
+                      "that straddled it"),
+    "adapter_swaps": ("serving.adapter.swaps",
+                      "adapter hot-swaps applied between chunks (stacks "
+                      "re-merged after an update() once no in-flight row "
+                      "pinned the old revision)"),
+}
+# histograms: short name -> (name, help, buckets or None for the default)
+_HISTOGRAMS = {
+    "queue_delay_s": ("serving.queue_delay_s", "submit -> admission wait",
+                      None),
+    "latency_s": ("serving.request_latency_s", "submit -> finished", None),
+    "occupancy": ("serving.occupancy",
+                  "occupied-slot fraction per chunk dispatch",
+                  [i / 8 for i in range(1, 9)]),
+    "queue_depth": ("serving.queue_depth",
+                    "queued requests observed per step",
+                    [0, 1, 2, 4, 8, 16, 32, 64, 128]),
+    "ttft_s": ("serving.ttft_s", "time to first token (admission -> first "
+               "chunk completion)", None),
+    "tpot_s": ("serving.tpot_s", "per-request mean inter-token time after "
+               "the first token", None),
+    **{f"admission_s.{c}": (f"serving.admission_s.{c}",
+                            f"per-request admission wall time, {c}-hit "
+                            f"class", None) for c in _HIT_CLASSES},
+}
 _MIGRATION_KIND = "paddle_tpu.row_migration"
 
 
@@ -386,6 +527,28 @@ class _DecoderBackend:
     def decode_chunk(self, st: DecodeState, chunk_size: int):
         return self.dec._chunk_decode(st, int(chunk_size), self.sample)
 
+    # -- the degradation ladder ---------------------------------------------
+    def decode_step_ring(self, st: DecodeState, splice):
+        """One per-token rung step (``decode.chunk_step``) after the ring's
+        splice: the pending one on the rung's first step, an empty one
+        after it (every ring row's slot -1)."""
+        self.ring.load(**splice)
+        return self.dec._chunk_step(st, self.sample, self.ring)
+
+    def decode_step(self, st: DecodeState):
+        return self.dec._chunk_step(st, self.sample)
+
+    def spec_demote(self, st: DecodeState) -> DecodeState:
+        """Speculative -> chunked: commit each row's pending token with
+        one counted masked forward and drop the draft side of the carry."""
+        return self.dec.spec_demote(st)
+
+    def event_count(self) -> int:
+        return len(self.dec._events)
+
+    def events_since(self, n: int) -> list:
+        return list(self.dec._events[n:])
+
 
 class ServingEngine:
     """Slot-admission continuous-batching engine.
@@ -396,7 +559,9 @@ class ServingEngine:
     are ``GenerateResult`` arrays (prompt + generated tokens, trimmed at
     the request's eos / budget) whose ``.resilience`` record carries the
     serving stats of that request (queue delay, latency, chunks, slot,
-    prefix-cache hit class, speculative counts).
+    prefix-cache hit class, speculative counts) and its rung on the
+    degradation ladder (``level``, ``retries``, ``degradations``,
+    ``events``).
 
     Greedy tokens equal a solo ``LlamaDecoder.generate`` of the same
     request: admission, chunk slicing, batch neighbours, the prefix
@@ -430,7 +595,9 @@ class ServingEngine:
     write a resumable snapshot into ``snapshot_dir`` every N chunk
     dispatches (not with a draft model, whose carry the payload does not
     hold); ``snapshot_dir`` is also ``drain(deadline_s=)``'s default
-    destination. The engine runs on its decoder's device."""
+    destination. ``registry`` holds the engine's counters, gauges and
+    histograms; ``start_exporter(port)`` serves them over HTTP. The
+    engine runs on its decoder's device."""
 
     def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
@@ -478,9 +645,6 @@ class ServingEngine:
             {} if adapter_store is None
             else {n: adapter_store.revision(n)
                   for n in adapter_store.names()})
-        self._adapters_active = (0 if adapter_store is None
-                                 else len(adapter_store))
-        self._adapter_rows: Dict[str, int] = collections.Counter()
         if self._spec_configured and (snapshot_dir or snapshot_every_chunks):
             raise ValueError(
                 "speculative serving does not snapshot yet: the carry's "
@@ -527,14 +691,45 @@ class ServingEngine:
         self._last_nv: Optional[np.ndarray] = None
         self._next_id = 0
         self._results: Dict[int, Any] = {}
-        self._n = collections.Counter()
-        self._spec_accept_mean = 0.0
-        self._samples: Dict[str, List[float]] = {
-            k: [] for k in ("queue_delay_s", "latency_s", "ttft_s",
-                            "tpot_s", "occupancy", "queue_depth")
-            + tuple(f"admission_s.{c}" for c in _HIT_CLASSES)}
-        self._queue_depth_peak = 0
-        self._latency_sum = 0.0     # running sum of latency_s: O(1) mean
+        # the engine's own always-on registry: every count, gauge and
+        # latency distribution metrics() reports (histogram percentiles
+        # from the newest 4096 samples, as in the JAX engine)
+        self.registry = r = MetricsRegistry()
+        self._c = {k: r.counter(n, h) for k, (n, h) in _COUNTERS.items()}
+        self._h = {k: r.histogram(n, h, b)
+                   for k, (n, h, b) in _HISTOGRAMS.items()}
+        self._g_qdepth = r.gauge("serving.queue_depth_now", "")
+        self._g_prefix_bytes = r.gauge("serving.prefix.bytes_cached",
+                                       "live slab bytes in the pool")
+        self._g_prefix_slabs = r.gauge("serving.prefix.slabs",
+                                       "live slabs in the pool")
+        self._g_spec_accept_mean = r.gauge(
+            "serving.spec.acceptance_len_mean",
+            "cumulative accepted drafts per verify round")
+        self._g_k_now = r.gauge(
+            "serving.spec.k_now",
+            "the draft depth K the next speculative chunk dispatches with "
+            "(== num_speculative_tokens unless adaptive_k clamps it from "
+            "the live acceptance mean)")
+        if self._spec_configured:
+            self._g_k_now.set(self._b.K)
+        self._g_adapters_active = r.gauge(
+            "serving.adapter.active",
+            "adapters registered in this engine's AdapterStore")
+        if adapter_store is not None:
+            self._g_adapters_active.set(len(adapter_store))
+        self._c_adapter_rows: Dict[str, Any] = {}
+        self._last_prefix_stats = {"insertions": 0, "evictions": 0}
+        # the speculative rung: on until a failed speculative chunk
+        # demotes the carry to the plain chunk (one-way)
+        self._spec_active = self._spec_configured
+        self._exporter = None
+        # a ladder exhaustion's postmortem carries this registry and the
+        # prefix cache's pool (weakrefs)
+        obs.flight_recorder.add_registry("serving", self.registry)
+        if self.prefix_cache is not None:
+            obs.flight_recorder.add_state("serving.prefix_cache",
+                                          self.prefix_cache)
         # crash recovery: the snapshot cadence, the last snapshot (its
         # monotonic time and path) and the carry's decode steps, which the
         # JAX carry keeps as ``DecodeState.steps_done``
@@ -548,8 +743,6 @@ class ServingEngine:
         self._steps_done = 0
         self.slo_targets = {k: dict(v)
                             for k, v in (slo_targets or {}).items()}
-        # per-class SLO counts under the JAX registry's names
-        self._slo: Dict[str, int] = collections.Counter()
 
     @staticmethod
     def _resolve_prefix_cache(prefix_cache, bytes_, block):
@@ -570,22 +763,34 @@ class ServingEngine:
 
     @property
     def prefill_dispatches(self) -> int:
-        return self._n["prefill"]
+        return self._count("prefill")
 
     @property
     def chunk_dispatches(self) -> int:
-        return self._n["chunk"]
+        return self._count("chunk")
 
     @property
     def step_dispatches(self) -> int:
-        # the per-token degradation rung is not ported: always 0
-        return 0
+        return self._count("step")
+
+    def _count(self, name: str) -> int:
+        return int(self._c[name].value)
+
+    def _adapter_row_counter(self, name: str):
+        ctr = self._c_adapter_rows.get(name)
+        if ctr is None:
+            ctr = self._c_adapter_rows[name] = self.registry.counter(
+                f"serving.adapter.rows.{name}",
+                f"rows admitted for adapter {name!r} ('base' = no "
+                f"adapter) — mixed names across one chunk ARE the "
+                f"shared fused dispatch")
+        return ctr
 
     @property
     def host_scattered(self) -> int:
         """Admitted rows copied into the carry by the host-scatter route
         (the prefix cache's); 0 when the device ring serves admission."""
-        return self._n["host_scattered"]
+        return self._count("host_scattered")
 
     # -- multi-tenant LoRA --------------------------------------------------
     def _adapter_tag(self, name: Optional[str]) -> Optional[str]:
@@ -634,8 +839,8 @@ class ServingEngine:
         if err is not None:
             raise err
         self._b.refresh_adapters()
-        self._n["adapter_swaps"] += 1
-        self._adapters_active = len(store)
+        self._c["adapter_swaps"].inc()
+        self._g_adapters_active.set(len(store))
         self._served_rev = {n: store.revision(n) for n in store.names()}
         return True
 
@@ -700,13 +905,13 @@ class ServingEngine:
             deadline_s = float(deadline_s)
             if deadline_s <= 0:
                 # the cheapest shed: the budget is gone before any work
-                self._n["shed_deadline"] += 1
+                self._c["shed_deadline"].inc()
                 raise DeadlineExceededError(
                     f"request deadline ({deadline_s:.4f}s) already "
                     f"expired at submit; shed before any prefill")
             est = self.estimated_queue_delay_s()
             if est > deadline_s:
-                self._n["shed_backpressure"] += 1
+                self._c["shed_backpressure"].inc()
                 raise DeadlineExceededError(
                     f"estimated queue delay {est:.4f}s (depth "
                     f"{len(self.scheduler)} over {self.num_slots} "
@@ -731,8 +936,10 @@ class ServingEngine:
                 prompt, self.prefix_cache.block_tokens,
                 adapter=self._adapter_tag(adapter))[-1][1]
         self.scheduler.push(req)
-        self._queue_depth_peak = max(self._queue_depth_peak,
-                                     len(self.scheduler))
+        self._g_qdepth.set(len(self.scheduler))
+        obs.tracer.event("serving.request.queued", request=rid,
+                         prompt_len=len(prompt),
+                         max_new_tokens=int(max_new_tokens))
         return rid
 
     def estimated_queue_delay_s(self) -> float:
@@ -740,10 +947,10 @@ class ServingEngine:
         wait for a slot, (queued ahead / slots) admission waves at the
         mean request latency observed so far. 0.0 until a request has
         finished or while the queue is empty."""
-        n = len(self._samples["latency_s"])
-        if not n or not len(self.scheduler):
+        lat = self._h["latency_s"]
+        if not lat.count or not len(self.scheduler):
             return 0.0
-        return len(self.scheduler) / self.num_slots * (self._latency_sum / n)
+        return len(self.scheduler) / self.num_slots * lat.mean
 
     # -- the serving loop --------------------------------------------------
     @torch.inference_mode()
@@ -762,22 +969,26 @@ class ServingEngine:
                 and self._swap_blocker() is None):
             self.apply_adapter_swap()
         pre = self._enforce_deadlines(now)
-        self._samples["queue_depth"].append(len(self.scheduler))
+        self._h["queue_depth"].observe(len(self.scheduler))
         admitted = self.scheduler.admissions()
+        reordered = self.scheduler.cache_reordered - self._count("reordered")
+        if reordered > 0:
+            self._c["reordered"].inc(reordered)
         if admitted:
             self._admit_all(admitted, now)
+        self._g_qdepth.set(len(self.scheduler))
         occupied = self.scheduler.slots.occupied()
         if not occupied:
             return pre
-        self._samples["occupancy"].append(len(occupied) / self.num_slots)
-        toks = self._dispatch_chunk()
+        self._h["occupancy"].observe(len(occupied) / self.num_slots)
+        toks = self._dispatch_chunk(occupied)
         nv = self._last_nv
         t_chunk_done = time.monotonic()
         # finite guard: a row whose logits went NaN/Inf is frozen alone
         # and returned partial; its poison never reaches a neighbour
         row_finite = torch.isfinite(self.state.logits).all(-1).cpu().numpy()
         sr = sa = None
-        if self._spec_configured:
+        if self._spec_active:
             # the carry's per-row cumulative counts (reset at admission)
             sr = self.state.spec_rounds.cpu().numpy()
             sa = self.state.spec_accepted.cpu().numpy()
@@ -789,7 +1000,15 @@ class ServingEngine:
                 # the chunk that surfaced the corruption is dropped
                 seq = (np.concatenate(slot.tokens) if slot.tokens
                        else np.zeros((0,), np.int64))[:req.max_new_tokens]
-                self._n["corrupt_rows"] += 1
+                self._c["corrupt_rows"].inc()
+                obs.record_crash(
+                    "serving.corrupt_row",
+                    error=FloatingPointError(
+                        f"non-finite logits in carry row {i} (request "
+                        f"{req.id}) after chunk {slot.chunks}"),
+                    extra={"request": int(req.id), "slot": int(i),
+                           "chunks": int(slot.chunks),
+                           "tokens_kept": int(seq.shape[0])})
                 res = self._finish(slot, seq, i, corrupt_row=True)
             else:
                 slot.tokens.append(toks[i] if nv is None
@@ -798,7 +1017,7 @@ class ServingEngine:
                     self._spec_harvest(slot, i, sr, sa, nv)
                 if slot.first_token_at is None:
                     slot.first_token_at = t_chunk_done
-                    self._samples["ttft_s"].append(
+                    self._h["ttft_s"].observe(
                         t_chunk_done - slot.admitted_at)
                 seq = np.concatenate(slot.tokens)
                 fin = False
@@ -844,29 +1063,30 @@ class ServingEngine:
         dr = int(sr[i]) - slot.spec_rounds
         da = int(sa[i]) - slot.spec_accepted
         if dr > 0:
-            self._n["spec_rounds"] += dr
+            self._c["spec_rounds"].inc(dr)
             slot.spec_rounds = int(sr[i])
         if da > 0:
-            self._n["spec_accepted"] += da
+            self._c["spec_accepted"].inc(da)
             slot.spec_accepted = int(sa[i])
         ov = int(nv[i]) - self.chunk_size
         if ov > 0:
             slot.spec_overflow += ov
-            self._n["spec_overflow"] += ov
+            self._c["spec_overflow"].inc(ov)
 
     def _spec_adapt(self) -> None:
         """Update the acceptance mean and, with ``adaptive_k``, the next
         chunk's K from its moving average (clamped to [1, K])."""
-        rt = self._n["spec_rounds"]
+        rt = self._count("spec_rounds")
         if not rt:
             return
-        mean = self._n["spec_accepted"] / rt
-        self._spec_accept_mean = mean
+        mean = self._count("spec_accepted") / rt
+        self._g_spec_accept_mean.set(mean)
         if self.adaptive_k:
             e = self._accept_ewma
             self._accept_ewma = mean if e is None else 0.8 * e + 0.2 * mean
             self._k_now = max(1, min(self._b.K,
                                      int(np.ceil(self._accept_ewma)) + 1))
+            self._g_k_now.set(self._k_now)
 
     def _freeze_rows(self, rows: Sequence[int]) -> None:
         """Freeze carry rows until re-admission (freed slots, expired
@@ -885,7 +1105,7 @@ class ServingEngine:
         here."""
         out: List[Tuple[int, Any]] = []
         for req in self.scheduler.shed_expired(now):
-            self._n["shed_queue_deadline"] += 1
+            self._c["shed_queue_deadline"].inc()
             err = DeadlineExceededError(
                 f"request {req.id} deadline expired after "
                 f"{now - req.submit_time:.4f}s in queue "
@@ -900,7 +1120,7 @@ class ServingEngine:
                 continue
             seq = (np.concatenate(slot.tokens) if slot.tokens
                    else np.zeros((0,), np.int64))[:req.max_new_tokens]
-            self._n["deadline_expired_rows"] += 1
+            self._c["deadline_expired_rows"].inc()
             res = self._finish(slot, seq, i, deadline_expired=True)
             self._results[req.id] = res
             out.append((req.id, res))
@@ -1029,7 +1249,7 @@ class ServingEngine:
         atomic_write_bytes(os.path.join(path, self._SNAP_DATA), payload)
         atomic_write_bytes(os.path.join(path, self._SNAP_MANIFEST),
                            json.dumps(manifest, indent=1).encode())
-        self._n["snapshots"] += 1
+        self._c["snapshots"].inc()
         self._snap_last_chunks = self.chunk_dispatches
         self._last_snapshot = (time.monotonic(), path)
         return path
@@ -1316,7 +1536,7 @@ class ServingEngine:
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         payload = buf.getvalue()
-        self._n["migrated_out"] += len(want)
+        self._c["migrated_out"].inc(len(want))
         return {"kind": meta["kind"], "meta": meta, "data": payload,
                 "sha256": hashlib.sha256(payload).hexdigest()}
 
@@ -1413,7 +1633,7 @@ class ServingEngine:
             self._next_id += 1
             self.scheduler.push(req)
             mapping[old_id] = req.id
-        self._n["migrated_in"] += len(mapping)
+        self._c["migrated_in"].inc(len(mapping))
         return mapping
 
     # -- disaggregated prefill (slab payloads) -----------------------------
@@ -1436,7 +1656,7 @@ class ServingEngine:
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :S] = prompt
         logitsN, kcN, vcN = self._b.admit_prefill(ids, [S], [0])
-        self._n["prefill"] += 1
+        self._c["prefill"].inc()
         ops = self._slab_ops or SlabOps(None, self._b.head_major)
         skc, svc, slg = ops.extract(kcN, vcN, logitsN, 0, bucket)
 
@@ -1515,8 +1735,8 @@ class ServingEngine:
                               hit.slab.vc, src=0, pos1=S)
                 self._note_admit(slot_idx, req, now, t0, "full",
                                  tokens_saved=S, dispatches=0,
-                                 slab=hit.slab)
-                self._n["disp_saved"] += 1
+                                 slab=hit.slab, events=[])
+                self._c["disp_saved"].inc()
                 continue
             plans.append((slot_idx, req, hit))
         groups: Dict[int, list] = {}
@@ -1531,6 +1751,7 @@ class ServingEngine:
             else:
                 for item in grp:
                     self._admit_group(w, [item], now)
+        self._prefix_sync()
 
     def _admit_all_ring(self, admitted, now: float) -> None:
         """One ring admission round: a free ring row per admitted request
@@ -1546,7 +1767,8 @@ class ServingEngine:
             for slot_idx, req in reversed(spill):
                 self.scheduler.slots.release(slot_idx)
                 self.scheduler.push_front(req)
-                self._n["ring_full"] += 1
+                self._c["ring_full"].inc()
+            self._g_qdepth.set(len(self.scheduler))
         groups: Dict[int, list] = {}
         for slot_idx, req in admitted:
             w = self.scheduler.bucket(len(req.prompt))
@@ -1572,15 +1794,17 @@ class ServingEngine:
             ids[j, :len(req.prompt)] = req.prompt
             true_len[j] = len(req.prompt)
         aidx = self._group_aidx(grp)
+        ev0 = self._b.event_count()
         self._b.ring_admit(ids, true_len, np.zeros((N,), np.int64), rows,
                            aidx)
-        self._n["prefill"] += 1
-        if self._spec_configured:
+        self._c["prefill"].inc()
+        if self._spec_active:
             self._b.ring_admit_draft(ids, rows)
-            self._n["draft_prefill"] += 1
+            self._c["draft_prefill"].inc()
+        events = self._b.events_since(ev0)
         if N > 1:
-            self._n["batched_groups"] += 1
-            self._n["disp_saved"] += N - 1
+            self._c["batched_groups"].inc()
+            self._c["disp_saved"].inc(N - 1)
         for j, (slot_idx, req) in enumerate(grp):
             # the splice metadata, under ``AdmissionRing.load``'s names
             self._ring_meta[rows[j]] = {
@@ -1592,10 +1816,10 @@ class ServingEngine:
                 "aidx": 0 if aidx is None else int(aidx[j]),
                 "son": (req.speculative if req.speculative is not None
                         else True)}
-            self._n["ring_staged"] += 1
+            self._c["ring_staged"].inc()
             self._note_admit(slot_idx, req, now, t0, "miss",
                              tokens_saved=0, dispatches=int(j == 0),
-                             slab=None)
+                             slab=None, events=events)
 
     def _group_aidx(self, grp) -> Optional[np.ndarray]:
         """The adapter indices of an admission group's requests (each
@@ -1634,7 +1858,7 @@ class ServingEngine:
         count them."""
         if n:
             self._ring_meta = [None] * self._ring_slots
-            self._n["ring_scattered"] += n
+            self._c["ring_scattered"].inc(n)
 
     def _admit_group(self, w: int, grp, now: float) -> None:
         """ONE admission-prefill dispatch for the group: batch-N padded
@@ -1662,13 +1886,15 @@ class ServingEngine:
             for j, slab in loads:
                 ops.load(kc, vc, slab.kc, slab.vc, j)
 
+        ev0 = self._b.event_count()
         logitsN, kcN, vcN = self._b.admit_prefill(
             ids, true_len, pos0, prepare if loads else None,
             self._group_aidx(grp))
-        self._n["prefill"] += 1
+        events = self._b.events_since(ev0)
+        self._c["prefill"].inc()
         if N > 1:
-            self._n["batched_groups"] += 1
-            self._n["disp_saved"] += N - 1
+            self._c["batched_groups"].inc()
+            self._c["disp_saved"].inc(N - 1)
         for j, (slot_idx, req, hit, cached) in enumerate(grp):
             S = len(req.prompt)
             self._scatter(slot_idx, req, logitsN, kcN, vcN, src=j, pos1=S)
@@ -1684,7 +1910,8 @@ class ServingEngine:
             self._note_admit(slot_idx, req, now, t0,
                              "partial" if cached else "miss",
                              tokens_saved=cached, dispatches=int(j == 0),
-                             slab=hit.slab if cached else None)
+                             slab=hit.slab if cached else None,
+                             events=events)
 
     def _scatter(self, slot_idx: int, req: Request, logits1, kc1, vc1,
                  src: int, pos1: int) -> None:
@@ -1693,7 +1920,7 @@ class ServingEngine:
         (``split(PRNGKey(seed), 1)[0]``, as the ring gives it), eos,
         temperature and adapter index. A full hit's whole admission is one
         of these."""
-        self._n["host_scattered"] += 1
+        self._c["host_scattered"].inc()
         self._b.scatter(self.state, slot_idx, logits1, kc1, vc1, src, pos1,
                         _row_key(req.seed),
                         -1 if req.eos_token_id is None
@@ -1702,62 +1929,241 @@ class ServingEngine:
 
     def _note_admit(self, slot_idx: int, req: Request, now: float,
                     t0: float, cls: str, tokens_saved: int,
-                    dispatches: int, slab) -> None:
+                    dispatches: int, slab, events) -> None:
         slot = self.scheduler.slots.entries[slot_idx]
         slot.admitted_at = now
+        slot.events.extend(events)
         if self.adapter_store is not None:
             slot.adapter_rev = (None if req.adapter is None
                                 else self.adapter_store.revision(req.adapter))
-            self._adapter_rows[req.adapter or "base"] += 1
+            self._adapter_row_counter(req.adapter or "base").inc()
         enabled = self.prefix_cache is not None
         slot.prefix_hit = cls if enabled else None
         slot.prefill_tokens_saved = int(tokens_saved)
         slot.admission_dispatches = int(dispatches)
         slot.pinned_slab = slab
-        self._samples[f"admission_s.{cls}"].append(time.monotonic() - t0)
+        self._h[f"admission_s.{cls}"].observe(time.monotonic() - t0)
         if enabled:
-            self._n[f"prefix_{cls}"] += 1
-            self._n["tokens_saved"] += int(tokens_saved)
-        self._samples["queue_delay_s"].append(now - req.submit_time)
+            self._c[f"prefix_{cls}"].inc()
+            if tokens_saved:
+                self._c["tokens_saved"].inc(int(tokens_saved))
+        self._h["queue_delay_s"].observe(now - req.submit_time)
+        obs.tracer.event("serving.request.admitted", request=req.id,
+                         slot=slot_idx,
+                         queue_delay_s=round(now - req.submit_time, 6),
+                         prefix_hit=slot.prefix_hit,
+                         prefill_tokens_saved=int(tokens_saved))
 
-    def _dispatch_chunk(self) -> np.ndarray:
+    def _prefix_sync(self) -> None:
+        """Mirror the cache's pool numbers into the registry: the gauges
+        absolute, insertions and evictions by delta (a shared cache's
+        events land once per engine observation)."""
+        cache = self.prefix_cache
+        if cache is None:
+            return
+        st = cache.stats()
+        self._g_prefix_bytes.set(st["bytes_cached"])
+        self._g_prefix_slabs.set(st["slabs"])
+        last = self._last_prefix_stats
+        for key, short in (("insertions", "prefix_insert"),
+                           ("evictions", "prefix_evict")):
+            if st[key] > last[key]:
+                self._c[short].inc(st[key] - last[key])
+                last[key] = st[key]
+
+    def _dispatch_chunk(self, occupied) -> np.ndarray:
+        """One chunk on the serving ladder (the JAX engine's): a
+        speculative chunk that fails transiently (past its retries)
+        demotes the carry once to the plain chunk (``spec_demote``); a
+        plain chunk that fails transiently degrades to the per-token
+        rung, T one-step dispatches on the same carry (the failed chunk's
+        fault fired before it touched the carry), the pending ring splice
+        on the first step only. A fatal error, auto-degrade off, or a
+        rung that dies partway harvest what the host tokens already
+        finish (``_harvest_before_raise``) and raise; a rung's completed
+        steps keep their tokens."""
         self._last_nv = None
         splice, n_staged = (self._ring_args() if self._ring_slots
                             else (None, None))
-        if self._spec_configured:
-            toks, nv, self.state = self._b.decode_chunk_spec(
-                self.state, self.chunk_size, splice, K=self._k_now)
-            self._last_nv = nv.cpu().numpy()
-        elif splice is not None:
-            toks, self.state = self._b.decode_chunk_ring(
-                self.state, self.chunk_size, splice)
-        else:
-            toks, self.state = self._b.decode_chunk(self.state,
-                                                    self.chunk_size)
-        self._n["chunk"] += 1
+        degr: list = []
+        ev0 = self._b.event_count()
+        if self._spec_active:
+            try:
+                toks, nv, self.state = self._b.decode_chunk_spec(
+                    self.state, self.chunk_size, splice, K=self._k_now)
+                self._chunk_done(n_staged)
+                self._last_nv = nv.cpu().numpy()
+                self._note_events(occupied, ev0, [])
+                return toks.cpu().numpy()
+            except Exception as e:
+                if classify_error(e) != "transient":
+                    self._harvest_before_raise(e, "serving.chunk_fatal")
+                    raise
+                if not flags.resilience_auto_degrade:
+                    err = DecodeFailedError(
+                        f"serving speculative chunk dispatch failed with "
+                        f"auto-degrade off: {str(e)[:300]}",
+                        events=self._b.events_since(ev0), last_error=e)
+                    self._harvest_before_raise(
+                        e, "serving.chunk_failed_no_rung")
+                    raise err from e
+                # one-way: the pending tokens are committed, the draft
+                # carry dropped, and the plain ring chunk below serves the
+                # same state; admissions stop staging draft caches
+                ev = DegradationEvent(
+                    site="serve.chunk", from_level="speculative",
+                    to_level="chunked", error_class=type(e).__name__,
+                    error=str(e)[:300])
+                record_event(ev)
+                self._c["degradations"].inc()
+                degr.append(ev)
+                self.state = self._b.spec_demote(self.state)
+                self._spec_active = False
+        try:
+            if splice is not None:
+                toks, self.state = self._b.decode_chunk_ring(
+                    self.state, self.chunk_size, splice)
+            else:
+                toks, self.state = self._b.decode_chunk(self.state,
+                                                        self.chunk_size)
+            self._chunk_done(n_staged)
+            self._note_events(occupied, ev0, degr)
+            return toks.cpu().numpy()
+        except Exception as e:
+            if classify_error(e) != "transient":
+                self._harvest_before_raise(e, "serving.chunk_fatal")
+                raise
+            if not flags.resilience_auto_degrade:
+                err = DecodeFailedError(
+                    f"serving chunk dispatch failed with no per-token "
+                    f"rung available: {str(e)[:300]}",
+                    events=self._b.events_since(ev0) + degr, last_error=e)
+                self._harvest_before_raise(
+                    e, "serving.chunk_failed_no_rung")
+                raise err from e
+            ev = DegradationEvent(
+                site="serve.chunk", from_level="chunked",
+                to_level="per_token", error_class=type(e).__name__,
+                error=str(e)[:300])
+            record_event(ev)
+            self._c["degradations"].inc()
+            degr.append(ev)
+        parts = []
+        try:
+            for s in range(self.chunk_size):
+                if splice is not None:
+                    toks1, self.state = self._b.decode_step_ring(
+                        self.state, splice)
+                    if s == 0:
+                        self._ring_drained(n_staged)
+                        splice, _ = self._ring_args()   # now empty
+                else:
+                    toks1, self.state = self._b.decode_step(self.state)
+                self._c["step"].inc()
+                self._steps_done += 1
+                parts.append(toks1.cpu().numpy())
+        except Exception as e2:
+            # the steps that ran advanced the carry: their tokens are
+            # real, so they join the slots' buffers before the harvest
+            if parts:
+                cols = np.concatenate(parts, axis=1)
+                for i, slot in occupied:
+                    slot.tokens.append(cols[i])
+                    slot.chunks += 1
+            err = DecodeFailedError(
+                f"serving per-token rung failed after the chunk rung "
+                f"degraded: {str(e2)[:300]}",
+                events=self._b.events_since(ev0) + degr, last_error=e2)
+            self._harvest_before_raise(e2, "serving.ladder_exhausted")
+            raise err from e2
+        self._c["slot_steps"].inc(self.num_slots * self.chunk_size)
+        self._note_events(occupied, ev0, degr)
+        return np.concatenate(parts, axis=1)
+
+    def _chunk_done(self, n_staged: Optional[int]) -> None:
+        """A chunk dispatch ran: count it and its slot-steps, and clear
+        the ring rows it spliced in."""
+        self._c["chunk"].inc()
         self._steps_done += self.chunk_size
-        self._n["slot_steps"] += self.num_slots * self.chunk_size
+        self._c["slot_steps"].inc(self.num_slots * self.chunk_size)
         self._ring_drained(n_staged)
-        return toks.cpu().numpy()
+
+    def _harvest_before_raise(self, error: BaseException,
+                              reason: str) -> None:
+        """The last act before a chunk error propagates: rows whose host
+        tokens already finish them (eos seen, or the budget met by a
+        rung's completed steps) are harvested bit-exact into
+        ``_results``, their prefix slabs unpinned, their slots freed and
+        their carry rows frozen (best effort: the device may be what
+        failed); the unfinished requests go into the flight recorder's
+        postmortem (``lost_requests``: id and tokens so far), so a crash
+        dump accounts for every accepted request."""
+        harvested, lost = [], []
+        for i, slot in self.scheduler.slots.occupied():
+            req = slot.request
+            seq = (np.concatenate(slot.tokens) if slot.tokens
+                   else np.zeros((0,), np.int64))
+            fin = False
+            if req.eos_token_id is not None and seq.size:
+                hit = seq == req.eos_token_id
+                if hit.any():
+                    seq = seq[:int(np.argmax(hit)) + 1]
+                    fin = True
+            if len(seq) >= req.max_new_tokens:
+                seq = seq[:req.max_new_tokens]
+                fin = True
+            if fin:
+                self._results[req.id] = self._finish(slot, seq, i)
+                harvested.append(req.id)
+                self._unpin(slot)
+                self.scheduler.slots.release(i)
+                try:
+                    self._freeze_rows([i])
+                except Exception:
+                    pass
+            else:
+                lost.append({"request": req.id,
+                             "prompt_len": int(len(req.prompt)),
+                             "tokens_generated": int(seq.size),
+                             "max_new_tokens": req.max_new_tokens,
+                             "chunks": slot.chunks})
+        obs.record_crash(
+            reason, error=error,
+            extra={"site": "serve.chunk", "replica": None,
+                   "harvested_requests": harvested,
+                   "lost_requests": lost})
+
+    def _note_events(self, occupied, ev0: int, degradations) -> None:
+        """Give this dispatch's retry and degradation events to the rows
+        that rode it, and only to those."""
+        new = self._b.events_since(ev0) + list(degradations)
+        for _, slot in occupied:
+            slot.events.extend(new)
 
     def _finish(self, slot, seq: np.ndarray, slot_idx: int,
                 deadline_expired: bool = False, corrupt_row: bool = False):
         req = slot.request
         fin = time.monotonic()
         latency = fin - req.submit_time
-        self._samples["latency_s"].append(latency)
-        self._latency_sum += latency
+        self._h["latency_s"].observe(latency)
+        self._c["done"].inc()
         ttft = (slot.first_token_at - slot.admitted_at
                 if slot.first_token_at is not None else None)
         n_tok = int(seq.shape[0])
         tpot = None
         if slot.first_token_at is not None and n_tok > 1:
             tpot = max(0.0, fin - slot.first_token_at) / (n_tok - 1)
-            self._samples["tpot_s"].append(tpot)
+            self._h["tpot_s"].observe(tpot)
         slo = self._check_slo(req, ttft, latency)
+        degr = [e for e in slot.events
+                if getattr(e, "kind", "") == "degradation"]
         record = {
-            "level": "chunked", "requested_level": "chunked",
-            "retries": 0, "degradations": [], "events": [],
+            "level": "per_token" if degr else "chunked",
+            "requested_level": "chunked",
+            "retries": sum(1 for e in slot.events
+                           if getattr(e, "kind", "") == "retry"),
+            "degradations": [e.as_dict() for e in degr],
+            "events": [e.as_dict() for e in slot.events],
             "serving": {
                 "queue_delay_s": slot.admitted_at - req.submit_time,
                 "latency_s": latency, "ttft_s": ttft, "tpot_s": tpot,
@@ -1779,6 +2185,16 @@ class ServingEngine:
                 },
             },
         }
+        # the request's lifetime span (submit -> finished) on the axis of
+        # the dispatch spans it contains
+        obs.tracer.add_span(
+            "serving.request", int(req.submit_time * 1e9),
+            int(fin * 1e9), request=req.id, slot=slot_idx,
+            chunks=slot.chunks, tokens=n_tok,
+            queue_delay_s=round(record["serving"]["queue_delay_s"], 6),
+            level=record["level"])
+        obs.tracer.event("serving.request.finished", request=req.id,
+                         latency_s=round(latency, 6))
         if req.adapter is not None:
             record["serving"]["adapter"] = req.adapter
             record["serving"]["adapter_rev"] = slot.adapter_rev
@@ -1801,48 +2217,50 @@ class ServingEngine:
                  else defaults.get("latency_s"))
         if t_ttft is None and t_lat is None:
             return None
+        r = self.registry
         key = f"serving.slo.{cls}."
-        self._slo[key + "requests"] += 1
+        r.counter(key + "requests",
+                  "requests finished in this latency class").inc()
         out = {"class": cls, "violated": False}
         if t_ttft is not None:
             out["ttft_target_s"] = t_ttft
             if ttft is None or ttft > t_ttft:
                 out["violated"] = out["ttft_violated"] = True
-                self._slo[key + "ttft_violations"] += 1
+                r.counter(key + "ttft_violations",
+                          "TTFT above the class/request target").inc()
         if t_lat is not None:
             out["latency_target_s"] = t_lat
             if latency > t_lat:
                 out["violated"] = out["latency_violated"] = True
-                self._slo[key + "latency_violations"] += 1
+                r.counter(key + "latency_violations",
+                          "end-to-end latency above the class/request "
+                          "target").inc()
         return out
 
     def slo_counters(self) -> Dict[str, int]:
-        """The per-class SLO counts under the JAX engine's registry names:
+        """The per-class SLO counters of ``registry``:
         ``serving.slo.<class>.requests``, ``.ttft_violations`` and
-        ``.latency_violations`` (a name appears once it counts). The obs
-        registry that would export them is ROADMAP item [10]."""
-        return dict(sorted(self._slo.items()))
+        ``.latency_violations`` (a name appears once it counts)."""
+        return {n: int(self.registry.get(n).value)
+                for n in self.registry.names() if n.startswith("serving.slo.")}
 
     # -- observability -----------------------------------------------------
-    def _pct(self, k, q) -> float:
-        s = self._samples[k]
-        return float(np.percentile(s, q)) if s else float("nan")
 
     def _speculative(self, status: bool) -> Optional[Dict[str, Any]]:
         if not self._spec_configured:
             return None
         out = {
-            "active": True,
+            "active": bool(self._spec_active),
             "num_speculative_tokens": int(self._b.K),
             "k_now": int(self._k_now),
             "adaptive_k": self.adaptive_k,
-            "rounds": self._n["spec_rounds"],
-            "accepted_drafts": self._n["spec_accepted"],
-            "acceptance_len_mean": float(self._spec_accept_mean),
-            "overflow_tokens": self._n["spec_overflow"],
+            "rounds": self._count("spec_rounds"),
+            "accepted_drafts": self._count("spec_accepted"),
+            "acceptance_len_mean": float(self._g_spec_accept_mean.value),
+            "overflow_tokens": self._count("spec_overflow"),
         }
         if status:
-            out["draft_prefill_dispatches"] = self._n["draft_prefill"]
+            out["draft_prefill_dispatches"] = self._count("draft_prefill")
         return out
 
     def _ring(self, status: bool) -> Optional[Dict[str, Any]]:
@@ -1852,17 +2270,22 @@ class ServingEngine:
         if status:
             out["staged_now"] = sum(1 for m in self._ring_meta
                                     if m is not None)
-        out.update(staged=self._n["ring_staged"],
-                   scattered=self._n["ring_scattered"],
-                   full=self._n["ring_full"],
+        out.update(staged=self._count("ring_staged"),
+                   scattered=self._count("ring_scattered"),
+                   full=self._count("ring_full"),
                    host_scattered=self.host_scattered)
         return out
 
+    def _adapter_rows(self) -> Dict[str, int]:
+        return {name: int(c.value)
+                for name, c in sorted(self._c_adapter_rows.items())}
+
     def status(self) -> Dict[str, Any]:
         """The live view with the JAX engine's keys: the slot table,
-        queue depth, in-flight requests, occupancy, the prefix cache's
-        pool (``PrefixCache.snapshot``), the speculative rung and the
-        ring. Keys of features not ported yet hold their off values."""
+        queue depth, in-flight requests, occupancy, the ladder rung, the
+        prefix cache's pool (``PrefixCache.snapshot``), the speculative
+        rung and the ring. Keys of features not ported yet hold their off
+        values."""
         slots = []
         for i, e in enumerate(self.scheduler.slots.entries):
             if e is None:
@@ -1879,6 +2302,7 @@ class ServingEngine:
                 "age_s": round(time.monotonic() - e.admitted_at, 4),
             })
         occupied = self.scheduler.slots.occupied()
+        degraded = self._count("degradations")
         return {
             "num_slots": self.num_slots,
             "chunk_size": self.chunk_size,
@@ -1891,18 +2315,22 @@ class ServingEngine:
             "in_flight": [s.request.id for _, s in occupied],
             "requests_submitted": self._next_id,
             "requests_completed": len(self._results),
-            "resilience": {"ladder_rung": "chunked", "degradations": 0,
-                           "step_dispatches": self.step_dispatches},
+            # any chunk degradation this lifetime means the per-token
+            # rung has been exercised (each record names its own rung)
+            "resilience": {
+                "ladder_rung": "per_token" if degraded else "chunked",
+                "degradations": degraded,
+                "step_dispatches": self.step_dispatches},
             "slo_targets": self.slo_targets,
-            "shed": {"deadline": self._n["shed_deadline"],
-                     "backpressure": self._n["shed_backpressure"],
-                     "queue_deadline": self._n["shed_queue_deadline"],
-                     "expired_rows": self._n["deadline_expired_rows"]},
+            "shed": {"deadline": self._count("shed_deadline"),
+                     "backpressure": self._count("shed_backpressure"),
+                     "queue_deadline": self._count("shed_queue_deadline"),
+                     "expired_rows": self._count("deadline_expired_rows")},
             "snapshot": (None if self._last_snapshot is None else {
                 "path": self._last_snapshot[1],
                 "age_s": round(time.monotonic()
                                - self._last_snapshot[0], 4),
-                "count": self._n["snapshots"],
+                "count": self._count("snapshots"),
                 "every_chunks": self._snap_every or None,
             }),
             "prefix_cache": (None if self.prefix_cache is None
@@ -1913,28 +2341,33 @@ class ServingEngine:
                 "served_version": int(self._b.lora_version),
                 "swap_pending": bool(self.adapter_store.version
                                      != self._b.lora_version),
-                "rows_by_adapter": dict(sorted(self._adapter_rows.items())),
+                "rows_by_adapter": self._adapter_rows(),
             }),
             "admission_ring": self._ring(status=True),
         }
 
     def metrics(self) -> Dict[str, Any]:
-        """Serving metrics snapshot with the JAX engine's keys: dispatch
-        accounting (prefills, draft prefills, chunks, per-token steps),
-        slot occupancy and the slot-steps denominator, queue-delay,
-        latency, TTFT and TPOT statistics (NaN until the first sample),
-        queue depth now, at its peak and on average at step starts, the
-        admission economics (dispatches saved, cache reorderings, batched
-        groups, prefill tokens saved, admission time by hit class), the
-        prefix cache, speculation and the ring. Keys of features not
-        ported yet hold their off values: 0 for counters, None for absent
-        subsystems, {} for per-class maps."""
-        s, n = self._samples, self._n
+        """Serving metrics with the JAX engine's keys, read from
+        ``registry``: dispatch accounting (prefills, draft prefills,
+        chunks, per-token rung steps, degradations), slot occupancy and
+        the slot-steps denominator, queue-delay, latency, TTFT and TPOT
+        statistics (percentiles over each histogram's newest 4096
+        samples; NaN until the first sample), queue depth now, at its
+        peak and on average at step starts, the admission economics
+        (dispatches saved, cache reorderings, batched groups, prefill
+        tokens saved, admission time by hit class), the prefix cache,
+        speculation and the ring. Keys of features not ported yet hold
+        their off values: None for absent subsystems, {} for per-class
+        maps."""
+        h, cache = self._h, self.prefix_cache
+        self._g_qdepth.set(len(self.scheduler))
+
+        def pct(k, q):
+            return h[k].percentile(q)
 
         def mean(k):
-            return float(np.mean(s[k])) if s[k] else float("nan")
+            return h[k].mean if h[k].count else float("nan")
 
-        cache = self.prefix_cache
         return {
             "num_slots": self.num_slots,
             "chunk_size": self.chunk_size,
@@ -1944,59 +2377,83 @@ class ServingEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "chunk_dispatches": self.chunk_dispatches,
             "step_dispatches": self.step_dispatches,
-            "degradations": 0,   # the degradation ladder is not ported
+            "degradations": self._count("degradations"),
             "occupancy_mean": mean("occupancy"),
-            "occupancy_samples": len(s["occupancy"]),
-            "slot_steps_total": n["slot_steps"],
+            "occupancy_samples": h["occupancy"].count,
+            "slot_steps_total": self._count("slot_steps"),
             "queue_delay_mean_s": mean("queue_delay_s"),
-            "queue_delay_p50_s": self._pct("queue_delay_s", 50),
-            "queue_delay_p99_s": self._pct("queue_delay_s", 99),
+            "queue_delay_p50_s": pct("queue_delay_s", 50),
+            "queue_delay_p99_s": pct("queue_delay_s", 99),
             "request_latency_mean_s": mean("latency_s"),
-            "request_latency_p50_s": self._pct("latency_s", 50),
-            "request_latency_p99_s": self._pct("latency_s", 99),
-            "queue_depth_now": len(self.scheduler),
-            "queue_depth_peak": self._queue_depth_peak,
+            "request_latency_p50_s": pct("latency_s", 50),
+            "request_latency_p99_s": pct("latency_s", 99),
+            "queue_depth_now": int(self._g_qdepth.value),
+            "queue_depth_peak": int(self._g_qdepth.max),
             "queue_depth_mean": mean("queue_depth"),
             "ttft_mean_s": mean("ttft_s"),
-            "ttft_p50_s": self._pct("ttft_s", 50),
-            "ttft_p99_s": self._pct("ttft_s", 99),
+            "ttft_p50_s": pct("ttft_s", 50),
+            "ttft_p99_s": pct("ttft_s", 99),
             "tpot_mean_s": mean("tpot_s"),
-            "tpot_p50_s": self._pct("tpot_s", 50),
-            "slo_violations": sum(v for k, v in self._slo.items()
+            "tpot_p50_s": pct("tpot_s", 50),
+            "slo_violations": sum(v for k, v in self.slo_counters().items()
                                   if k.endswith("_violations")),
-            "shed_deadline": n["shed_deadline"],
-            "shed_backpressure": n["shed_backpressure"],
-            "shed_queue_deadline": n["shed_queue_deadline"],
-            "deadline_expired_rows": n["deadline_expired_rows"],
-            "corrupt_rows": n["corrupt_rows"],
-            "rows_migrated_out": n["migrated_out"],
-            "rows_migrated_in": n["migrated_in"],
-            "snapshots": n["snapshots"],
+            "shed_deadline": self._count("shed_deadline"),
+            "shed_backpressure": self._count("shed_backpressure"),
+            "shed_queue_deadline": self._count("shed_queue_deadline"),
+            "deadline_expired_rows": self._count("deadline_expired_rows"),
+            "corrupt_rows": self._count("corrupt_rows"),
+            "rows_migrated_out": self._count("migrated_out"),
+            "rows_migrated_in": self._count("migrated_in"),
+            "snapshots": self._count("snapshots"),
             "snapshot_age_s": (
                 None if self._last_snapshot is None
                 else round(time.monotonic() - self._last_snapshot[0], 4)),
-            "admission_dispatches_saved": n["disp_saved"],
-            "admission_cache_reordered": self.scheduler.cache_reordered,
-            "batched_admission_groups": n["batched_groups"],
-            "prefill_tokens_saved": n["tokens_saved"],
-            "admission_p50_s": {c: self._pct(f"admission_s.{c}", 50)
+            "admission_dispatches_saved": self._count("disp_saved"),
+            "admission_cache_reordered": self._count("reordered"),
+            "batched_admission_groups": self._count("batched_groups"),
+            "prefill_tokens_saved": self._count("tokens_saved"),
+            "admission_p50_s": {c: pct(f"admission_s.{c}", 50)
                                 for c in _HIT_CLASSES},
-            "admission_p99_s": {c: self._pct(f"admission_s.{c}", 99)
+            "admission_p99_s": {c: pct(f"admission_s.{c}", 99)
                                 for c in _HIT_CLASSES},
             "prefix_cache": (None if cache is None else {
                 **cache.stats(),
-                "engine_hits_full": n["prefix_full"],
-                "engine_hits_partial": n["prefix_partial"],
-                "engine_misses": n["prefix_miss"],
+                "engine_hits_full": self._count("prefix_full"),
+                "engine_hits_partial": self._count("prefix_partial"),
+                "engine_misses": self._count("prefix_miss"),
             }),
-            "draft_prefill_dispatches": n["draft_prefill"],
+            "draft_prefill_dispatches": self._count("draft_prefill"),
             "speculative": self._speculative(status=False),
             "admission_ring": self._ring(status=False),
             "adapters": (None if self.adapter_store is None else {
-                "active": self._adapters_active,
-                "swaps": self._n["adapter_swaps"],
+                "active": int(self._g_adapters_active.value),
+                "swaps": self._count("adapter_swaps"),
                 "store_version": int(self.adapter_store.version),
-                "rows_by_adapter": dict(sorted(self._adapter_rows.items())),
+                "rows_by_adapter": self._adapter_rows(),
             }),
             "stream_ttft_p50_s": {},
         }
+
+    def start_exporter(self, port: Optional[int] = None) -> int:
+        """Start the telemetry exporter (``obs/exporter.py``) over this
+        engine: ``/metrics`` scrapes the global obs registry and this
+        engine's, ``/statusz`` carries :meth:`status`, ``/tracez`` the
+        recent spans. ``port=None`` reads ``FLAGS_obs_export_port`` (0
+        there: no exporter, returns 0). Returns the bound port;
+        idempotent while running."""
+        if self._exporter is not None:
+            return self._exporter.port
+        from paddle_tpu_torch.obs.exporter import (ObsExporter,
+                                                   resolve_export_port)
+        p = resolve_export_port() if port is None else int(port)
+        if port is None and p == 0:
+            return 0
+        self._exporter = ObsExporter(port=p).add_engine(self)
+        return self._exporter.start()
+
+    def stop_exporter(self) -> None:
+        """Stop the exporter and release its port (no-op when not
+        running)."""
+        exp, self._exporter = self._exporter, None
+        if exp is not None:
+            exp.stop()

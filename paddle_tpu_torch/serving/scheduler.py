@@ -125,6 +125,9 @@ class Slot:
     # the adapter revision pinned at admission (None = base): a hot swap
     # of this adapter while the row is in flight is a typed refusal
     adapter_rev: Optional[int] = None
+    # the resilience events (retries, degradations) of the dispatches this
+    # row rode: its admission prefill and every chunk since
+    events: List[Any] = dataclasses.field(default_factory=list)
 
 
 class SlotTable:

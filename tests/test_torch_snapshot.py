@@ -664,13 +664,18 @@ def test_replica_plumbing_matches_jax(sides):
 
 
 def test_fault_injector_refuses_unported_kinds():
-    """Only the write kinds are ported: a dispatch, RPC or heartbeat rule
+    """The write and dispatch kinds are ported: an RPC or heartbeat rule
     is refused at ``configure`` (naming its ROADMAP item) rather than
     installed to fire nowhere, and the injector reads no environment."""
-    for kind in ("dispatch_error", "rpc_drop", "heartbeat_stall"):
+    for kind in ("rpc_partition", "rpc_drop", "dead_heartbeat",
+                 "heartbeat_stall"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fault_injector.configure([{"kind": kind}])
     assert not fault_injector.active()
+    for kind in ("dispatch_error", "oom"):
+        fault_injector.configure({"kind": kind, "above_batch": 8})
+        assert fault_injector.active()
+    fault_injector.clear()
     fault_injector.configure({"kind": "bit_flip", "path": "*.npz"})
     assert fault_injector.active()
     fault_injector.clear()

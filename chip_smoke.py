@@ -191,6 +191,32 @@ smoke run is made, nothing else is built.
    gate with the first divergence printed. Prints tokens/s of (a), (b)
    and (d) beside the plain lines', the time from the first failure to
    the first rung step, the postmortem's bytes and ms.
+   The router line (``serve_router``, unquantized and ``int8wk``): the
+   16 requests through ``Router(ReplicaSet.from_backends(3 decoders),
+   breaker_threshold=2)`` under bench.py's router plan (replica1's chunk
+   dies fatally from its second call, replica2's heartbeat skips 4
+   beats): none lost, one death, a requeue, the suspect recovered;
+   unmoved rows equal the plain line bit for bit, requeued rows pass the
+   decisive gate; unquantized, the sampled requests under
+   ``request_keyed_rng`` undisturbed and under the plan, requeued rows
+   through the top-50 gate. The HTTP line (``serve_http``): the 16
+   requests from 16 client threads at once to an ``HttpFrontend`` over a
+   fresh graphed engine, every other one streamed, a scraper reading
+   ``/metrics`` and ``/statusz`` every 20 ms through the first, capturing
+   chunks; streams equal their results, tokens held to the plain line,
+   refusals 404 / 429 / 400 / 400, a drain then 503. The cluster line
+   (``serve_cluster``): ``launch_cluster(prefill=1, decode=2)`` on the
+   card (the kernel library built before the spawn), a real SIGKILL of
+   decode0, the dispatch split and each worker's kernel launches through
+   its ``status``, the fleet ``/metrics``; then ``recover="restart"``
+   and, side by side with it, the frontend failover drill (the 16
+   requests on one 8-slot decode worker, a frontend SIGKILL, a WAL
+   resume, a stale-epoch probe). These
+   print tokens/s against the plain line, p99, the requeues, the
+   streams' first-line p50, spawn s, each worker's reserved memory and
+   the card's, the RPC round trip, the kill's times (to the verdict, the
+   requeue, to the last replayed token), and how many rows were
+   bit-equal.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -241,8 +267,10 @@ smoke run is made, nothing else is built.
    kernel's, launched by the sampled line, and two rows at the
    speculative shapes: decode attention at a draft's per-row lengths and
    the int8 matmul at a verify's 40 rows; the decode-attention and int8
-   rows count the LoRA, snapshot and fault lines' launches too), the card
-   line,
+   rows count the LoRA, snapshot, fault, router, HTTP and cluster lines'
+   launches too, the cluster's summed from its worker processes'
+   counters, and the threefry row the router's keyed sampled runs), the
+   card line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1606,7 +1634,610 @@ def serving_phase(card):
     # and the fault line after the snapshot line
     faults = [serve_faults(model, q, reqs, plain[q], info, spec, card)
               for q, info in zip((None, "int8wk"), runs)]
-    return runs, sampled, prefix, spec, lora, snap, faults
+    # the router, HTTP and cluster lines last of all
+    fleet = [serve_router(model, q, reqs, plain[q], info,
+                          sampled_gens if q is None else None, card)
+             for q, info in zip((None, "int8wk"), runs)]
+    fleet.append(serve_http(model, reqs, plain[None], runs[0], card))
+    fleet.append(serve_cluster(model, reqs, plain[None], runs[0], card))
+    return runs, sampled, prefix, spec, lora, snap, faults, fleet
+
+
+# -- replicated serving, the HTTP front-end and the cluster --------------
+
+# the router drill of bench.py:1634-1821 on the port's injector: replica1's
+# chunk dies fatally from its second call (and its rung with it), and
+# replica2's heartbeat misses a window of beats
+ROUTER_PLAN = [
+    {"kind": "dispatch_error", "site": "serving.replica1.chunk",
+     "call": 2, "times": 10**9, "code": "INTERNAL"},
+    {"kind": "dispatch_error", "site": "serving.replica1.step",
+     "call": 1, "times": 10**9, "code": "INTERNAL"},
+    {"kind": "delay_heartbeat", "node": "replica2", "after_beats": 2,
+     "skip_beats": 4}]
+
+
+def fleet_drain(router, reqs, kws=None, on_step=None):
+    """Submit ``reqs`` to a ``Router`` or ``ClusterRouter`` and step it
+    until nothing is in flight. Returns ``(rids, outcomes by rid, seconds
+    from the first submit to each outcome, wall s)``; ``on_step(n, t0)``
+    runs after step ``n``."""
+    kws = kws or [{}] * len(reqs)
+    t0 = time.perf_counter()
+    rids = [router.submit(p, n, eos_token_id=e, **kw)
+            for (p, n, e), kw in zip(reqs, kws)]
+    outs, fin, n = {}, {}, 0
+    while (router.in_flight() if hasattr(router, "in_flight") else
+           any(r.has_work() for r in router.replicas.live())):
+        for rid, res in router.step():
+            outs[rid] = res
+            fin[rid] = time.perf_counter() - t0
+        n += 1
+        if on_step is not None:
+            on_step(n, t0)
+    torch.cuda.synchronize()
+    return rids, outs, fin, time.perf_counter() - t0
+
+
+def fleet_tokens(tag, reqs, rids, outs, route_key):
+    """Every request resolved to tokens (none lost, none a typed error):
+    the served tokens per request and which rows were moved (requeued or
+    replayed), from each result's record under ``route_key``."""
+    gens, moved = [], []
+    for j, ((p, _, _), rid) in enumerate(zip(reqs, rids)):
+        out = outs.get(rid)
+        check(out is not None, f"{tag}: request {j} lost")
+        check(not isinstance(out, BaseException),
+              f"{tag}: request {j} resolved to {out!r}")
+        seq = np.asarray(out).reshape(-1)
+        check(np.array_equal(seq[:len(p)], p), f"{tag}: prompt echoed")
+        gens.append(seq[len(p):])
+        rec = (getattr(out, "resilience", None) or {}).get(route_key) or {}
+        if rec.get("requeues") or rec.get("replayed_tokens"):
+            moved.append(j)
+    return gens, moved
+
+
+def hold_fleet(tag, dec, reqs, gens, want, moved, sampled=False):
+    """The rows no fault moved ran the reference's route: bit for bit.
+    The moved rows re-prefilled ``prompt + tokens so far`` (the S > 1
+    route) and are held by ``hold_to``'s gates (ROADMAP §3 entry 32)."""
+    for j, (a, b) in enumerate(zip(gens, want)):
+        if j not in moved:
+            check(np.array_equal(a, b), f"{tag}: request {j}, never "
+                  f"moved, differs from the reference")
+    rec = hold_to(tag, dec, [reqs[j] for j in moved],
+                  [gens[j] for j in moved], [want[j] for j in moved],
+                  sampled=sampled)
+    rec.update(moved=len(moved), rows_bit_equal=sum(
+        np.array_equal(a, b) for a, b in zip(gens, want)))
+    return rec
+
+
+def serve_router(model, quant, reqs, plain_gens, plain_info, sampled_gens,
+                 card):
+    """The router line: ``ReplicaSet.from_backends`` over 3 replicas
+    (8 slots, chunk 16, max_len 256, graphed chunks and prefills) and
+    ``Router(breaker_threshold=2)``, the 16 requests under ``ROUTER_PLAN``
+    (backoff 0): no request lost, replica1 dead with one death, at least
+    one requeue, replica2 suspect and recovered. Unmoved rows equal the
+    plain line bit for bit; requeued rows pass the decisive gate.
+    Unquantized it then runs the sampled line's 16 requests under
+    ``request_keyed_rng`` twice, undisturbed and under the plan: the
+    unmoved rows equal, the requeued ones pass the top-50 gate. Prints
+    tokens/s against the plain line, p99 latency, the requeues and the ms
+    of the step that opened the breaker and requeued."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    from paddle_tpu_torch.runtime.resilience import fault_injector
+    from paddle_tpu_torch.serving import ReplicaSet, Router
+
+    t_start = time.perf_counter()
+    tag = f"serve_router {quant or 'none'}"
+    V = model.config.vocab_size
+
+    def router(**kw):
+        decs = [LlamaDecoder(model, max_len=256, quant=quant)
+                for _ in range(3)]
+        return decs, Router(ReplicaSet.from_backends(
+            decs, num_slots=8, chunk_size=16, **kw), breaker_threshold=2)
+
+    def drill(rt, kws=None, plan=ROUTER_PLAN):
+        seen = {"suspect": False, "requeue_ms": None}
+        last = {"t": time.perf_counter(), "requeued": 0}
+
+        def on_step(n, t0):
+            now = time.perf_counter()
+            q = rt.metrics()["requeued"]
+            if q > last["requeued"] and seen["requeue_ms"] is None:
+                seen["requeue_ms"] = 1e3 * (now - last["t"])
+            last.update(t=now, requeued=q)
+            seen["suspect"] |= rt.replicas.replicas[2].state == "suspect"
+
+        with flags_set({"resilience_backoff_s": 0.0}):
+            fault_injector.configure(plan)
+            try:
+                rids, outs, fin, wall = fleet_drain(rt, reqs, kws, on_step)
+                for _ in range(8):      # idle beats end the skip window
+                    rt.step()
+            finally:
+                fault_injector.clear()
+        return rids, outs, fin, wall, seen
+
+    decs, rt = router()
+    torch.cuda.synchronize()
+    da.launches = i8.launches = tf.launches = 0
+    rids, outs, fin, wall, seen = drill(rt)
+    n_da, n_i8, n_tf = da.launches, i8.launches, tf.launches
+    m = rt.metrics()
+    gens, moved = fleet_tokens(tag, reqs, rids, outs, "router")
+    check_lengths(tag, reqs, gens, V)
+    check(m["states"]["replica1"] == "dead" and m["replica_deaths"] == 1,
+          f"{tag}: replica states {m['states']}")
+    check(m["requeued"] >= 1 and moved, f"{tag}: no requeue")
+    check(seen["suspect"] and m["states"]["replica2"] == "healthy",
+          f"{tag}: replica2 suspect {seen['suspect']}, then "
+          f"{m['states']['replica2']}")
+    check(m["submitted"] == m["completed"] == len(reqs)
+          and m["dead_letter"] == 0, f"{tag}: accounting {m}")
+    held = hold_fleet(tag, decs[0], reqs, gens, plain_gens, moved)
+    n_tok = int(sum(len(g) for g in gens))
+    info = dict(phase="serve_router", quant=quant or "none", card=card,
+                replicas=3, requests=len(reqs), tokens=n_tok, wall_s=wall,
+                tokens_per_s=n_tok / wall,
+                plain_tokens_per_s=plain_info["tokens_per_s"],
+                ratio_to_plain=n_tok / wall / plain_info["tokens_per_s"],
+                latency_p99_s=float(np.percentile(list(fin.values()), 99)),
+                requeued=m["requeued"], requeue_step_ms=seen["requeue_ms"],
+                replica_deaths=m["replica_deaths"],
+                heartbeat_suspects=m["heartbeat_suspects"],
+                states=m["states"], held=held,
+                decode_attention_launches=n_da, int8_matmul_launches=n_i8,
+                threefry_launches=n_tf)
+    del rt, decs
+    torch.cuda.empty_cache()
+    if quant is None and sampled_gens is not None:
+        # sampled requeue: each row's key is derived from (seed, the
+        # router's request id, the tokens it already emitted)
+        sampling = [dict(seed=1000 + j, temperature=0.8)
+                    for j in range(len(reqs))]
+        kw = dict(do_sample=True, top_k=50, top_p=0.9,
+                  request_keyed_rng=True)
+        decs, rt = router(**kw)
+        rrids, ref_outs, _, _, _ = drill(rt, sampling, plan=[])
+        ref, _ = fleet_tokens(f"{tag} keyed", reqs, rrids, ref_outs,
+                              "router")
+        del rt
+        decs, rt = router(**kw)
+        da.launches = tf.launches = 0
+        rids, outs, _, swall, _ = drill(rt, sampling)
+        info["decode_attention_launches"] += da.launches
+        info["threefry_launches"] += tf.launches
+        sgens, smoved = fleet_tokens(f"{tag} keyed", reqs, rids, outs,
+                                     "router")
+        check(smoved, f"{tag} keyed: no requeue")
+        info["sampled_keyed"] = dict(
+            wall_s=swall, requeued=rt.metrics()["requeued"],
+            held=hold_fleet(f"{tag} keyed", decs[0], reqs, sgens, ref,
+                            smoved, sampled=True))
+        del rt, decs
+        torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
+def serve_http(model, reqs, plain_gens, plain_info, card):
+    """The HTTP line: ``HttpFrontend`` on port 0 over a graphed 8-slot
+    engine (chunk 16), the 16 requests sent at once from 16 client
+    threads, every other one streamed, while a scraper thread reads
+    ``/metrics`` and ``/statusz`` in a loop through the first, capturing
+    chunks. Each stream's lines concatenate to its result's tokens bit
+    for bit; the tokens are held to the plain line; the typed refusals
+    answer 404 / 429 / 400 / 400 and a drain 503. Prints tokens/s against
+    the plain line and the streams' first-line p50."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.http import HttpFrontend
+
+    t_start = time.perf_counter()
+    tag = "serve_http"
+    dec = LlamaDecoder(model, max_len=256)
+    eng = ServingEngine(dec, num_slots=8, chunk_size=16)
+    fe = HttpFrontend(eng, port=0)
+    base = f"http://127.0.0.1:{fe.start()}"
+
+    def post(body):
+        req = urllib.request.Request(
+            base + "/v1/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        t0 = time.perf_counter()
+        try:
+            r = urllib.request.urlopen(req, timeout=600)
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}"), None
+        if not body.get("stream"):
+            return r.status, json.loads(r.read()), None
+        lines, first = [], None
+        for ln in iter(r.readline, b""):
+            if ln.strip():
+                first = first or time.perf_counter() - t0
+                lines.append(json.loads(ln))
+        return r.status, lines, first
+
+    stop, scrapes, errs = threading.Event(), [0], []
+
+    def scrape():
+        # every 20 ms, a far faster cadence than a fleet scraper's: the
+        # point is to land scrapes inside the first chunks' captures
+        while not stop.wait(0.02):
+            for path in ("/metrics", "/statusz"):
+                try:
+                    urllib.request.urlopen(base + path, timeout=30).read()
+                    scrapes[0] += 1
+                except Exception as e:      # noqa: BLE001
+                    errs.append(repr(e))
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    res = [None] * len(reqs)
+
+    def client(j):
+        p, n, e = reqs[j]
+        res[j] = post({"prompt": p.tolist(), "max_new_tokens": int(n),
+                       "eos_token_id": e, "stream": j % 2 == 0})
+
+    torch.cuda.synchronize()
+    da.launches = i8.launches = tf.launches = 0
+    scraper.start()
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(j,))
+                   for j in range(len(reqs))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        scraper.join(timeout=60)
+    n_da, n_i8, n_tf = da.launches, i8.launches, tf.launches
+    check(not errs and scrapes[0] > 0, f"{tag}: scrapes {scrapes[0]}, "
+          f"errors {errs[:3]}")
+    gens, firsts = [], []
+    for j, ((p, _, _), (code, doc, first)) in enumerate(zip(reqs, res)):
+        check(code == 200, f"{tag}: request {j} answered {code}: {doc}")
+        if j % 2 == 0:
+            check(doc[-1].get("final") is True and "error" not in doc[-1],
+                  f"{tag}: stream {j} trailer {doc[-1]}")
+            streamed = sum((ln["tokens"] for ln in doc), [])
+            out = np.asarray(eng.result(doc[-1]["request_id"])).reshape(-1)
+            check(streamed == out[len(p):].tolist(), f"{tag}: stream {j}'s "
+                  f"lines are not its result's tokens")
+            gens.append(np.asarray(streamed, np.int64))
+            firsts.append(first)
+        else:
+            gens.append(np.asarray(doc["generated"], np.int64))
+    check_lengths(tag, reqs, gens, model.config.vocab_size)
+    held = hold_to(tag, dec, reqs, gens, plain_gens)
+    held["rows_bit_equal"] = sum(np.array_equal(a, b)
+                                 for a, b in zip(gens, plain_gens))
+    p = reqs[0][0].tolist()
+    refusals = {
+        "unknown_model": post({"prompt": p, "model": "nope"})[:2],
+        "deadline": post({"prompt": p, "deadline_s": -1.0})[:2],
+        "no_prompt": post({"max_new_tokens": 4})[:2],
+        "unknown_adapter": post({"prompt": p, "adapter": "ghost"})[:2]}
+    got = {k: (c, d.get("kind")) for k, (c, d) in refusals.items()}
+    check(got == {"unknown_model": (404, "unknown_model"),
+                  "deadline": (429, "shed"),
+                  "no_prompt": (400, "bad_request"),
+                  "unknown_adapter": (400, "unknown_adapter")},
+          f"{tag}: refusals {got}")
+    check(fe.drain(timeout_s=60), f"{tag}: drain")
+    code, doc, _ = post({"prompt": p, "max_new_tokens": 4})
+    check((code, doc.get("kind")) == (503, "draining"),
+          f"{tag}: after the drain {code} {doc}")
+    fe.stop()
+    n_tok = int(sum(len(g) for g in gens))
+    info = dict(phase="serve_http", card=card, requests=len(reqs),
+                streams=len(firsts), tokens=n_tok, wall_s=wall,
+                tokens_per_s=n_tok / wall,
+                plain_tokens_per_s=plain_info["tokens_per_s"],
+                ratio_to_plain=n_tok / wall / plain_info["tokens_per_s"],
+                stream_first_line_p50_s=float(np.median(firsts)),
+                scrapes_during_run=scrapes[0], refusals=got, held=held,
+                chunk_graphs=sum(g is not None
+                                 for g in dec._chunk_graphs.values()),
+                decode_attention_launches=n_da, int8_matmul_launches=n_i8,
+                threefry_launches=n_tf)
+    check(info["chunk_graphs"] == 1, f"{tag}: no captured chunk")
+    del fe, eng, dec
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
+def card_memory():
+    """The card's total and used memory (MiB) from ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total,memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    total, used = (int(x) for x in out.split(","))
+    return dict(total_mib=total, used_mib=used)
+
+
+def worker_launches(status):
+    """One worker's kernel launches from its ``status``, by kernel."""
+    return {k: int(status["launches"].get(f"{k}.launches", 0))
+            for k in ("decode_attention", "int8_matmul", "threefry")}
+
+
+def wait_gone(router, name, timeout=30.0):
+    """Block until ``name`` leaves the router's elastic membership (its
+    heartbeat TTL lapsed)."""
+    t0 = time.perf_counter()
+    while name in router.elastic.members:
+        check(time.perf_counter() - t0 < timeout,
+              f"{name} still a member {timeout} s after its kill")
+        time.sleep(0.01)
+
+
+def kill_drill(cl, name, seen, at_step=2):
+    """An ``on_step`` for ``fleet_drain``: after step ``at_step``, with
+    more than one request in flight, read every worker's status, SIGKILL
+    ``name`` and wait for its heartbeat to lapse. ``seen`` collects the
+    kill's time on both clocks (perf_counter, monotonic), the lapse's and
+    the statuses."""
+    router = cl.router
+
+    def on_step(n, t0):
+        seen.setdefault("t0", t0)
+        if "killed" not in seen and n >= at_step and router.in_flight() > 1:
+            seen["pre_kill"] = {h.name: router._call(h, "status")
+                                for h in router.workers}
+            seen["killed"] = time.perf_counter()
+            seen["killed_mono"] = time.monotonic()
+            cl.kill(name)
+            wait_gone(router, name)
+            seen["ttl_lapsed"] = time.perf_counter()
+    return on_step
+
+
+def kill_times(tag, router, name, seen, fin, rids, moved):
+    """Kill to TTL lapse; kill to the router's verdict, which
+    ``_declare_dead`` stamps on the handle (monotonic) before it recovers
+    anything; the recovery itself (the requeue of every row, or the
+    restart); and the verdict to the last token of a moved request, in
+    ms."""
+    h = next(h for h in router.workers if h.name == name)
+    check(h.dead_at is not None and h.recovery_s is not None
+          and h.dead_at >= seen["killed_mono"],
+          f"{tag}: the kill was never detected")
+    detect = h.dead_at - seen["killed_mono"]
+    done = seen["t0"] + max(fin[rids[j]] for j in moved)
+    return dict(kill_to_ttl_lapse_ms=1e3 * (seen["ttl_lapsed"]
+                                            - seen["killed"]),
+                kill_to_detect_ms=1e3 * detect,
+                recovery_ms=1e3 * h.recovery_s,
+                detect_to_done_ms=1e3 * (done - seen["killed"] - detect))
+
+
+def serve_cluster(model, reqs, plain_gens, plain_info, card):
+    """The cluster line: ``launch_cluster(prefill=1, decode=2)`` on the
+    card (8-slot decode engines with the prefix cache, chunk 16, max_len
+    256, heartbeat 0.4 s, TTL 2 s), the 16 requests, and a real SIGKILL of
+    decode0 after the second step with work in flight. Every worker is a
+    distinct process, no request is lost, prefill dispatches run only on
+    prefill0 and chunks only on the decode workers, both decode workers
+    launched decode attention and prefill0 did not, and the fleet
+    ``/metrics`` carries ``{worker=...}`` labels. Then ``recover=
+    "restart"`` (one decode worker snapshotting every chunk, killed after
+    two steps, respawned from its snapshot, 8 requests) and, in a thread
+    beside it, ``run_frontend_failover_drill`` (the 16 requests on one
+    8-slot decode worker, chunk 16, so 8 wait queued; the frontend
+    SIGKILLed at its ready barrier, a WAL resume, a stale-epoch probe). A
+    disaggregated or replayed row admits by slab, not through the plain
+    line's ring: every row is held by ``hold_to`` (bit-equal rows
+    counted). Prints the spawn s (the three workers start together),
+    each worker's reserved memory and the card's with them alive, the RPC
+    round trip, the kill's times (to the verdict stamped on the handle,
+    the recovery, the verdict to the last moved token) and tokens/s."""
+    import os
+    import statistics
+    import threading
+    import urllib.request
+
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.serving import launch_cluster
+    from paddle_tpu_torch.serving.cluster.frontend_proc import \
+        run_frontend_failover_drill
+
+    t_start = time.perf_counter()
+    tag = "serve_cluster"
+    V = model.config.vocab_size
+    ref_dec = LlamaDecoder(model, max_len=256)
+    info = dict(phase="serve_cluster", card=card, requests=len(reqs),
+                plain_tokens_per_s=plain_info["tokens_per_s"])
+    kw = dict(max_len=256, engine_kw={"num_slots": 8, "chunk_size": 16},
+              heartbeat_s=0.4, ttl_s=2.0, heartbeat_miss_threshold=1,
+              rpc_timeout_s=120.0)
+
+    t0 = time.perf_counter()
+    with launch_cluster(model, snapshot_dir("cluster"), prefill=1,
+                        decode=2, **kw) as cl:
+        info["spawn_s"] = time.perf_counter() - t0
+        router = cl.router
+        pids = {h.name: h.pid for h in router.workers}
+        check(len(set(pids.values())) == 3
+              and os.getpid() not in pids.values(),
+              f"{tag}: worker pids {pids}")
+        for pid in pids.values():
+            os.kill(pid, 0)
+        rtt = []
+        for _ in range(5):
+            for h in router.workers:
+                t1 = time.perf_counter()
+                router._call(h, "ping")
+                rtt.append(1e3 * (time.perf_counter() - t1))
+        info["rpc_round_trip_ms"] = dict(
+            p50=statistics.median(rtt), min=min(rtt), max=max(rtt),
+            calls=len(rtt))
+        for h in router.workers:
+            router._call(h, "reset_launches")
+        port = router.start_exporter(port=0)
+        seen = {}
+        kill = kill_drill(cl, "decode0", seen)
+
+        def on_step(n, t0):
+            if "fleet" not in seen and n >= 2:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics",
+                        timeout=30) as r:
+                    seen["fleet"] = r.read().decode()
+            kill(n, t0)
+
+        rids, outs, fin, wall = fleet_drain(router, reqs, on_step=on_step)
+        m, wm = router.metrics(), router.worker_metrics()
+        post = {h.name: router._call(h, "status") for h in router.workers
+                if h.state != "dead"}
+        info["card_memory"] = card_memory()
+        router.stop_exporter()
+    gens, moved = fleet_tokens(tag, reqs, rids, outs, "cluster")
+    check_lengths(tag, reqs, gens, V)
+    check(m["states"]["decode0"] == "dead" and m["worker_deaths"] == 1
+          and m["requeued"] >= 1 and moved, f"{tag}: {m}")
+    check(wm["prefill0"]["chunk_dispatches"] == 0
+          and wm["prefill0"]["prefill_dispatches"] > 0
+          and wm["decode1"]["prefill_dispatches"] == 0
+          and wm["decode1"]["chunk_dispatches"] > 0,
+          f"{tag}: dispatch split {wm}")
+    check(m["disaggregated_admissions"] >= len(reqs), f"{tag}: {m}")
+    statuses = {"prefill0": post["prefill0"],
+                "decode0": seen["pre_kill"]["decode0"],
+                "decode1": post["decode1"]}
+    lw = {n: worker_launches(st) for n, st in statuses.items()}
+    check(lw["decode0"]["decode_attention"] > 0
+          and lw["decode1"]["decode_attention"] > 0
+          and lw["prefill0"]["decode_attention"] == 0,
+          f"{tag}: decode-attention launches by worker {lw}")
+    for name in pids:
+        check(f'worker="{name}"' in seen["fleet"],
+              f"{tag}: fleet /metrics has no {name} samples")
+    held = hold_to(tag, ref_dec, reqs, gens, plain_gens)
+    held.update(moved=len(moved), rows_bit_equal=sum(
+        np.array_equal(a, b) for a, b in zip(gens, plain_gens)))
+    n_tok = int(sum(len(g) for g in gens))
+    info.update(
+        workers={n: dict(pid=pids[n], role=st["role"],
+                         memory_reserved_mib=st["memory_reserved"] / 2**20)
+                 for n, st in statuses.items()},
+        tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall,
+        ratio_to_plain=n_tok / wall / plain_info["tokens_per_s"],
+        latency_p99_s=float(np.percentile(list(fin.values()), 99)),
+        requeued=m["requeued"], states=m["states"],
+        disaggregated_admissions=m["disaggregated_admissions"],
+        worker_dispatches={n: {k: w.get(k) for k in (
+            "prefill_dispatches", "chunk_dispatches")}
+            for n, w in wm.items() if "error" not in w},
+        launches_by_worker=lw, held=held,
+        **kill_times(tag, router, "decode0", seen, fin, rids, moved))
+    for k in ("decode_attention", "int8_matmul", "threefry"):
+        info[f"{k}_launches"] = sum(x[k] for x in lw.values())
+
+    # the frontend's own death, beside recover="restart" (each has its
+    # own store daemon, workers and frontend, and both wait on RPCs, so
+    # together they take about the longer one's time): the 16 requests on
+    # one 8-slot decode worker (so 8 wait queued at the ready barrier),
+    # the frontend SIGKILLed there, a WAL resume, the stale epoch fenced
+    dreqs = [{"tag": f"req{j}", "prompt": p.tolist(),
+              "max_new_tokens": int(n),
+              "eos_token_id": None if e is None else int(e)}
+             for j, (p, n, e) in enumerate(reqs)]
+    drill = {}
+
+    def failover():
+        t1 = time.perf_counter()
+        try:
+            drill.update(run_frontend_failover_drill(
+                model, snapshot_dir("frontend_failover"), kill=True,
+                decode=1, num_slots=8, chunk_size=16, max_len=256,
+                requests=dreqs))
+        except BaseException as e:      # raised again after the join
+            drill["error"] = e
+        drill["wall_s"] = time.perf_counter() - t1
+
+    side = threading.Thread(target=failover)
+    side.start()
+    # recover="restart": the killed rank respawns from its snapshot
+    sub = reqs[:8]
+    t0 = time.perf_counter()
+    try:
+        with launch_cluster(model, snapshot_dir("cluster_restart"),
+                            prefill=0, decode=1, snapshot_every_chunks=1,
+                            recover="restart", **kw) as cl:
+            spawn = time.perf_counter() - t0
+            seen = {}
+            rids, outs, fin, wall = fleet_drain(
+                cl.router, sub, on_step=kill_drill(cl, "decode0", seen))
+            m = cl.router.metrics()
+    finally:
+        side.join()
+    if "error" in drill:
+        raise drill["error"]
+    gens, moved = fleet_tokens(f"{tag} restart", sub, rids, outs,
+                               "cluster")
+    check(m["worker_restarts"] >= 1 and m["states"]["decode0"] ==
+          "healthy", f"{tag} restart: {m}")
+    held = hold_to(f"{tag} restart", ref_dec, sub, gens, plain_gens[:8])
+    held["rows_bit_equal"] = sum(np.array_equal(a, b) for a, b in
+                                 zip(gens, plain_gens))
+    info["restart"] = dict(
+        spawn_s=spawn, wall_s=wall, worker_restarts=m["worker_restarts"],
+        requests_resumed=m["requests_resumed"], requeued=m["requeued"],
+        held=held, **(kill_times(f"{tag} restart", cl.router, "decode0",
+                                 seen, fin, rids, list(range(len(sub))))))
+
+    ready, rep = drill["ready"], drill["recovery"]
+    check(ready["occupied"] >= 2 and ready["queued"] >= 2,
+          f"{tag}: the ready barrier held {ready}")
+    check(drill["zombie_error"] == "StaleEpochError",
+          f"{tag}: the stale epoch probe got {drill['zombie_error']}")
+    check(drill["epoch"] > ready["epoch"], f"{tag}: epoch {drill['epoch']}")
+    check(rep["finished_in_wal"] + rep["finished_in_gap"] + rep["resumed"]
+          + rep["replayed"] == len(dreqs) and rep["resumed"] >= 1,
+          f"{tag}: recovery {rep}")
+    dgens = []
+    for r in dreqs:
+        out = drill["outcomes"][r["tag"]]
+        check("tokens" in out, f"{tag}: {r['tag']} resolved to {out}")
+        seq = np.asarray(out["tokens"]).reshape(-1)
+        dgens.append(seq[len(r["prompt"]):])
+    check_lengths(f"{tag} failover", reqs, dgens, V)
+    held = hold_to(f"{tag} failover", ref_dec, reqs, dgens, plain_gens)
+    held["rows_bit_equal"] = sum(np.array_equal(a, b)
+                                 for a, b in zip(dgens, plain_gens))
+    info["frontend_failover"] = dict(
+        wall_s=drill["wall_s"], requests=len(dreqs), ready=ready,
+        recovery=rep, epoch=drill["epoch"],
+        zombie_error=drill["zombie_error"], held=held)
+    del ref_dec
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    return info
 
 
 # -- prefix cache and speculative serving --------------------------------
@@ -3794,25 +4425,29 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    runs, sampled, prefix, spec, lora, snap, faults = serving_phase(card)
+    (runs, sampled, prefix, spec, lora, snap, faults,
+     fleet) = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
     _, unet_launches, adam_unet = unet_phase(card)
+    fleet_s = " / ".join(f"{x['phase_s']:.1f}" for x in fleet)
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"serving {t3 - t2:.1f} s (prefix "
           f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
           f"{spec['phase_s']:.1f} s, lora "
           f"{sum(x['phase_s'] for x in lora):.1f} s, snapshot "
           f"{sum(x['phase_s'] for x in snap):.1f} s, faults "
-          f"{sum(x['phase_s'] for x in faults):.1f} s), llama training "
+          f"{sum(x['phase_s'] for x in faults):.1f} s, router / http / "
+          f"cluster {fleet_s} s), llama training "
           f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
           flush=True)
-    served = runs + prefix + lora + snap + faults
+    served = runs + prefix + lora + snap + faults + fleet
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in served),
         decode_attention_draft=spec["skip3"]["decode_attention_launches"],
-        threefry=sampled["threefry_launches"],
+        threefry=sampled["threefry_launches"] + sum(
+            r["threefry_launches"] for r in fleet),
         int8_matmul=sum(r["int8_matmul_launches"] for r in served),
         int8_matmul_verify=spec["int8w"]["int8_matmul_verify_launches"],
         group_norm_fwd=unet_launches["group_norm_fwd"],

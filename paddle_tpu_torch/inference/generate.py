@@ -1610,6 +1610,12 @@ class LlamaDecoder:
 # adaptive K's 4 keys at the default K.
 _CHUNK_GRAPHS = 8
 _PREFILL_GRAPHS = 16
+# a decoder captures in "thread_local" mode: a serving process has other
+# threads beside the one that captures (the HTTP pump and its GET
+# handlers, a cluster worker's RPC serve thread and its heartbeat), and in
+# the default "global" mode any CUDA call one of them makes during a
+# capture (a sync, a copy, an allocation) fails that capture
+_CAPTURE_MODE = "thread_local"
 
 
 def _sample_spec(do_sample: bool, top_k, top_p):
@@ -1789,7 +1795,8 @@ class _ChunkGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph,
+                              capture_error_mode=_CAPTURE_MODE):
             self.toks, self.out = body(self.inputs)
         self.launches = _kernels.captured_launches(before)
 
@@ -1821,7 +1828,8 @@ class _PrefillGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph,
+                              capture_error_mode=_CAPTURE_MODE):
             if zero:
                 for c in self.caches:
                     _zero_cache(c)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-__all__ = ["launch_counts", "captured_launches", "add_launches"]
+__all__ = ["launch_counts", "captured_launches", "add_launches",
+           "reset_launches"]
 
 _WRAPPERS = ("adam", "decode_attention", "flash_attention", "group_norm",
              "int8_matmul", "rms_norm", "rope", "threefry")
@@ -46,6 +47,15 @@ def launch_counts() -> Counts:
         else:
             counts[key] = val
     return counts
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch counters to 0 (a measurement's start)."""
+    for mod, key in _counters():
+        if isinstance(getattr(mod, key[1]), dict):
+            getattr(mod, key[1]).clear()
+        else:
+            setattr(mod, key[1], 0)
 
 
 def captured_launches(before: Counts) -> Counts:

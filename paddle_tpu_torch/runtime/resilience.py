@@ -5,8 +5,8 @@ Counterpart of ``paddle_tpu/runtime/resilience.py`` (its own copy: the
 module imports nothing of the JAX package). One vocabulary for every
 failure path of the port:
 
-- **Typed events** -- ``RetryEvent``, ``DegradationEvent`` and
-  ``FaultEvent``, logged process-wide (``record_event`` /
+- **Typed events** -- ``RetryEvent``, ``DegradationEvent``,
+  ``ReplicaEvent`` and ``FaultEvent``, logged process-wide (``record_event`` /
   ``drain_events`` / ``recent_events``) and, with obs on, mirrored into
   the obs registry and tracer.
 - **resilient_call** -- the one retry loop: ``classify_error`` sorts an
@@ -22,13 +22,16 @@ failure path of the port:
 - **FaultInjector** -- a deterministic plan of rules: ``dispatch_error``
   and ``oom`` at the decoder's dispatch sites (``on_call``, fired before
   a dispatch touches its carry), ``torn_write`` and ``bit_flip`` at
-  ``atomic_write_bytes``. The RPC and heartbeat kinds wait for the router
-  (ROADMAP.md [11]) and are refused. The port's injector reads no
-  environment plan (the JAX package's ``PADDLE_TPU_FAULT_PLAN`` is its
-  own): ``configure`` / ``clear`` install one.
+  ``atomic_write_bytes``, the heartbeat kinds at ``heartbeat_action``
+  (``distributed/elastic.py``, the router's replica heartbeats) and the
+  RPC kinds at ``rpc_action`` (every ``distributed/rpc.py`` send). The
+  port's injector reads no environment plan (the JAX package's
+  ``PADDLE_TPU_FAULT_PLAN`` is its own): ``configure`` / ``clear``
+  install one, and a cluster worker receives its plan in its config.
 - **Typed failures** -- ``DecodeFailedError`` (every rung of the ladder
   failed), ``CorruptCheckpointError``, ``SlabTransferError``,
-  ``DeadlineExceededError``, ``InjectedFault``.
+  ``DeadlineExceededError``, ``ReplicaDeadError``,
+  ``WeightVersionError``, ``StaleEpochError``, ``InjectedFault``.
 
 The degradation ladder itself lives in ``inference/generate.py``
 (speculative -> chunked -> fused -> per-token) and
@@ -50,9 +53,10 @@ import numpy as np
 
 from paddle_tpu_torch.flags import flags as _flags
 
-__all__ = ["RetryEvent", "DegradationEvent", "FaultEvent",
+__all__ = ["RetryEvent", "DegradationEvent", "ReplicaEvent", "FaultEvent",
            "InjectedFault", "CorruptCheckpointError", "DecodeFailedError",
-           "DeadlineExceededError", "SlabTransferError",
+           "DeadlineExceededError", "ReplicaDeadError", "SlabTransferError",
+           "WeightVersionError", "StaleEpochError",
            "TRANSIENT_MARKERS", "SETUP_TRANSIENT_MARKERS",
            "classify_error", "resilient_call", "FaultInjector",
            "fault_injector", "atomic_write_bytes", "record_event",
@@ -89,6 +93,23 @@ class DegradationEvent:
 
 
 @dataclasses.dataclass(frozen=True)
+class ReplicaEvent:
+    """One replica health transition in the serving router (a chunk
+    failure strike, the breaker opening, a heartbeat suspect or recovery,
+    fence and unfence, a requeue), so a drill can assert which replica
+    failed and what the router did about it."""
+    site: str               # e.g. "serving.router"
+    replica: str            # replica name ("replica1")
+    action: str             # strike|breaker_open|suspect|recovered|
+    #                         unfenced|requeue|shed
+    detail: str
+    kind: str = "replica"
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
 class FaultEvent:
     """One injected fault firing (the injector's own audit record)."""
     site: str
@@ -104,7 +125,8 @@ _EVENTS: "collections.deque" = collections.deque(maxlen=512)
 _EVENTS_LOCK = threading.Lock()
 _EVENT_COUNTERS = {"retry": "resilience.retries",
                    "degradation": "resilience.degradations",
-                   "fault": "resilience.faults_injected"}
+                   "fault": "resilience.faults_injected",
+                   "replica": "resilience.replica_events"}
 
 
 def record_event(ev) -> None:
@@ -184,6 +206,19 @@ class DeadlineExceededError(RuntimeError):
         self.request_id = request_id
 
 
+class ReplicaDeadError(RuntimeError):
+    """A serving replica's circuit breaker is open (K consecutive
+    classified-fatal chunks or an exhausted ladder), or a request ran out
+    of replicas to run on (every candidate dead or excluded). Carries the
+    replica name and the last underlying error."""
+
+    def __init__(self, message: str, replica: Optional[str] = None,
+                 last_error: Optional[BaseException] = None):
+        super().__init__(message)
+        self.replica = replica
+        self.last_error = last_error
+
+
 class SlabTransferError(RuntimeError):
     """A shipped slab or row-migration payload failed integrity
     verification (its end-to-end sha256, or a cache layout that does not
@@ -195,6 +230,36 @@ class SlabTransferError(RuntimeError):
         super().__init__(message)
         self.key = key
         self.part = part
+
+
+class WeightVersionError(RuntimeError):
+    """A fleet operation would mix weight versions: migrating live decode
+    rows between workers built from different weights files (mid hot
+    reload) is refused, since a KV cache computed under v1 and continued
+    under v2 is neither's output. Carries both versions."""
+
+    def __init__(self, message: str, src_version: Optional[str] = None,
+                 dst_version: Optional[str] = None):
+        super().__init__(message)
+        self.src_version = src_version
+        self.dst_version = dst_version
+
+
+class StaleEpochError(RuntimeError):
+    """An RPC op carried a frontend epoch older than the one this worker
+    has already seen: the caller is a zombie incarnation of the control
+    plane (declared dead and replaced, still issuing ops), and the op is
+    refused so it can never double-serve. Carries the op name and both
+    epochs (only the message survives an RPC pickle round trip; the type
+    is the contract)."""
+
+    def __init__(self, message: str, op: Optional[str] = None,
+                 stale_epoch: Optional[int] = None,
+                 current_epoch: Optional[int] = None):
+        super().__init__(message)
+        self.op = op
+        self.stale_epoch = stale_epoch
+        self.current_epoch = current_epoch
 
 
 # markers of transient trouble in any phase (the JAX package's, verbatim)
@@ -283,9 +348,6 @@ def resilient_call(fn: Callable, *args,
             sleep(delay)
 
 
-_PORTED_KINDS = ("dispatch_error", "oom", "torn_write", "bit_flip")
-
-
 class FaultInjector:
     """Deterministic, plan-driven fault injection.
 
@@ -310,38 +372,45 @@ class FaultInjector:
     - ``{"kind": "bit_flip", "path": "*.npz", "at_byte": 7}`` — flip one
       bit of the written bytes (default the middle byte): silent media
       corruption that the sha256 manifests must catch on load.
+    - ``{"kind": "dead_heartbeat", "node": "node1", "after_beats": 3}``
+      -- ``heartbeat_action`` reports the node dead (beats suppressed
+      forever) after N beats (default: at once).
+    - ``{"kind": "delay_heartbeat", "node": "*", "after_beats": 2,
+      "skip_beats": 4}`` -- suppress a window of beats, then resume (the
+      stalled but alive member).
+    - ``{"kind": "rpc_partition", "src": "0", "dst": "1"}`` -- drop every
+      RPC message from rank ``src`` to rank ``dst`` (fnmatch patterns on
+      the rank strings). Directional: a symmetric cut takes both rules.
+      Sustained unless bounded with ``times``.
+    - ``{"kind": "rpc_delay", "src": "*", "dst": "2", "delay_s": 0.5}``
+      -- deliver matching messages late (a background timer).
+    - ``{"kind": "rpc_duplicate", "src": "0", "dst": "*"}`` -- deliver
+      matching messages twice, the copy under a fresh sequence number,
+      so the receiver really executes it again.
 
     A write rule fires ``times`` times (default 1). ``configure(plan)`` /
-    ``clear()`` are the only way to install a plan. Every firing appends a
-    :class:`FaultEvent` to ``self.fired`` and the process event log. The
-    JAX injector's heartbeat and RPC kinds have no injection site in the
-    port yet, so ``configure`` refuses them."""
+    ``clear()`` are the only way to install a plan; a cluster worker
+    gets its plan through its config. Every firing appends a
+    :class:`FaultEvent` to ``self.fired`` and the process event log."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._rules: List[dict] = []
         self._counts: Dict[int, int] = {}   # rule idx -> matched count
+        self._beats: Dict[str, int] = {}    # node -> beats attempted
         self.fired: List[FaultEvent] = []
 
     def configure(self, plan) -> "FaultInjector":
         """Install a plan (list of rule dicts, a single dict, or a JSON
-        string) and reset all schedule counters. The heartbeat and RPC
-        kinds raise ``NotImplementedError``, so a drill never passes on a
-        rule that cannot fire."""
+        string) and reset all schedule counters."""
         if isinstance(plan, str):
             plan = json.loads(plan)
         if isinstance(plan, dict):
             plan = [plan]
-        rules = [dict(r) for r in (plan or [])]
-        for rule in rules:
-            if rule.get("kind") not in _PORTED_KINDS:
-                raise NotImplementedError(
-                    f"fault kind {rule.get('kind')!r} is not ported yet: "
-                    "RPC and heartbeat faults wait for the router "
-                    "(ROADMAP.md queue 1: router)")
         with self._lock:
-            self._rules = rules
+            self._rules = [dict(r) for r in (plan or [])]
             self._counts = {}
+            self._beats = {}
             self.fired = []
         return self
 
@@ -433,6 +502,76 @@ class FaultInjector:
                 self._fire(path, rule, f"bit flipped at byte {at}")
                 return bytes(corrupted), False
         return data, False
+
+    def rpc_action(self, src: str, dst: str) -> Tuple[str, float]:
+        """Message-send injection point (``distributed/rpc.py`` routes
+        every request and reply write through it). Returns ``(action,
+        delay_s)``: ``"ok"`` (deliver), ``"drop"`` (the partition eats
+        the message), ``"delay"`` (deliver after ``delay_s``) or ``"dup"``
+        (deliver twice). The first matching rule wins; rules match the
+        (src, dst) rank strings directionally."""
+        if not self._rules:
+            return "ok", 0.0
+        with self._lock:
+            for idx, rule in enumerate(self._rules):
+                kind = rule.get("kind")
+                if kind not in ("rpc_partition", "rpc_delay",
+                                "rpc_duplicate"):
+                    continue
+                if not fnmatch.fnmatchcase(str(src),
+                                           str(rule.get("src", "*"))):
+                    continue
+                if not fnmatch.fnmatchcase(str(dst),
+                                           str(rule.get("dst", "*"))):
+                    continue
+                times = rule.get("times")   # default: sustained
+                n = self._counts.get(idx, 0)
+                if times is not None and n >= int(times):
+                    continue
+                self._counts[idx] = n + 1
+                site = f"rpc:{src}->{dst}"
+                if kind == "rpc_partition":
+                    self._fire(site, rule, f"message {n + 1} dropped")
+                    return "drop", 0.0
+                if kind == "rpc_delay":
+                    d = float(rule.get("delay_s", 0.2))
+                    self._fire(site, rule,
+                               f"message {n + 1} delayed {d:.3f}s")
+                    return "delay", d
+                self._fire(site, rule, f"message {n + 1} duplicated")
+                return "dup", 0.0
+        return "ok", 0.0
+
+    def heartbeat_action(self, node: str) -> str:
+        """Heartbeat injection point: ``"ok"`` (beat), ``"dead"``
+        (suppress forever) or ``"skip"`` (suppress this beat)."""
+        if not self._rules:
+            return "ok"
+        with self._lock:
+            beats = self._beats.get(node, 0)
+            self._beats[node] = beats + 1
+            for rule in self._rules:
+                kind = rule.get("kind")
+                if kind not in ("dead_heartbeat", "delay_heartbeat"):
+                    continue
+                if not fnmatch.fnmatchcase(node, rule.get("node", "*")):
+                    continue
+                after = int(rule.get("after_beats", 0))
+                if beats < after:
+                    continue
+                if kind == "dead_heartbeat":
+                    if beats == after:
+                        self._fire(node, rule,
+                                   f"heartbeat dead after {after} beats")
+                    return "dead"
+                skip = int(rule.get("skip_beats", 1))
+                if beats < after + skip:
+                    if beats == after:
+                        self._fire(node, rule,
+                                   f"heartbeat delayed {skip} beats "
+                                   f"after {after}")
+                    return "skip"
+        return "ok"
 
 
 fault_injector = FaultInjector()

@@ -98,10 +98,19 @@ events and a lifetime span).
 ``torch.inference_mode()``, so serving records no autograd graph; so do
 the methods that write the carry between steps.
 
+Replicas and streaming (the router, the cluster and the HTTP front-end
+build on these): ``replica_tag=`` names the engine as one replica and
+arms its own fault sites (``serving.<tag>.chunk`` / ``.step``);
+``request_keyed_rng=True`` keys each admitted row by
+``derive_row_key(seed, rng_request_id or id, rng_tokens_emitted)``, so a
+requeued or replayed request that re-prefills its emitted tokens resumes
+the key the undisturbed row would hold; ``submit(on_tokens=)`` streams a
+row's new tokens at every chunk harvest and once more, ``final=True``,
+when it finishes.
+
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: meshes ([13]), AOT bundle
-backends ([12]), the HTTP front-end, replica tags and request-keyed keys
-([11]).
+``NotImplementedError`` when asked for: meshes ([13]) and AOT bundle
+backends ([12]).
 """
 
 from __future__ import annotations
@@ -139,6 +148,7 @@ from paddle_tpu_torch.runtime.resilience import (CorruptCheckpointError,
                                                  SlabTransferError,
                                                  atomic_write_bytes,
                                                  classify_error,
+                                                 fault_injector,
                                                  record_event)
 from paddle_tpu_torch.serving.lora import (AdapterVersionError,
                                            UnknownAdapterError)
@@ -147,19 +157,12 @@ from paddle_tpu_torch.serving.prefix_cache import (PrefixCache, SlabOps,
                                                    resolve_prefix_cache_bytes)
 from paddle_tpu_torch.serving.scheduler import Request, Scheduler, Slot
 
-__all__ = ["ServingEngine"]
+__all__ = ["ServingEngine", "derive_row_key"]
 
-# engine / submit arguments of the JAX engine whose features later slices
-# port: name -> (ROADMAP item, the value that leaves the feature off).
-# Passing anything else raises NotImplementedError.
-_LATER_ENGINE = {
-    "mesh": ("mesh", None),
-    "replica_tag": ("router", None), "request_keyed_rng": ("router", False),
-}
-_LATER_SUBMIT = {
-    "rng_request_id": ("router", None), "rng_tokens_emitted": ("router", 0),
-    "on_tokens": ("HTTP front-end", None),
-}
+# engine arguments of the JAX engine whose features later slices port:
+# name -> (ROADMAP item, the value that leaves the feature off). Passing
+# anything else raises NotImplementedError.
+_LATER_ENGINE = {"mesh": ("mesh", None)}
 _HIT_CLASSES = ("full", "partial", "miss")
 # the payload dtypes of the carry's small fields: the JAX carry's (the port
 # holds positions and eos ids as int64 and key words as int32)
@@ -301,6 +304,24 @@ def _row_key(seed: int) -> np.ndarray:
     CPU and the plain version."""
     return rnd.split(rnd.PRNGKey(seed, device="cpu"), 1)[0].numpy() \
         .view(np.uint32)
+
+
+def derive_row_key(seed: int, request_id: int, tokens_emitted: int,
+                   device=None) -> torch.Tensor:
+    """The request-keyed row stream (``request_keyed_rng=True``):
+    ``split(fold_in(PRNGKey(seed), request_id), 1)[0]``, advanced once per
+    already-emitted token by the rule the chunk's step uses (``next =
+    split(key)[0]``). An admission that replays ``tokens_emitted``
+    teacher-forced tokens so resumes the key the undisturbed row would
+    hold: a sampled requeue or replay on another engine or worker draws
+    the same continuation. The key is made on ``device`` (the card unless
+    the caller says otherwise), where each step runs the threefry
+    kernel."""
+    key = rnd.split(rnd.fold_in(rnd.PRNGKey(seed, device=device),
+                                int(request_id)), 1)[0]
+    for _ in range(int(tokens_emitted)):
+        key = rnd.split(key)[0]
+    return key
 
 
 def _check_quant_ask(quant, have, what: str) -> None:
@@ -617,7 +638,9 @@ class ServingEngine:
                  adaptive_k: bool = False, adapter_store=None,
                  slo_targets: Optional[Dict[str, Dict[str, float]]] = None,
                  snapshot_dir: Optional[str] = None,
-                 snapshot_every_chunks: int = 0, **later):
+                 snapshot_every_chunks: int = 0,
+                 replica_tag: Optional[str] = None,
+                 request_keyed_rng: bool = False, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
         if not isinstance(backend, LlamaDecoder):
             raise TypeError(
@@ -724,11 +747,19 @@ class ServingEngine:
         # demotes the carry to the plain chunk (one-way)
         self._spec_active = self._spec_configured
         self._exporter = None
+        # per-latency-class streaming TTFT (histograms made on first use)
+        # and each streaming request's callback
+        self._h_stream_ttft: Dict[str, Any] = {}
+        self._stream_cb: Dict[int, Any] = {}
+        self.replica_tag = None if replica_tag is None else str(replica_tag)
+        self.request_keyed_rng = bool(request_keyed_rng)
         # a ladder exhaustion's postmortem carries this registry and the
         # prefix cache's pool (weakrefs)
-        obs.flight_recorder.add_registry("serving", self.registry)
+        tag = (f"serving.{self.replica_tag}" if self.replica_tag
+               else "serving")
+        obs.flight_recorder.add_registry(tag, self.registry)
         if self.prefix_cache is not None:
-            obs.flight_recorder.add_state("serving.prefix_cache",
+            obs.flight_recorder.add_state(f"{tag}.prefix_cache",
                                           self.prefix_cache)
         # crash recovery: the snapshot cadence, the last snapshot (its
         # monotonic time and path) and the carry's decode steps, which the
@@ -785,6 +816,28 @@ class ServingEngine:
                 f"adapter) — mixed names across one chunk ARE the "
                 f"shared fused dispatch")
         return ctr
+
+    def _stream_ttft_hist(self, cls: str):
+        h = self._h_stream_ttft.get(cls)
+        if h is None:
+            h = self.registry.histogram(
+                f"serving.stream.ttft_s.{cls}",
+                f"admission -> first streamed flush, latency class "
+                f"{cls!r} (streaming submits only)")
+            self._h_stream_ttft[cls] = h
+        return h
+
+    def _row_key(self, req: Request) -> np.ndarray:
+        """An admitted row's key as uint32 words: the request-keyed stream
+        under ``request_keyed_rng``, else ``split(PRNGKey(seed), 1)[0]``,
+        as on both of the JAX engine's admission routes."""
+        if not self.request_keyed_rng:
+            return _row_key(req.seed)
+        rng_id = (req.rng_request_id if req.rng_request_id is not None
+                  else req.id)
+        return derive_row_key(req.seed, rng_id, req.rng_tokens_emitted,
+                              device=self._b.dec.device).cpu().numpy() \
+            .view(np.uint32)
 
     @property
     def host_scattered(self) -> int:
@@ -853,7 +906,9 @@ class ServingEngine:
                slo_latency_s: Optional[float] = None,
                deadline_s: Optional[float] = None,
                speculative: Optional[bool] = None,
-               adapter: Optional[str] = None, **later) -> int:
+               adapter: Optional[str] = None,
+               rng_request_id: Optional[int] = None,
+               rng_tokens_emitted: int = 0, on_tokens=None) -> int:
         """Queue one request; returns its id (results key).
         ``temperature`` and ``seed`` act on a sampling engine: the row's
         key is ``split(PRNGKey(seed), 1)[0]``. ``latency_class`` buckets
@@ -866,8 +921,14 @@ class ServingEngine:
         decodes verify-free in the same chunk). ``adapter`` serves the
         request through a registered LoRA adapter of the engine's
         ``adapter_store``: an unknown name, or any name on an engine
-        without a store, is an ``UnknownAdapterError`` here."""
-        _refuse_later(later, _LATER_SUBMIT, "submit")
+        without a store, is an ``UnknownAdapterError`` here.
+        ``rng_request_id`` / ``rng_tokens_emitted`` feed the
+        ``request_keyed_rng`` key (a router passes its stable request id
+        and, on a replay, how many generated tokens the prompt already
+        carries); the seed-only rule ignores them. ``on_tokens`` is a
+        streaming callback ``(request_id, new_tokens, final)`` fired at
+        every chunk harvest with the tokens the row gained since the last
+        call, then once with ``final=True`` when it finishes."""
         if adapter is not None:
             if self.adapter_store is None:
                 raise UnknownAdapterError(
@@ -926,7 +987,9 @@ class ServingEngine:
             priority=int(priority), submit_time=time.monotonic(),
             latency_class=str(latency_class), slo_ttft_s=slo_ttft_s,
             slo_latency_s=slo_latency_s, deadline_s=deadline_s,
-            adapter=adapter,
+            rng_request_id=(None if rng_request_id is None
+                            else int(rng_request_id)),
+            rng_tokens_emitted=int(rng_tokens_emitted), adapter=adapter,
             speculative=None if speculative is None else bool(speculative))
         if self.scheduler.cache_aware:
             # the grouping key: the prompt's first block-boundary digest,
@@ -935,6 +998,8 @@ class ServingEngine:
             req.prefix_group = prefix_digests(
                 prompt, self.prefix_cache.block_tokens,
                 adapter=self._adapter_tag(adapter))[-1][1]
+        if on_tokens is not None:
+            self._stream_cb[rid] = on_tokens
         self.scheduler.push(req)
         self._g_qdepth.set(len(self.scheduler))
         obs.tracer.event("serving.request.queued", request=rid,
@@ -1030,6 +1095,16 @@ class ServingEngine:
                     seq = seq[:req.max_new_tokens]
                     fin = True
                 if not fin:
+                    cb = self._stream_cb.get(req.id)
+                    if cb is not None and len(seq) > slot.streamed:
+                        # the flush cadence is the chunk harvest; _finish
+                        # fires the final flush
+                        if slot.streamed == 0:
+                            self._stream_ttft_hist(req.latency_class)\
+                                .observe(t_chunk_done - slot.admitted_at)
+                        new = seq[slot.streamed:]
+                        slot.streamed = int(len(seq))
+                        cb(req.id, np.asarray(new), False)
                     continue
                 res = self._finish(slot, seq, i)
             self._results[req.id] = res
@@ -1113,6 +1188,10 @@ class ServingEngine:
                 request_id=req.id)
             self._results[req.id] = err
             out.append((req.id, err))
+            cb = self._stream_cb.pop(req.id, None)
+            if cb is not None:
+                # a shed streaming request still terminates its stream
+                cb(req.id, np.zeros((0,), np.int64), True)
         frozen = []
         for i, slot in self.scheduler.slots.occupied():
             req = slot.request
@@ -1455,10 +1534,15 @@ class ServingEngine:
 
     def clear_inflight(self) -> None:
         """Release every occupied slot (and unpin its prefix slab): the
-        fence of a replica whose work was exported."""
+        fence of a replica whose work was exported. Rows staged in the
+        admission ring belong to those slots and go too (ROADMAP.md
+        section 3, entry 31): left staged, they would hold the ring full
+        after an unfence and no admission could ever land."""
         for i, slot in self.scheduler.slots.occupied():
             self._unpin(slot)
             self.scheduler.slots.release(i)
+        if self._ring_slots:
+            self._ring_meta = [None] * self._ring_slots
 
     @torch.inference_mode()
     def reset_state(self) -> None:
@@ -1809,7 +1893,7 @@ class ServingEngine:
             # the splice metadata, under ``AdmissionRing.load``'s names
             self._ring_meta[rows[j]] = {
                 "slot": slot_idx, "pos": len(req.prompt),
-                "keys": _row_key(req.seed),
+                "keys": self._row_key(req),
                 "eos": (-1 if req.eos_token_id is None
                         else req.eos_token_id),
                 "temp": req.temperature,
@@ -1922,7 +2006,7 @@ class ServingEngine:
         of these."""
         self._c["host_scattered"].inc()
         self._b.scatter(self.state, slot_idx, logits1, kc1, vc1, src, pos1,
-                        _row_key(req.seed),
+                        self._row_key(req),
                         -1 if req.eos_token_id is None
                         else req.eos_token_id, req.temperature,
                         self._adapter_index(req.adapter))
@@ -1989,6 +2073,9 @@ class ServingEngine:
         ev0 = self._b.event_count()
         if self._spec_active:
             try:
+                if self.replica_tag:
+                    fault_injector.on_call(
+                        f"serving.{self.replica_tag}.chunk")
                 toks, nv, self.state = self._b.decode_chunk_spec(
                     self.state, self.chunk_size, splice, K=self._k_now)
                 self._chunk_done(n_staged)
@@ -2020,6 +2107,11 @@ class ServingEngine:
                 self.state = self._b.spec_demote(self.state)
                 self._spec_active = False
         try:
+            if self.replica_tag:
+                # the replica's own fault site: a plan aimed at
+                # "serving.<tag>.chunk" kills or hangs this replica while
+                # its peers keep serving
+                fault_injector.on_call(f"serving.{self.replica_tag}.chunk")
             if splice is not None:
                 toks, self.state = self._b.decode_chunk_ring(
                     self.state, self.chunk_size, splice)
@@ -2051,6 +2143,9 @@ class ServingEngine:
         parts = []
         try:
             for s in range(self.chunk_size):
+                if self.replica_tag:
+                    fault_injector.on_call(
+                        f"serving.{self.replica_tag}.step")
                 if splice is not None:
                     toks1, self.state = self._b.decode_step_ring(
                         self.state, splice)
@@ -2129,7 +2224,7 @@ class ServingEngine:
                              "chunks": slot.chunks})
         obs.record_crash(
             reason, error=error,
-            extra={"site": "serve.chunk", "replica": None,
+            extra={"site": "serve.chunk", "replica": self.replica_tag,
                    "harvested_requests": harvested,
                    "lost_requests": lost})
 
@@ -2198,6 +2293,16 @@ class ServingEngine:
         if req.adapter is not None:
             record["serving"]["adapter"] = req.adapter
             record["serving"]["adapter_rev"] = slot.adapter_rev
+        cb = self._stream_cb.pop(req.id, None)
+        if cb is not None:
+            # the final flush: what the finish-side trims left beyond the
+            # last chunk flush, with the final=True marker
+            new = seq[slot.streamed:]
+            if slot.streamed == 0 and len(new):
+                self._stream_ttft_hist(req.latency_class).observe(
+                    fin - slot.admitted_at)
+            slot.streamed = int(len(seq))
+            cb(req.id, np.asarray(new), True)
         out = np.concatenate([req.prompt,
                               seq.astype(req.prompt.dtype)])[None]
         return GenerateResult.wrap(out, record)
@@ -2307,7 +2412,7 @@ class ServingEngine:
             "num_slots": self.num_slots,
             "chunk_size": self.chunk_size,
             "quant": self._b.quant,
-            "replica_tag": None,
+            "replica_tag": self.replica_tag,
             "mesh": None,
             "slots": slots,
             "occupancy_now": len(occupied) / self.num_slots,
@@ -2431,7 +2536,9 @@ class ServingEngine:
                 "store_version": int(self.adapter_store.version),
                 "rows_by_adapter": self._adapter_rows(),
             }),
-            "stream_ttft_p50_s": {},
+            "stream_ttft_p50_s": {
+                cls: h.percentile(50)
+                for cls, h in sorted(self._h_stream_ttft.items())},
         }
 
     def start_exporter(self, port: Optional[int] = None) -> int:

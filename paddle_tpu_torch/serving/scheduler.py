@@ -128,6 +128,9 @@ class Slot:
     # the resilience events (retries, degradations) of the dispatches this
     # row rode: its admission prefill and every chunk since
     events: List[Any] = dataclasses.field(default_factory=list)
+    # streaming: how many of the row's tokens its on_tokens callback has
+    # seen; a chunk harvest emits ``seq[streamed:]`` and advances it
+    streamed: int = 0
 
 
 class SlotTable:
@@ -146,6 +149,9 @@ class SlotTable:
 
     def occupied(self) -> List[Tuple[int, Slot]]:
         return [(i, e) for i, e in enumerate(self.entries) if e is not None]
+
+    def occupancy(self) -> float:
+        return len(self.occupied()) / len(self.entries)
 
     def occupy(self, request: Request) -> int:
         free = self.free_slots()

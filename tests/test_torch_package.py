@@ -53,6 +53,12 @@ def test_import_leaves_jax_out_and_chip_smoke_refuses_without_a_card():
             "import paddle_tpu_torch.models.unet\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
             "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.serving, paddle_tpu_torch.native\n"
+            "import paddle_tpu_torch.serving.cluster.worker\n"
+            "import paddle_tpu_torch.serving.cluster.frontend_proc\n"
+            "import paddle_tpu_torch.serving.cluster.store_daemon\n"
+            "import paddle_tpu_torch.distributed.rpc\n"
+            "import paddle_tpu_torch.distributed.elastic\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'paddle_tpu', 'ml_dtypes')]\n"
             "assert not bad, bad\n"

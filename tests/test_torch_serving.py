@@ -113,27 +113,27 @@ def test_engine_priority_and_refusals(models):
         ServingEngine(dec, quant="int8wk")
     with pytest.raises(ValueError, match="exceeds"):
         eng.submit(np.arange(60), 8)
-    for kw in ({"mesh": "dp:2"}, {"request_keyed_rng": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(dec, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(dec, mesh="dp:2")
+    # the router's arguments are ported (tests/test_torch_router.py)
+    assert ServingEngine(dec, request_keyed_rng=True,
+                         replica_tag="r1").request_keyed_rng
     # every argument still refused is one of the JAX engine's, and the
     # value that leaves it off is the JAX engine's default
     import inspect
 
     from paddle_tpu_torch.serving import engine as port_engine
-    for table, fn in ((port_engine._LATER_ENGINE, JaxEngine.__init__),
-                      (port_engine._LATER_SUBMIT, JaxEngine.submit)):
-        params = inspect.signature(fn).parameters
-        for name, (_, off) in table.items():
-            assert params[name].default == off, name
+    params = inspect.signature(JaxEngine.__init__).parameters
+    for name, (_, off) in port_engine._LATER_ENGINE.items():
+        assert params[name].default == off, name
     # the prefix cache and speculative serving are ported: the engine
     # takes them (tests/test_torch_prefix_cache.py and
     # tests/test_torch_speculative.py hold them to the JAX engine)
     assert ServingEngine(dec, prefix_cache=True).prefix_cache is not None
     assert ServingEngine(dec, draft_model="skip:1").metrics()[
         "speculative"]["num_speculative_tokens"] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit(p, 3, on_tokens=print)
+    assert eng.submit(p, 3, on_tokens=lambda *a: None, rng_request_id=3,
+                      rng_tokens_emitted=1) == high + 1
     with pytest.raises(TypeError, match="unexpected"):
         eng.submit(p, 3, bogus=1)
     # the reference's ring check, before any device work

@@ -560,8 +560,8 @@ def _migrate(make, kw, sub_kw):
 
 def test_migration_greedy_and_sampled_match_jax(sides):
     """A request moved mid-flight decodes the JAX engine's tokens, greedy
-    and sampled (the shipped row keeps its live key: per-row seed keys,
-    as ``request_keyed_rng`` is not ported); a second extract of the
+    and sampled (the shipped row keeps its live key: per-row seed keys);
+    a second extract of the
     moved id is refused before anything is touched."""
     got = _both(sides, _migrate, {}, lambda i: {})
     assert got[0] == 1 and got[1][0] == "ValueError"
@@ -663,22 +663,39 @@ def test_replica_plumbing_matches_jax(sides):
     assert len(got[-5]) == 4
 
 
-def test_fault_injector_refuses_unported_kinds():
-    """The write and dispatch kinds are ported: an RPC or heartbeat rule
-    is refused at ``configure`` (naming its ROADMAP item) rather than
-    installed to fire nowhere, and the injector reads no environment."""
-    for kind in ("rpc_partition", "rpc_drop", "dead_heartbeat",
-                 "heartbeat_stall"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fault_injector.configure([{"kind": kind}])
+def test_fault_injector_refuses_unported_kinds(monkeypatch):
+    """Every JAX fault kind is ported now: the heartbeat and RPC rules
+    install and fire as the JAX injector's (the same actions and events
+    for the same calls), while the port still refuses the JAX package's
+    environment plan, ``PADDLE_TPU_FAULT_PLAN``: only ``configure``
+    installs one."""
+    from paddle_tpu.runtime.resilience import fault_injector as jinj
+    monkeypatch.setenv("PADDLE_TPU_FAULT_PLAN",
+                       '[{"kind": "rpc_partition"}]')
     assert not fault_injector.active()
-    for kind in ("dispatch_error", "oom"):
-        fault_injector.configure({"kind": kind, "above_batch": 8})
-        assert fault_injector.active()
-    fault_injector.clear()
-    fault_injector.configure({"kind": "bit_flip", "path": "*.npz"})
-    assert fault_injector.active()
-    fault_injector.clear()
+    assert fault_injector.rpc_action("0", "1") == ("ok", 0.0)
+    plan = [{"kind": "rpc_partition", "src": "0", "dst": "1", "times": 1},
+            {"kind": "rpc_delay", "src": "1", "dst": "0", "delay_s": 0.1},
+            {"kind": "rpc_duplicate", "src": "2", "dst": "*"},
+            {"kind": "dead_heartbeat", "node": "a", "after_beats": 1},
+            {"kind": "delay_heartbeat", "node": "b", "skip_beats": 2}]
+    calls = [("0", "1"), ("0", "1"), ("1", "0"), ("2", "5"), ("3", "4")]
+
+    def run(inj):
+        inj.configure(plan)
+        acts = [inj.rpc_action(*c) for c in calls]
+        beats = [inj.heartbeat_action(n) for n in "aaabbbc"]
+        fired = [(e.site, e.fault, e.detail) for e in inj.fired]
+        inj.clear()
+        return acts, beats, fired
+
+    try:
+        want = run(jinj)
+    finally:
+        jinj.clear()
+    got = run(fault_injector)
+    assert got == want
+    assert got[1] == ["ok", "dead", "dead", "skip", "skip", "ok", "ok"]
     assert not fault_injector.active()
 
 
@@ -781,13 +798,12 @@ def test_restore_and_absorb_write_the_carry_in_place(sides, tmp_path):
     assert not fresh.state.kc.any() and bool(fresh.state.done.all())
     rid = fresh.submit(*reqs[0])
     np.testing.assert_array_equal(np.asarray(fresh.drain()[rid]), want[0])
-    for kw in ({"mesh": "dp:2"}, {"request_keyed_rng": True},
-               {"replica_tag": "r1"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mp(**kw)
-    for kw in ({"on_tokens": print}, {"rng_request_id": 3}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fresh.submit(np.arange(3), 2, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mp(mesh="dp:2")
+    # the router's engine and submit arguments are ported
+    assert mp(request_keyed_rng=True, replica_tag="r1").replica_tag == "r1"
+    fresh.submit(np.arange(3), 2, on_tokens=lambda *a: None,
+                 rng_request_id=3)
     with pytest.raises(ValueError, match="snapshot"):
         mp(draft_model="skip:1", snapshot_dir=str(tmp_path))
 

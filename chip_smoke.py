@@ -130,12 +130,13 @@ smoke run is made, nothing else is built.
    the plain engine, the busy share, and the graph keys and reserved
    bytes as the prefix line does.
    The LoRA line (``serve_lora``, unquantized with f32 stacks, then over
-   ``int8wk`` with fp16 stacks): bench_serve_http's tenant mix without
-   the HTTP part, the serving line's 16 requests round-robin to base and
-   three adapters of ranks 2 / 3 / 4 over all 48 projection matrices,
-   through ``ServingEngine(adapter_store=)`` and the ring with graphed
-   chunks and prefills. Base rows must equal the plain serving line's
-   tokens bit for bit; each tenant's rows pass the decisive teacher-forced
+   ``int8wk`` with fp16 stacks; the serving model at 6 of its 12
+   layers): bench_serve_http's tenant mix without the HTTP part, the
+   serving line's 16 requests round-robin to base and three adapters of
+   ranks 2 / 3 / 4 over all 24 projection matrices, through
+   ``ServingEngine(adapter_store=)`` and the ring with graphed chunks and
+   prefills. Base rows must equal a plain engine's tokens over the same
+   model bit for bit; each tenant's rows pass the decisive teacher-forced
    gate against a dense decoder with its A @ B folded in; one prefill a
    request, no per-token step or host scatter, 4 rows a tenant, the chunk
    dispatches of a plain engine serving the same requests at the same
@@ -146,8 +147,8 @@ smoke run is made, nothing else is built.
    merged decoder, and the swapped stacks get a chunk graph of their own;
    unquantized, one prefix-cache drain with each prompt as base and as
    one adapter hits in full only for a prompt its own tenant served
-   before. It prints tokens/s and ms a chunk beside the plain line's and
-   the plain twin's, the device ms and launches a decode step the
+   before. It prints tokens/s and ms a chunk beside the plain twin's,
+   the device ms and launches a decode step the
    adapter path adds (its profile against the twin's), and the graph keys
    and reserved bytes before and after the swap.
    The snapshot line (``serve_snapshot``, unquantized and ``int8wk``):
@@ -217,6 +218,24 @@ smoke run is made, nothing else is built.
    the card's, the RPC round trip, the kill's times (to the verdict, the
    requeue, to the last replayed token), and how many rows were
    bit-equal.
+   The bundle line (``serve_bundle``): the model exported as AOT
+   bundles (``export_decoder_bundle``, five bundles side by side, one
+   process each; each entry a ``torch.export`` program with the weights
+   baked in, launching the kernels as registered custom ops) and served
+   by a loaded ``AotPredictor``: the engine over a chunked bundle
+   (unquantized and ``int8wk``; bit-equal to an in-process engine on the
+   same host-copy admission route, the plain ring line through the
+   decisive gate, one graph replay a dispatch once warm, the launch
+   identities), ``generate`` under bench_decode_1b_served's interleaved
+   protocol (unquantized and ``int8w``, bit-equal to the in-process fused
+   loop, whose marginal ms is printed beside), a sampled and a
+   speculative bundle bit-equal to the in-process ``generate`` (the
+   speculative one's acceptance counts too, and its plain rung under a
+   fault plan), and the refusals (a flipped byte, a recipe mismatch both
+   ways, a pickled archive, a JAX entry). It prints export s and bytes an
+   entry, load s, the first drain's s, ``memory_report()``, reserved
+   memory and the bytes a step's cache writes move beyond the in-place
+   ones.
 5. Training phase: bench.py's bench_llama (the 134M Llama, vocab 32000,
    hidden 768, 12 layers, 12 heads, bf16) through ``ShardedTrainer`` with
    AdamW, B 8, S 1024, one fixed batch. First the Adam kernel against its
@@ -267,10 +286,11 @@ smoke run is made, nothing else is built.
    kernel's, launched by the sampled line, and two rows at the
    speculative shapes: decode attention at a draft's per-row lengths and
    the int8 matmul at a verify's 40 rows; the decode-attention and int8
-   rows count the LoRA, snapshot, fault, router, HTTP and cluster lines'
-   launches too, the cluster's summed from its worker processes'
-   counters, and the threefry row the router's keyed sampled runs), the
-   card line,
+   rows count the LoRA, snapshot, fault, router, HTTP, cluster and
+   bundle lines' launches too, the cluster's summed from its worker
+   processes' counters, the bundle line's made inside its loaded
+   programs, and the threefry row the router's keyed sampled runs and
+   the sampled bundle's), the card line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1580,21 +1600,28 @@ def serve_sampled(model, reqs, greedy, V, card):
     return info, gens
 
 
-def serving_inputs():
-    """The serving lines' model and traffic: the GQA Llama (vocab 32000,
-    hidden 768, 12 layers, 12 heads, 4 KV heads, bf16) with random
-    weights from seed 0, and 16 requests of 16-128 prompt tokens and
-    32-96 new ones (seed 0), every fourth stopping at an eos its greedy
-    stream reaches. Returns ``(model, reqs)``, each request ``(prompt,
-    budget, eos or None)``."""
-    from paddle_tpu_torch.inference.generate import LlamaDecoder
+def serving_model(layers: int = 12):
+    """The serving lines' model: the GQA Llama (vocab 32000, hidden 768,
+    12 layers, 12 heads, 4 KV heads, bf16) with random weights from seed
+    0, on the card; ``layers`` cuts its depth (the LoRA line's)."""
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(vocab_size=32000, hidden_size=768,
-                      intermediate_size=2048, num_hidden_layers=12,
+                      intermediate_size=2048, num_hidden_layers=layers,
                       num_attention_heads=12, num_key_value_heads=4,
                       max_position_embeddings=1024, dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, seed=0)
+    return LlamaForCausalLM(cfg, seed=0)
+
+
+def serving_inputs():
+    """The serving lines' model (``serving_model``) and traffic: 16
+    requests of 16-128 prompt tokens and 32-96 new ones (seed 0), every
+    fourth stopping at an eos its greedy stream reaches. Returns
+    ``(model, reqs)``, each request ``(prompt, budget, eos or None)``."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+
+    model = serving_model()
+    cfg = model.config
     rng = np.random.default_rng(0)
     reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(16, 129))),
              int(rng.integers(32, 97)), None) for _ in range(16)]
@@ -1611,8 +1638,9 @@ def serving_phase(card):
     """The serving lines on one model: greedy unquantized and int8wk,
     then sampled; ``serve_prefix``, unquantized and int8wk;
     ``serve_spec``; ``serve_lora``, unquantized and int8wk;
-    ``serve_snapshot``, unquantized and int8wk; and ``serve_faults``,
-    unquantized and int8wk."""
+    ``serve_snapshot``, unquantized and int8wk; ``serve_faults``,
+    unquantized and int8wk; the router, HTTP and cluster lines; and
+    ``serve_bundle``."""
     model, reqs = serving_inputs()
     cfg = model.config
     runs, plain = [], {}
@@ -1624,9 +1652,12 @@ def serving_phase(card):
     prefix = [serve_prefix(model, q, card) for q in (None, "int8wk")]
     spec = serve_spec(model, card)
     # the LoRA line comes after every earlier line, so their inputs and
-    # random streams are those they had before it
-    lora = [serve_lora(model, q, reqs, plain[q], info, card)
-            for q, info in zip((None, "int8wk"), runs)]
+    # random streams are those they had before it; it runs at 6 of the
+    # model's 12 layers (its own plain twin holds its base rows), for the
+    # script's time
+    lora_model = serving_model(layers=6)
+    lora = [serve_lora(lora_model, q, reqs, card) for q in (None, "int8wk")]
+    del lora_model
     # the snapshot line comes after the LoRA line, for the same reason
     snap = [serve_snapshot(model, q, reqs, plain[q], info,
                            sampled_gens if q is None else None, card)
@@ -1640,7 +1671,10 @@ def serving_phase(card):
              for q, info in zip((None, "int8wk"), runs)]
     fleet.append(serve_http(model, reqs, plain[None], runs[0], card))
     fleet.append(serve_cluster(model, reqs, plain[None], runs[0], card))
-    return runs, sampled, prefix, spec, lora, snap, faults, fleet
+    # and the bundle line after them
+    bundle = serve_bundle(model, reqs, plain, dict(zip((None, "int8wk"),
+                                                      runs)), card)
+    return runs, sampled, prefix, spec, lora, snap, faults, fleet, bundle
 
 
 # -- replicated serving, the HTTP front-end and the cluster --------------
@@ -2240,6 +2274,472 @@ def serve_cluster(model, reqs, plain_gens, plain_info, card):
     return info
 
 
+# -- AOT bundles ------------------------------------------------------------
+
+def bundle_dir(name):
+    """A fresh directory for one exported bundle under the checkout's
+    ``build/`` (``.gitignore`` lists it)."""
+    import os
+    import shutil
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "bundles", name)
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def bundle_launches():
+    """The three served kernels' launch counters, now."""
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import int8_matmul as i8
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    return np.array([da.launches, i8.launches, tf.launches])
+
+
+def timed_export(dec, d, **kw):
+    """``export_decoder_bundle`` into ``d``: (seconds, bytes an entry)."""
+    import os
+
+    from paddle_tpu_torch.inference import export_decoder_bundle
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_decoder_bundle(dec, d, **kw)
+    s = time.perf_counter() - t0
+    sizes = {f: os.path.getsize(os.path.join(d, f))
+             for f in sorted(os.listdir(d)) if f.endswith(".aot")}
+    return s, sizes
+
+
+def timed_load(pred):
+    """Load and verify every entry of ``pred``'s bundle: seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in pred.meta["manifest"]:
+        pred._entry(f)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def functional_cache_bytes(program):
+    """What a loaded step program's cache writes move beyond the eager
+    decoder's in-place writes: ``torch.export`` may record an in-place
+    write into an input as an out-of-place ``index_put`` / ``*_scatter``
+    node plus a ``copy_`` back into the input, each reading and writing
+    its whole output once. Returns (those bytes, the in-place writes the
+    program kept), counted from the loaded program's graph."""
+    functional = ("aten.index_put.default", "aten.select_scatter.default",
+                  "aten.slice_scatter.default")
+    total = in_place = 0
+    for n in program.graph.nodes:
+        val = n.meta.get("val")
+        if n.op != "call_function" or not isinstance(val, torch.Tensor):
+            continue
+        target = str(n.target)
+        if target in functional or (target == "aten.copy_.default"
+                                    and n.args[0].op == "placeholder"):
+            total += 2 * val.numel() * val.element_size()
+        elif target == "aten.index_put_.default":
+            in_place += 1
+    return total, in_place
+
+
+# the bundles of the bundle line: name -> (quant recipe, export arguments);
+# serve_bundle exports them side by side, one process each
+BUNDLE_JOBS = {
+    "serve_none": (None, dict(prompt_lens=[128], decode_steps=[95, 31],
+                              batch_sizes=[8], chunk_sizes=[16])),
+    "serve_int8wk": ("int8wk", dict(prompt_lens=[128], decode_steps=[],
+                                    batch_sizes=[8], chunk_sizes=[16])),
+    "decode_int8w": ("int8w", dict(prompt_lens=[128], decode_steps=[95, 31],
+                                   batch_sizes=[8])),
+    "sampled": (None, dict(prompt_lens=[128], decode_steps=[31],
+                           batch_sizes=[8], do_sample=True, top_k=50,
+                           top_p=0.9)),
+    "spec": (None, dict(prompt_lens=[128], decode_steps=[32],
+                        batch_sizes=[8], draft_model="skip:3",
+                        num_speculative_tokens=4)),
+}
+
+
+def export_job(job):
+    """One bundle export of the serving lines' model (the same weights as
+    the calling process's: the same seed on the same card) in a process
+    of its own; prints one JSON line with its seconds and entry bytes."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    dec = LlamaDecoder(serving_model(), max_len=256, quant=job["quant"])
+    s, sizes = timed_export(dec, job["dir"], **job["kw"])
+    print(json.dumps({"export_s": s, "entry_bytes": sizes}), flush=True)
+
+
+def start_exports(jobs):
+    """Start one export process a bundle of ``jobs``, all at once (an
+    export is a single-threaded trace and a serialization); returns
+    ``{name: (dir, process)}``."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys\nsys.path.insert(0, sys.argv[1])\n"
+            "import chip_smoke\nchip_smoke.export_job(json.loads(sys.argv[2]))")
+    procs = {}
+    for name, (quant, kw) in jobs.items():
+        d = bundle_dir(name)
+        procs[name] = (d, subprocess.Popen(
+            [sys.executable, "-c", code, root,
+             json.dumps({"quant": quant, "kw": kw, "dir": d})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def export_result(procs, name):
+    """Wait for ``name``'s export process: ``{"dir", "export_s",
+    "entry_bytes"}``."""
+    d, p = procs[name]
+    so, se = p.communicate(timeout=900)
+    check(p.returncode == 0, f"export {name}: {se[-3000:]}")
+    return dict(json.loads(so.strip().splitlines()[-1]), dir=d)
+
+
+def serve_bundle(model, reqs, plain_gens, plain_info, card):
+    """The bundle line (``inference/bundle.py``), on the serving line's
+    model and 16 requests. The bundles of ``BUNDLE_JOBS`` are exported
+    side by side, one process each, and each check below runs as soon as
+    the bundles it needs exist. (a) For unquantized and
+    ``int8wk`` decoders, a chunked bundle (batch 8, chunk 16 and the
+    T = 1 rung; admission bucket 128) behind ``ServingEngine(AotPredictor(dir), num_slots=8,
+    chunk_size=16)``: lengths, one prefill a request and all admitted by
+    host row copy, on the third drain one graph replay a dispatch and
+    the launch identities of the replayed chunks, the same tokens every
+    drain and bit-equal to an in-process engine that admits by the same
+    host route over the same buckets, and against the plain ring line by
+    the decisive gate (the bit-equal count printed). (b)
+    ``AotPredictor.generate`` greedy, unquantized and ``int8w``,
+    bench_decode_1b_served's protocol at B 8, prompt 128, decode buckets
+    95 and 31 (interleaved hi / lo rounds, 2 warm-up and 7 timed;
+    marginal ms a token), each bit-equal to the in-process fused
+    ``generate``, whose marginal ms is timed in the last 3 rounds
+    beside. (c) A sampled bundle (top-k 50, top-p 0.9) at a runtime
+    temperature and seed bit-equal to the in-process sampled
+    ``generate``; a ``skip:3`` K 4 speculative bundle with its plain
+    fallback: tokens and ``last_spec_stats`` those of the in-process
+    speculative ``generate``, and under a fault plan on
+    ``bundle.spec_decode`` the plain rung, bit-equal to plain
+    ``generate``. (d) Refusals on files: a flipped byte
+    (``CorruptBundleError``), a recipe asked of the wrong bundle
+    (``QuantMismatchError``, both ways), a pickled archive
+    (``PickledArchiveError``) and a JAX-format entry
+    (``ForeignProgramError``). (e) Export s and bytes an entry, load s,
+    the first drain (eager calls and captures), ``memory_report()``, the
+    reserved memory, and the bytes a chunk step's cache writes move
+    beyond the eager decoder's in-place writes
+    (``functional_cache_bytes``). Every kernel launch counted here is
+    made inside a loaded bundle's program."""
+    t_start = time.perf_counter()
+    dev = next(model.parameters()).device
+    procs = start_exports(BUNDLE_JOBS)
+    try:
+        info = _bundle_drills(model, reqs, plain_gens, plain_info, card,
+                              procs, t_start, dev)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    emit(info)
+    return info
+
+
+def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
+                   t_start, dev):
+    """``serve_bundle``'s checks, each as soon as the export processes of
+    the bundles it needs have ended, in the order they are expected to
+    end (the smaller bundles first)."""
+    import io
+    import os
+    import shutil
+    import zipfile
+
+    from paddle_tpu_torch.inference import AotPredictor, load_compiled
+    from paddle_tpu_torch.inference.aot import (ForeignProgramError,
+                                                PickledArchiveError,
+                                                save_compiled)
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    from paddle_tpu_torch.quantization.kv_cache import QuantMismatchError
+    from paddle_tpu_torch.runtime.resilience import (CorruptBundleError,
+                                                     fault_injector)
+    from paddle_tpu_torch.serving import ServingEngine, bucket_length
+
+    cfg = model.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    info = dict(phase="serve_bundle", card=card, exports={}, serve={},
+                decode={})
+    exports = {}
+
+    def ready(name):
+        """The export of ``name``, waited for, with its end time."""
+        if name not in exports:
+            exports[name] = export_result(procs, name)
+            info["exports"][name] = dict(
+                export_s=exports[name]["export_s"],
+                ended_s=time.perf_counter() - t_start,
+                entry_bytes=exports[name]["entry_bytes"])
+        return exports[name]["dir"]
+
+    launched = np.zeros(3, np.int64)
+
+    def bundled(fn, *a, **k):
+        """Run ``fn`` (bundle serving only) and count its launches."""
+        nonlocal launched
+        before = bundle_launches()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        launched += bundle_launches() - before
+        return out
+
+    def done(name):
+        shutil.rmtree(exports[name]["dir"], ignore_errors=True)
+
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, V, (8, 128))
+    hi, lo = 96, 32
+    decs = {q: LlamaDecoder(model, max_len=256, quant=q)
+            for q in (None, "int8wk", "int8w")}
+
+    def serve_line(quant):
+        """(a) the engine over a chunked bundle; returns its predictor."""
+        tag = quant or "none"
+        job = f"serve_{tag}"
+        buckets = BUNDLE_JOBS[job][1]["prompt_lens"]
+        dec, d = decs[quant], ready(job)
+        pred = AotPredictor(d)
+        load_s = timed_load(pred)
+        eng = ServingEngine(pred, num_slots=8, chunk_size=16)
+        before = bundle_launches()
+        gens, first_wall, _ = bundled(drain, eng, reqs)
+        first = bundle_launches() - before
+        check_lengths(f"bundle {tag}", reqs, gens, V)
+        # a key's first call is eager, its second captures: after two
+        # drains every key of the traffic has its graph
+        second, second_wall, _ = bundled(drain, eng, reqs)
+        m0 = eng.metrics()
+        r0 = pred.graph_replays
+        before = bundle_launches()
+        again, wall, _ = bundled(drain, eng, reqs)
+        n_da, n_i8, _ = bundle_launches() - before
+        m = eng.metrics()
+        chunks = m["chunk_dispatches"] - m0["chunk_dispatches"]
+        prefills = m["prefill_dispatches"] - m0["prefill_dispatches"]
+        for j, (a, b, x) in enumerate(zip(again, gens, second)):
+            check(np.array_equal(a, b) and np.array_equal(x, b),
+                  f"bundle {tag}: request {j} served again gave other "
+                  f"tokens")
+        check(prefills == len(reqs), f"bundle {tag}: one prefill each")
+        check(m["step_dispatches"] == 0, f"bundle {tag}: per-token steps")
+        check(m["admission_ring"] is None
+              and eng.host_scattered == 3 * len(reqs),
+              f"bundle {tag}: {eng.host_scattered} host row copies for "
+              f"three drains of {len(reqs)} requests, ring "
+              f"{m['admission_ring']}")
+        steps = chunks * 16
+        check(n_da == L * steps, f"bundle {tag}: decode_attention "
+              f"launches {n_da} != {L} x {steps}")
+        small = sum(1 for p, _, _ in reqs
+                    if bucket_length(len(p), buckets) <= 64)
+        want_i8 = (4 * L + 1) * (steps + small) if quant else 0
+        check(n_i8 == want_i8, f"bundle {tag}: int8_matmul launches "
+              f"{n_i8} != {want_i8}")
+        replays = pred.graph_replays - r0
+        check(replays == chunks + prefills, f"bundle {tag}: {replays} "
+              f"graph replays, {chunks} chunks and {prefills} prefills")
+        # the in-process engine over the same host route and buckets
+        href = ServingEngine(dec, num_slots=8, chunk_size=16,
+                             prefix_cache=True, prompt_buckets=buckets,
+                             cache_aware_admission=False)
+        hgens, hwall, _ = drain(href, reqs)
+        for j, (a, b) in enumerate(zip(gens, hgens)):
+            check(np.array_equal(a, b), f"bundle {tag}: request {j} != the "
+                  f"in-process host-route engine's tokens")
+        held = hold_to(f"bundle {tag}", dec, reqs, gens, plain_gens[quant])
+        held["rows_bit_equal"] = sum(np.array_equal(a, b)
+                                     for a, b in zip(gens, plain_gens[quant]))
+        n_tok = int(sum(len(g) for g in gens))
+        fbytes, n_in_place = functional_cache_bytes(
+            pred._entry("decode_chunk_b8_t16.aot"))
+        info["serve"][tag] = dict(
+            buckets=buckets, load_s=load_s, first_drain_s=first_wall,
+            first_drain_launches=first.tolist(), second_drain_s=second_wall,
+            wall_s=wall, tokens_per_s=n_tok / wall,
+            vs_plain=(n_tok / wall) / plain_info[quant]["tokens_per_s"],
+            host_route_inprocess_tokens_per_s=n_tok / hwall,
+            prefill_dispatches=prefills, chunk_dispatches=chunks,
+            graph_replays=replays, decode_attention_launches=int(n_da),
+            int8_matmul_launches=int(n_i8), rows_equal_host_route=True,
+            held_to_plain=held, functional_cache_bytes_per_step=fbytes,
+            in_place_cache_writes_per_step=n_in_place,
+            memory_report=pred.memory_report(),
+            memory_reserved_bytes=torch.cuda.memory_reserved())
+        del eng, href
+        return pred
+
+
+    # (c) sampled: runtime temperature and seed
+    dec = decs[None]
+    ds = ready("sampled")
+    preds_ = AotPredictor(ds)
+    want = np.asarray(dec.generate(prompt, lo, do_sample=True, top_k=50,
+                                   top_p=0.9, temperature=0.8, seed=7))
+    for _ in range(3):         # eager, captured, replayed
+        got = np.asarray(bundled(preds_.generate, prompt, lo, do_sample=True,
+                                 temperature=0.8, seed=7))
+        check(np.array_equal(got, want), "sampled bundle != the in-process "
+              "sampled generate")
+    info["sampled"] = dict(graph_replays=preds_.graph_replays)
+    # (d) a flipped byte in an entry is refused at load
+    f = next(b["file"] for b in preds_.meta["decode_buckets"])
+    with open(os.path.join(ds, f), "r+b") as fh:
+        fh.seek(os.path.getsize(os.path.join(ds, f)) // 2)
+        byte = fh.read(1)
+        fh.seek(-1, 1)
+        fh.write(bytes([byte[0] ^ 0x10]))
+    try:
+        AotPredictor(ds)._entry(f)
+        check(False, "a flipped byte loaded")
+    except CorruptBundleError:
+        pass
+    del preds_
+    done("sampled")
+
+    # (a) unquantized; (b) marginal ms a token over the same bundle and
+    # the int8w one, bench_decode_1b_served's interleaved A/B
+    pred_none = serve_line(None)
+    pred8 = AotPredictor(ready("decode_int8w"))
+    info["decode"]["int8w_load_s"] = timed_load(pred8)
+    bundles = {"none": (decs[None], pred_none),
+               "int8w": (decs["int8w"], pred8)}
+    for n in (hi, lo):
+        for recipe, (dec_, pred_) in bundles.items():
+            want = np.asarray(dec_.generate(prompt, n))
+            for _ in range(3):       # eager, captured, replayed
+                got = np.asarray(bundled(pred_.generate, prompt, n))
+                check(np.array_equal(got, want), f"bundle {recipe}: {n} "
+                      f"tokens != the in-process fused generate's")
+    variants = [(f"{where} {recipe}", x)
+                for recipe, pair in bundles.items()
+                for where, x in zip(("bundle", "in-process"), pair[::-1])]
+    samples = {name: [] for name, _ in variants}
+    t0 = time.perf_counter()
+    for rep in range(9):               # 2 warm-up rounds, 7 timed
+        for name, x in variants:
+            bundle = name.startswith("bundle")
+            if not bundle and rep < 6:
+                continue               # the eager loop: the last 3 rounds
+            run = (lambda n: bundled(x.generate, prompt, n)) if bundle \
+                else (lambda n: x.generate(prompt, n))
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            run(hi)
+            torch.cuda.synchronize()
+            b = time.perf_counter()
+            run(lo)
+            torch.cuda.synchronize()
+            c = time.perf_counter()
+            if rep >= 2:
+                samples[name].append(((b - a) - (c - b)) / (hi - lo))
+    for name, s in samples.items():
+        q1, med, q3 = np.percentile(np.asarray(s), [25, 50, 75])
+        info["decode"][name] = dict(ms_per_token=1e3 * med,
+                                    iqr_ms=1e3 * (q3 - q1),
+                                    tokens_per_s=8 / med, rounds=len(s))
+    info["decode"]["ab_s"] = time.perf_counter() - t0
+    info["decode"]["graph_replays"] = [pred_none.graph_replays,
+                                       pred8.graph_replays]
+    # (d) a recipe asked of the wrong bundle, both ways
+    for x, ask in ((pred8, "none"), (pred_none, "int8w")):
+        try:
+            x.generate(prompt, 8, quant=ask)
+            check(False, f"quant={ask} served by the wrong bundle")
+        except QuantMismatchError:
+            pass
+    del bundles, pred8, pred_none, x, variants, dec_, pred_
+    done("serve_none")
+    done("decode_int8w")
+    torch.cuda.empty_cache()
+    serve_line("int8wk")
+    done("serve_int8wk")
+    torch.cuda.empty_cache()
+
+    # speculative: skip:3, K 4, with the plain fallback
+    predsp = AotPredictor(ready("spec"))
+    want = np.asarray(dec.generate(prompt, lo, draft_model="skip:3",
+                                   num_speculative_tokens=4))
+    want_stats = dict(dec.last_spec_stats)
+    for _ in range(3):
+        got = np.asarray(bundled(predsp.generate, prompt, lo))
+        check(np.array_equal(got, want), "speculative bundle != the "
+              "in-process speculative generate")
+        check(predsp.last_spec_stats == want_stats,
+              f"speculative stats {predsp.last_spec_stats} != {want_stats}")
+    plain = np.asarray(dec.generate(prompt, lo))
+    with flags_set({"resilience_backoff_s": 0.0}):
+        fault_injector.configure([{"kind": "dispatch_error",
+                                   "site": "bundle.spec_decode",
+                                   "times": 10**9}])
+        try:
+            got = np.asarray(bundled(predsp.generate, prompt, lo))
+        finally:
+            fault_injector.clear()
+    check(predsp.last_resilience["level"] == "fused",
+          f"spec fault plan: level {predsp.last_resilience['level']}")
+    check(np.array_equal(got, plain), "the plain rung != plain generate")
+    info["speculative"] = dict(
+        stats=want_stats, degraded_level=predsp.last_resilience["level"],
+        degradations=len(predsp.last_resilience["degradations"]),
+        graph_replays=predsp.graph_replays)
+    del predsp, decs
+    done("spec")
+    torch.cuda.empty_cache()
+
+    # (d) a pickled archive and a JAX-format entry, refused unloaded
+    dd = bundle_dir("refusals")
+    os.makedirs(dd)
+    small = os.path.join(dd, "small.aot")
+    save_compiled(torch.nn.Linear(4, 4).to(dev),
+                  (torch.zeros(2, 4, device=dev),), small)
+    with open(small, "rb") as fh:
+        head, blob = fh.read().split(b"PK\x03\x04", 1)
+    src = zipfile.ZipFile(io.BytesIO(b"PK\x03\x04" + blob))
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as out:
+        for n in src.namelist():
+            data = src.read(n)
+            if n.endswith("weights_config.json"):
+                data = data.replace(b'"use_pickle": false',
+                                    b'"use_pickle": true')
+            out.writestr(n, data)
+    bad = os.path.join(dd, "pickled.aot")
+    with open(bad, "wb") as fh:
+        fh.write(head + buf.getvalue())
+    foreign = os.path.join(dd, "stablehlo.aot")
+    with open(foreign, "wb") as fh:
+        fh.write(b"PTPU-AOT1\n" + b"\x10\x00\x00\x00ML\xefR" + bytes(64))
+    refused = {}
+    for path, err in ((bad, PickledArchiveError),
+                      (foreign, ForeignProgramError)):
+        try:
+            load_compiled(path)
+            check(False, f"{path} loaded")
+        except err as e:
+            refused[os.path.basename(path)] = type(e).__name__
+    shutil.rmtree(dd, ignore_errors=True)
+    info["refusals"] = dict(refused, corrupt="CorruptBundleError",
+                            quant="QuantMismatchError")
+    check(launched.min() > 0, f"bundle launches {launched.tolist()}: a "
+          f"kernel never launched inside a bundle")
+    info["decode_attention_launches"] = int(launched[0])
+    info["int8_matmul_launches"] = int(launched[1])
+    info["threefry_launches"] = int(launched[2])
+    info["memory_reserved_bytes"] = torch.cuda.memory_reserved()
+    info["phase_s"] = time.perf_counter() - t_start
+    return info
+
+
 # -- prefix cache and speculative serving --------------------------------
 
 def graph_replays(dec, kind):
@@ -2714,14 +3214,16 @@ def lora_added_kernels(prof, base_prof, steps):
                 lora_top_kernels=added[:8])
 
 
-def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
+def serve_lora(model, quant, reqs, card):
     """The LoRA line: bench_serve_http's tenant mix (bench.py:2643-2715)
-    without the HTTP part, at the serving line's widths and traffic. The
+    without the HTTP part, at the serving line's widths and traffic, on
+    ``model`` (the serving model at 6 of its 12 layers). The
     16 requests go round-robin to base, ``ad0``, ``ad1`` and ``ad2``
     (``lora_store``; f32 stacks, fp16 over the int8wk base), through
     ``ServingEngine(adapter_store=)`` (8 slots, chunk 16, max_len 256, the
     device ring, graphed chunks and prefills). Gates: (a) every base row's
-    tokens equal the plain serving line's bit for bit; (b) each adapter
+    tokens equal a plain engine's over the same model (the twin of (c))
+    bit for bit; (b) each adapter
     row passes the decisive teacher-forced gate against a dense decoder
     with its tenant's A @ B folded in (``merged_decoder``); (c) one
     prefill a request, no per-token step, no host scatter, 4 rows a
@@ -2737,7 +3239,7 @@ def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
     ``prefix_mix`` with each prompt sent as base and as ``ad0``, where a
     full hit happens only for a prompt its own tenant served before, and
     equals that earlier request's tokens. Prints tokens/s and ms a chunk
-    beside the plain line's and the twin's, the device ms and launches a
+    beside the twin's, the device ms and launches a
     decode step the adapter path adds (profiled, against the twin), and
     the graph keys and reserved bytes."""
     from paddle_tpu_torch.inference.generate import LlamaDecoder
@@ -2779,12 +3281,6 @@ def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
     check((n_da, n_i8) == (L * steps, want_i8),
           f"{tag}: decode_attention / int8_matmul launches {n_da} / "
           f"{n_i8} != {L * steps} / {want_i8}")
-    # (a) base rows: the plain serving line's tokens
-    for j, a in enumerate(ads):
-        if a is None:
-            check(np.array_equal(gens[j], plain_gens[j]),
-                  f"{tag}: base request {j} differs from the plain line")
-
     def same(a_gens, what):
         for j, (a, b) in enumerate(zip(a_gens, gens)):
             check(np.array_equal(a, b), f"{tag}: request {j} {what} gave "
@@ -2808,6 +3304,7 @@ def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
           f"{tag}: prefill / chunk dispatches {m['prefill_dispatches']} / "
           f"{m['chunk_dispatches']} != the plain twin's "
           f"{tm['prefill_dispatches']} / {tm['chunk_dispatches']}")
+    # (a) base rows: the plain twin's tokens
     for j, a in enumerate(ads):
         if a is None:
             check(np.array_equal(tgens[j], gens[j]),
@@ -2830,19 +3327,15 @@ def serve_lora(model, quant, reqs, plain_gens, plain_info, card):
                 ranks=[2, 3, 4], stack_dtype=str(store.dtype),
                 tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                 ms_per_chunk_incl_admission=1e3 * wall / chunks,
-                first_drain_wall_s=first_wall,
-                plain_tokens_per_s=plain_info["tokens_per_s"],
-                plain_ms_per_chunk_incl_admission=plain_info[
-                    "ms_per_chunk_incl_admission"],
+                first_drain_wall_s=first_wall, layers=L,
                 twin_tokens_per_s=n_tok / twall,
                 twin_ms_per_chunk_incl_admission=1e3 * twall / chunks,
                 prefill_dispatches=m["prefill_dispatches"],
                 chunk_dispatches=chunks, decode_steps=steps,
-                plain_chunk_dispatches=plain_info["chunk_dispatches"],
                 step_dispatches=m["step_dispatches"],
                 admission_ring=m["admission_ring"],
                 adapters=m["adapters"], decode_attention_launches=n_da,
-                int8_matmul_launches=n_i8, base_rows_equal_plain=True,
+                int8_matmul_launches=n_i8, base_rows_equal_twin=True,
                 teacher_forced=tf)
     info["profiled"] = profiled_info({}, prof, pwall, steps,
                                      ("decode_attention", "int8_matmul"))
@@ -4425,8 +4918,8 @@ def main() -> int:
     t1 = time.perf_counter()
     cases = kernel_phase(parent)
     t2 = time.perf_counter()
-    (runs, sampled, prefix, spec, lora, snap, faults,
-     fleet) = serving_phase(card)
+    (runs, sampled, prefix, spec, lora, snap, faults, fleet,
+     bundle) = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
     t4 = time.perf_counter()
@@ -4439,15 +4932,16 @@ def main() -> int:
           f"{sum(x['phase_s'] for x in lora):.1f} s, snapshot "
           f"{sum(x['phase_s'] for x in snap):.1f} s, faults "
           f"{sum(x['phase_s'] for x in faults):.1f} s, router / http / "
-          f"cluster {fleet_s} s), llama training "
+          f"cluster {fleet_s} s, bundle {bundle['phase_s']:.1f} s), "
+          f"llama training "
           f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
           flush=True)
-    served = runs + prefix + lora + snap + faults + fleet
+    served = runs + prefix + lora + snap + faults + fleet + [bundle]
     launches.update(
         decode_attention=sum(r["decode_attention_launches"] for r in served),
         decode_attention_draft=spec["skip3"]["decode_attention_launches"],
         threefry=sampled["threefry_launches"] + sum(
-            r["threefry_launches"] for r in fleet),
+            r["threefry_launches"] for r in fleet + [bundle]),
         int8_matmul=sum(r["int8_matmul_launches"] for r in served),
         int8_matmul_verify=spec["int8w"]["int8_matmul_verify_launches"],
         group_norm_fwd=unet_launches["group_norm_fwd"],

@@ -112,6 +112,7 @@ from paddle_tpu_torch import obs
 from paddle_tpu_torch import random as rnd
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.inference.eos import _normalize_eos, _trim_after_eos
 from paddle_tpu_torch.models.llama import LlamaConfig, _rope_tables
 from paddle_tpu_torch.obs import cost as _cost
 from paddle_tpu_torch.ops import kernels as _kernels
@@ -1853,20 +1854,3 @@ def decode_fallback_active() -> bool:
         return True
     return os.environ.get("PADDLE_TPU_DECODE_FALLBACK", "").strip().lower() \
         in ("1", "true", "yes", "on")
-
-
-def _normalize_eos(eos_token_id) -> Optional[int]:
-    """``None`` or any negative id (the bundles' ``-1``) means no eos."""
-    if eos_token_id is None:
-        return None
-    e = int(eos_token_id)
-    return None if e < 0 else e
-
-
-def _trim_after_eos(toks: np.ndarray, eos_token_id: int) -> np.ndarray:
-    """Drop columns past the point where every row has emitted eos; a row
-    whose first token is eos keeps length 1."""
-    hit = toks == eos_token_id
-    n = toks.shape[1]
-    first = np.where(hit.any(axis=1), hit.argmax(axis=1), n - 1)
-    return toks[:, :int(first.max()) + 1]

@@ -9,11 +9,11 @@ of the dispatch, once per (site, input signature), and cached:
   run (the warm-up that precedes a key's capture on the card, or the
   dispatch itself where nothing is captured; a graph replay runs no
   Python and is never measured). It counts aten matmuls and attention;
-  the hand-written kernels reached through ``ctypes`` add their own count
-  through ``add_flops`` (decode attention 4·B·H·L·D, the int8 matmul
-  2·M·K·N), which their wrappers call only while a pass runs and only
-  where they launch (on the CPU the plain version's aten ops are counted
-  instead). XLA also counts elementwise operations; this count does not.
+  the hand-written kernels are custom ops, opaque to ``FlopCounterMode``
+  (``ops/kernels``), and add their own count through ``add_flops``
+  (decode attention 4·B·H·L·D, the int8 matmul 2·M·K·N) on the card and
+  on the CPU alike, which counts only while a pass runs. XLA also counts
+  elementwise operations; this count does not.
 - ``argument_bytes`` / ``output_bytes`` / ``bytes_per_dispatch``: the
   bytes of the dispatch's input tensors (the weights included) and of its
   outputs, each tensor storage once (the JAX fallback when XLA reports no
@@ -202,7 +202,7 @@ def eager_pass(device=None):
 
 def add_flops(n: float) -> None:
     """A hand-written kernel's own count, added where it launches, while
-    an eager pass runs (FlopCounterMode cannot see a ``ctypes`` launch)."""
+    an eager pass runs (FlopCounterMode cannot see inside a custom op)."""
     if getattr(_PASS, "counting", False):
         _PASS.flops += float(n)
 

@@ -8,6 +8,11 @@ cache, f32/bf16 like q or int8 with (B, KV, L, 1) f32 scales; out
 or (B,) int tensor (rows at different cache offsets); positions
 ``>= pos[b]`` are masked. Inference only. The kernel splits the cache
 length over a thread-block cluster of ``split_for(B, KV, L)`` blocks.
+
+The launch is the custom op ``torch.ops.paddle_tpu_torch.decode_attention``
+(lengths always a (B,) tensor), with a fake implementation, so
+``torch.export`` records the call and an exported program runs the kernel
+(``inference/aot.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from typing import Optional
 
 from paddle_tpu_torch.obs import cost as _cost
 from paddle_tpu_torch.ops.kernels import _build
@@ -120,16 +127,30 @@ def decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
     """q (B, H, D) x cache (B, KV, L, D), valid length ``pos`` ->
     (B, H, D). CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
-    global launches
-    lens = _lens(pos, q.shape[0], q.device)
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, kc, vc, lens, k_scale, v_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention runs on cuda or cpu, got "
                          f"{q.device}")
-    _check(q, kc, vc, k_scale, v_scale)
+    return decode_attention_op(q, kc, vc, _lens(pos, q.shape[0], q.device),
+                               k_scale, v_scale)
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention",
+                         mutates_args=())
+def decode_attention_op(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        lens: torch.Tensor, k_scale: Optional[torch.Tensor],
+                        v_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """``decode_attention`` over (B,) int32 lengths ``lens``: the plain
+    version on the CPU, the kernel on a card."""
+    global launches
     B, H, D = q.shape
     KV, L = kc.shape[1], kc.shape[2]
+    # a custom op is opaque to FlopCounterMode, on either route: its own
+    # count, QK^T and PV over the cache length, while a cost pass runs
+    _cost.add_flops(4 * B * H * L * D)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, kc, vc, lens, k_scale, v_scale)
+    _check(q, kc, vc, k_scale, v_scale)
+    lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     rc = _build.library().decode_attention_launch(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
@@ -142,7 +163,9 @@ def decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
         raise RuntimeError(f"decode_attention launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     launches += 1
-    # the ctypes launch is invisible to FlopCounterMode: its own count,
-    # QK^T and PV over the cache length, while a cost pass runs
-    _cost.add_flops(4 * B * H * L * D)
     return out
+
+
+@decode_attention_op.register_fake
+def _(q, kc, vc, lens, k_scale, v_scale):
+    return torch.empty_like(q)

@@ -4,6 +4,8 @@ Counterpart of ``paddle_tpu/ops/pallas/int8_matmul.py``; the kernel is
 ``paddle_tpu_torch/csrc/int8_matmul.cu``. x (B, K) f32/bf16, w (K, N)
 int8, per-output-channel scale (N,) f32 -> out (B, N) in x's dtype,
 dequantized inside the kernel (the weight streams int8). Inference only.
+The launch is the custom op ``torch.ops.paddle_tpu_torch.int8_matmul``,
+with a fake implementation, so ``torch.export`` records it.
 """
 
 from __future__ import annotations
@@ -44,11 +46,22 @@ def int8_matmul(x, w, scale):
     """x (B, K) @ dequant(w (K, N) int8, scale (N,)) -> (B, N). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul runs on cuda or cpu, got {x.device}")
+    return int8_matmul_op(x, w, scale)
+
+
+@torch.library.custom_op("paddle_tpu_torch::int8_matmul", mutates_args=())
+def int8_matmul_op(x: torch.Tensor, w: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """``int8_matmul``: the plain version on the CPU, the kernel on a
+    card."""
     global launches
+    # a custom op is opaque to FlopCounterMode, on either route: its own
+    # count, while a cost pass runs
+    _cost.add_flops(2 * x.shape[0] * x.shape[1] * w.shape[1])
     if x.device.type == "cpu":
         return int8_matmul_ref(x, w, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_matmul runs on cuda or cpu, got {x.device}")
     if not supported(x, w):
         raise ValueError(f"int8_matmul kernel does not take x "
                          f"{tuple(x.shape)} {x.dtype} with w "
@@ -73,6 +86,9 @@ def int8_matmul(x, w, scale):
                            f"{_build.error_string(rc)} ({rc})")
     launches += 1
     launches_by_rows[B] = launches_by_rows.get(B, 0) + 1
-    # invisible to FlopCounterMode: its own count, while a cost pass runs
-    _cost.add_flops(2 * B * K * N)
     return out
+
+
+@int8_matmul_op.register_fake
+def _(x, w, scale):
+    return x.new_empty((x.shape[0], w.shape[1]))

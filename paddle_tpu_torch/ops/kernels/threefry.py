@@ -8,7 +8,9 @@ No Pallas kernel corresponds: the JAX package's samplers call
 uint32 key words, out (R, n, 2) int32 holding the uint32 output words.
 ``paddle_tpu_torch/random.py`` builds ``split``, ``fold_in`` and
 ``random_bits`` on it. Only integers cross the kernel, so kernel and plain
-version agree bit for bit.
+version agree bit for bit. The launch is the custom op
+``torch.ops.paddle_tpu_torch.threefry``, with a fake implementation, so
+``torch.export`` records it.
 """
 
 from __future__ import annotations
@@ -64,27 +66,39 @@ def threefry_words(keys, n: int, base: int = 0):
     """Both threefry words of counters ``base .. base + n - 1`` under each
     key: keys (R, 2) int32 -> (R, n, 2) int32. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
-    global launches
     if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int32:
         raise ValueError(f"keys must be (R, 2) int32, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
     n = int(n)
     if not 1 <= n < 2**31:
         raise ValueError(f"counter count must be in [1, 2^31), got {n}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"threefry runs on cuda or cpu, got {keys.device}")
+    return threefry_op(keys, n, int(base) & _M)
+
+
+@torch.library.custom_op("paddle_tpu_torch::threefry", mutates_args=())
+def threefry_op(keys: torch.Tensor, n: int, base: int) -> torch.Tensor:
+    """``threefry_words`` of checked arguments: the plain version on the
+    CPU, the kernel on a card."""
+    global launches
     if keys.device.type == "cpu":
         return threefry_words_ref(keys, n, base)
-    if keys.device.type != "cuda":
-        raise ValueError(f"threefry runs on cuda or cpu, got {keys.device}")
     R = keys.shape[0]
     if not 1 <= R <= 65535:
         raise ValueError(f"threefry kernel takes 1-65535 keys, got {R}")
     keys = keys.contiguous()
     out = torch.empty((R, n, 2), dtype=torch.int32, device=keys.device)
     rc = _build.library().threefry_launch(
-        keys.data_ptr(), R, n, int(base) & _M, out.data_ptr(),
+        keys.data_ptr(), R, n, base, out.data_ptr(),
         torch.cuda.current_stream(keys.device).cuda_stream)
     if rc:
         raise RuntimeError(f"threefry launch failed: "
                            f"{_build.error_string(rc)} ({rc})")
     launches += 1
     return out
+
+
+@threefry_op.register_fake
+def _(keys, n, base):
+    return keys.new_empty((keys.shape[0], n, 2))

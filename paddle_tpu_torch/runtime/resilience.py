@@ -54,7 +54,8 @@ import numpy as np
 from paddle_tpu_torch.flags import flags as _flags
 
 __all__ = ["RetryEvent", "DegradationEvent", "ReplicaEvent", "FaultEvent",
-           "InjectedFault", "CorruptCheckpointError", "DecodeFailedError",
+           "InjectedFault", "CorruptCheckpointError", "CorruptBundleError",
+           "DecodeFailedError",
            "DeadlineExceededError", "ReplicaDeadError", "SlabTransferError",
            "WeightVersionError", "StaleEpochError",
            "TRANSIENT_MARKERS", "SETUP_TRANSIENT_MARKERS",
@@ -181,6 +182,12 @@ class CorruptCheckpointError(RuntimeError):
     """A checkpoint or snapshot failed integrity verification (torn file,
     sha256 mismatch, missing manifest, a carry layout that does not fit)
     and is refused rather than resumed."""
+
+
+class CorruptBundleError(RuntimeError):
+    """An AOT bundle entry's bytes do not match the bundle manifest's
+    sha256 (bit-flipped weight constants, truncated module) and the entry
+    is refused rather than served."""
 
 
 class DecodeFailedError(RuntimeError):

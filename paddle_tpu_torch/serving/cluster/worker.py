@@ -27,9 +27,9 @@ drill hook: the RpcAgent serves ops SERIALLY, so one stalled op makes
 every later future time out (the frontend_rpc_timeout drill).
 
 Liveness: an ``ElasticManager`` heartbeat thread (nonce:seq over the
-shared store, observer-local monotonic TTL) — the frontend treats a
-missed PROCESS heartbeat as real replica death, exactly like the
-reference's elastic fleet. Telemetry: the worker's own ``ObsExporter``
+shared store, on a store connection of its own; observer-local
+monotonic TTL) — the frontend treats a missed PROCESS heartbeat as real
+replica death, exactly like the reference's elastic fleet. Telemetry: the worker's own ``ObsExporter``
 serves /metrics (engine registry labelled ``{worker="<name>"}``) and
 /statusz on an ephemeral port registered alongside the worker.
 
@@ -91,6 +91,7 @@ class WorkerHost:
         from paddle_tpu_torch.inference.generate import LlamaDecoder
         from paddle_tpu_torch.models.llama import (LlamaConfig,
                                                    LlamaForCausalLM)
+        from paddle_tpu_torch.native.tcp_store import TCPStore
         from paddle_tpu_torch.obs.exporter import ObsExporter
         from paddle_tpu_torch.runtime.resilience import fault_injector
         from paddle_tpu_torch.serving.engine import ServingEngine
@@ -139,14 +140,19 @@ class WorkerHost:
             ekw.pop("snapshot_dir", None)
         self.engine = ServingEngine(dec, replica_tag=self.name, **ekw)
 
-        # control plane: RPC stream + heartbeat over the SAME store
+        # control plane: the RPC stream and the heartbeat over the same
+        # store, the heartbeat on a connection of its own: the agent's
+        # serve and reply threads poll their connection with native waits
+        # of up to 250 ms that hold its one lock back to back, and a beat
+        # queued behind them can miss the TTL on a loaded host
         self.agent = RpcAgent(self.name, self.rank,
                               int(cfg["world_size"]),
                               host=str(cfg["master_host"]),
                               port=int(cfg["master_port"]),
                               is_master=False, resume=resume)
         self.elastic = ElasticManager(
-            self.agent.store, node_id=self.name,
+            TCPStore(str(cfg["master_host"]), int(cfg["master_port"])),
+            node_id=self.name,
             np_range=f"1:{int(cfg['world_size'])}",
             heartbeat_s=float(cfg.get("heartbeat_s", 0.5)),
             ttl_s=float(cfg.get("ttl_s", 3.0))).start()

@@ -108,14 +108,24 @@ the key the undisturbed row would hold; ``submit(on_tokens=)`` streams a
 row's new tokens at every chunk harvest and once more, ``final=True``,
 when it finishes.
 
+AOT bundles: the backend may be an ``AotPredictor`` over a bundle
+exported with ``export_decoder_bundle(..., chunk_sizes=[...])``
+(``inference/bundle.py``): its ``decode_chunk_b{B}_t{T}`` and
+``admit_prefill_s{S}`` programs serve the same loop, the prompt buckets
+are the bundle's admission buckets, admission is by host row copy (a
+bundle has no ring-staging program; one prefill dispatch per request),
+and the per-token rung is the bundle's T = 1 chunk. A bundle backend
+refuses ``draft_model=``, ``adapter_store=``, a bundle without chunked
+entries and sampling statics other than the baked ones.
+
 Not ported yet (ROADMAP.md queue 1), and refused with
-``NotImplementedError`` when asked for: meshes ([13]) and AOT bundle
-backends ([12]).
+``NotImplementedError`` when asked for: meshes ([13]).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import io
 import json
@@ -384,6 +394,13 @@ class _DecoderBackend:
     store's stacks merged into the decoder's params (``lora_version`` is
     the store version they serve)."""
 
+    has_ring = True
+    # any admission batch size and suffix prefills (pos0 > 0) are native
+    # to the in-process admission prefill; the scheduler's own buckets
+    admit_batch_any = True
+    admit_pos0 = True
+    prompt_buckets = None
+
     def __init__(self, dec: LlamaDecoder, num_slots: int, do_sample,
                  top_k, top_p, quant=None, draft_model=None,
                  num_speculative_tokens=None, draft_quant=None,
@@ -405,6 +422,10 @@ class _DecoderBackend:
                          if self.K else None)
         self.ring: Optional[AdmissionRing] = None
         self._carry = self._dcarry = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.dec.device
 
     def refresh_adapters(self) -> bool:
         """(Re)merge the store's stacked ``lora.*`` tensors into the
@@ -559,6 +580,9 @@ class _DecoderBackend:
     def decode_step(self, st: DecodeState):
         return self.dec._chunk_step(st, self.sample)
 
+    def has_step_rung(self) -> bool:
+        return True
+
     def spec_demote(self, st: DecodeState) -> DecodeState:
         """Speculative -> chunked: commit each row's pending token with
         one counted masked forward and drop the draft side of the carry."""
@@ -569,6 +593,182 @@ class _DecoderBackend:
 
     def events_since(self, n: int) -> list:
         return list(self.dec._events[n:])
+
+
+class _BundleBackend:
+    """AOT backend: the ``decode_chunk_b{B}_t{T}`` / ``admit_prefill_s{S}``
+    programs of a bundle exported with ``chunk_sizes=``
+    (``decode_mode.chunked``), run by an ``AotPredictor``: no model
+    Python. The carry holds the slots' rows only (no ring, so no dump
+    row); its caches and each admission bucket's batch-1 caches are
+    allocated once, so the predictor's entry graphs keep reading and
+    writing them on a card."""
+
+    has_ring = False       # no ring-staging programs: host row copies
+    spec_eng = None
+    K = 0
+    lora = None            # refused typed in __init__: no adapter stacks
+    lora_version = -1
+    # the admit programs are fixed batch-1 programs
+    admit_batch_any = False
+
+    def __init__(self, pred, num_slots: int, chunk_size: int, do_sample,
+                 top_k, top_p, quant=None, draft_model=None,
+                 num_speculative_tokens=None, draft_quant=None,
+                 adapter_store=None):
+        meta = pred.meta
+        mode = meta.get("decode_mode") or {}
+        if draft_model is not None or num_speculative_tokens is not None \
+                or draft_quant is not None:
+            ch0 = mode.get("chunked") or {}
+            raise ValueError(
+                f"speculative serving needs the in-process LlamaDecoder "
+                f"backend: this bundle's chunked entries carry no "
+                f"speculative chunk program (decode_mode.chunked."
+                f"spec_chunk={bool(ch0.get('spec_chunk'))!r}); serve "
+                f"draft_model= over a LlamaDecoder instead")
+        if adapter_store is not None:
+            raise ValueError(
+                "LoRA adapter serving needs the in-process LlamaDecoder "
+                "backend: this bundle's programs were exported without "
+                "the stacked lora.* params or the adapter_idx carry; serve "
+                "adapter_store= over a LlamaDecoder instead")
+        _check_quant_ask(quant, pred.quant_recipe, "this bundle")
+        self.pred = pred
+        self.quant = pred.quant_recipe
+        self.num_slots = int(num_slots)
+        self.head_major = pred._head_major()
+        ch = mode.get("chunked")
+        if not ch:
+            raise ValueError(
+                "this bundle has no chunked decode entries; re-export it "
+                "with export_decoder_bundle(..., chunk_sizes=[...]) to "
+                "serve continuous batching")
+        for name, want in (("do_sample", bool(do_sample)),
+                           ("top_k", top_k), ("top_p", top_p)):
+            baked = mode.get(name)
+            if name == "do_sample":
+                baked = bool(baked)
+            if baked != want:
+                raise ValueError(
+                    f"bundle chunked entries were exported with "
+                    f"{name}={baked!r}; the engine asked for {want!r}")
+        self.max_len = meta["max_len"]
+        by_chunk = {b["chunk"]: b["file"] for b in meta["chunk_buckets"]
+                    if b["batch"] == self.num_slots}
+        if int(chunk_size) not in by_chunk:
+            have = [(b["batch"], b["chunk"])
+                    for b in meta["chunk_buckets"]]
+            raise ValueError(
+                f"no chunked decode bucket for batch={self.num_slots}, "
+                f"chunk={chunk_size}; exported (batch, chunk): {have}")
+        self._chunk = (by_chunk[int(chunk_size)], int(chunk_size))
+        self._step = (by_chunk[1], 1) if 1 in by_chunk else None
+        self._admit = {b["seq"]: b["file"]
+                       for b in meta["admit_prefill_buckets"]}
+        self.admit_pos0 = bool(ch.get("admit_pos0"))
+        self.prompt_buckets = sorted(self._admit)
+        self._vocab = meta["vocab_size"]
+        self._carry = None
+        self._admit_caches: Dict[int, tuple] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.pred.device
+
+    def event_count(self) -> int:
+        return len(self.pred._events)
+
+    def events_since(self, n: int) -> list:
+        return list(self.pred._events[n:])
+
+    def new_state(self) -> DecodeState:
+        """A fresh carry, every slot free; its caches are allocated on the
+        first call and zeroed in place on later ones."""
+        B, dev = self.num_slots, self.device
+        if self._carry is None:
+            self._carry = self.pred._make_cache(B)
+        else:
+            for c in self._carry:
+                _zero_cache(c)
+        return DecodeState(
+            logits=torch.zeros((B, self._vocab), dtype=torch.float32,
+                               device=dev),
+            kc=self._carry[0], vc=self._carry[1],
+            pos=torch.zeros((B,), dtype=torch.long, device=dev),
+            keys=torch.zeros((B, 2), dtype=torch.int32, device=dev),
+            done=torch.ones((B,), dtype=torch.bool, device=dev),
+            eos=torch.full((B,), -1, dtype=torch.long, device=dev),
+            temp=torch.ones((B,), dtype=torch.float32, device=dev))
+
+    def admit_prefill(self, ids, true_len, pos0, prepare=None, aidx=None):
+        """One batch-1 admission-prefill dispatch of the prompt bucket's
+        program over that bucket's own caches, zeroed and handed to
+        ``prepare(kc, vc)`` (the prefix cache's slab) first. Returns
+        ``(logits, kc, vc)``; the caches stay valid until the bucket's
+        next admission. ``aidx`` is always None: the backend refuses an
+        adapter store."""
+        from paddle_tpu_torch.inference.bundle import _run_once
+        ids = np.asarray(ids)
+        if ids.shape[0] != 1:
+            raise ValueError(
+                f"bundle admit entries serve batch 1, got {ids.shape[0]}")
+        S = int(ids.shape[1])
+        if S not in self._admit:
+            raise ValueError(f"no admit_prefill bucket for prompt bucket "
+                             f"{S}; exported: {self.prompt_buckets}")
+        kc, vc = self._admit_caches.get(S) or (None, None)
+        if kc is None:
+            kc, vc = self._admit_caches[S] = self.pred._make_cache(1)
+        else:
+            _zero_cache(kc)
+            _zero_cache(vc)
+        if prepare is not None:
+            prepare(kc, vc)
+        dev = self.device
+        (logits,) = self.pred._run_entry(
+            self._admit[S], "bundle.admit_prefill", _run_once,
+            (torch.as_tensor(ids, dtype=torch.long, device=dev), kc, vc,
+             torch.as_tensor(np.asarray(true_len), dtype=torch.long,
+                             device=dev),
+             torch.as_tensor(np.asarray(pos0), dtype=torch.long,
+                             device=dev)), (1, 2))
+        return logits, kc, vc
+
+    scatter = _DecoderBackend.scatter
+
+    def _run(self, entry, site, st: DecodeState):
+        from paddle_tpu_torch.inference.bundle import _run_steps
+        fname, T = entry
+        toks, logits, pos, keys, done = self.pred._run_entry(
+            fname, site, _run_steps(T),
+            (st.logits, st.kc, st.vc, st.pos, st.keys, st.done, st.eos,
+             st.temp), (1, 2))
+        return toks, dataclasses.replace(st, logits=logits, pos=pos,
+                                         keys=keys, done=done)
+
+    def decode_chunk(self, st: DecodeState, chunk_size: int):
+        return self._run(self._chunk, "bundle.chunk", st)
+
+    def decode_step(self, st: DecodeState):
+        return self._run(self._step, "bundle.chunk_step", st)
+
+    def has_step_rung(self) -> bool:
+        return self._step is not None
+
+
+def _make_backend(backend, num_slots, chunk_size, do_sample, top_k, top_p,
+                  **kw):
+    from paddle_tpu_torch.inference.bundle import AotPredictor
+    if isinstance(backend, LlamaDecoder):
+        return _DecoderBackend(backend, num_slots, do_sample, top_k, top_p,
+                               **kw)
+    if isinstance(backend, AotPredictor):
+        return _BundleBackend(backend, num_slots, chunk_size, do_sample,
+                              top_k, top_p, **kw)
+    raise TypeError(
+        f"backend must be a LlamaDecoder or an AotPredictor, "
+        f"got {type(backend).__name__}")
 
 
 class ServingEngine:
@@ -618,9 +818,10 @@ class ServingEngine:
     hold); ``snapshot_dir`` is also ``drain(deadline_s=)``'s default
     destination. ``registry`` holds the engine's counters, gauges and
     histograms; ``start_exporter(port)`` serves them over HTTP. The
-    engine runs on its decoder's device."""
+    engine runs on its backend's device: a ``LlamaDecoder``, or an
+    ``AotPredictor`` over a chunked bundle."""
 
-    def __init__(self, backend: LlamaDecoder, num_slots: int = 4,
+    def __init__(self, backend, num_slots: int = 4,
                  chunk_size: int = 8, do_sample: bool = False,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  policy: str = "fifo",
@@ -642,17 +843,13 @@ class ServingEngine:
                  replica_tag: Optional[str] = None,
                  request_keyed_rng: bool = False, **later):
         _refuse_later(later, _LATER_ENGINE, "ServingEngine")
-        if not isinstance(backend, LlamaDecoder):
-            raise TypeError(
-                f"backend must be a LlamaDecoder (AOT bundle backends are "
-                f"not ported yet), got {type(backend).__name__}")
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
         self.num_slots = int(num_slots)
         self.chunk_size = int(chunk_size)
-        self._b = _DecoderBackend(
-            backend, num_slots, do_sample, top_k, top_p, quant=quant,
-            draft_model=draft_model,
+        self._b = _make_backend(
+            backend, num_slots, chunk_size, do_sample, top_k, top_p,
+            quant=quant, draft_model=draft_model,
             num_speculative_tokens=num_speculative_tokens,
             draft_quant=draft_quant, adapter_store=adapter_store)
         self._spec_configured = self._b.spec_eng is not None
@@ -674,8 +871,9 @@ class ServingEngine:
                 "draft caches and pending-token fields are outside the "
                 "snapshot payload — drop snapshot_dir/"
                 "snapshot_every_chunks or serve without draft_model")
-        self.scheduler = Scheduler(num_slots, policy=policy,
-                                   prompt_buckets=prompt_buckets)
+        self.scheduler = Scheduler(
+            num_slots, policy=policy,
+            prompt_buckets=prompt_buckets or self._b.prompt_buckets)
         self.state = self._b.new_state()
         self.batch_admission = bool(batch_admission)
         self.prefix_cache = self._resolve_prefix_cache(
@@ -690,7 +888,7 @@ class ServingEngine:
         # need the host row copy, so the cache keeps that route
         self._ring_slots = 0
         self._ring_meta: List[Optional[dict]] = []
-        if self.prefix_cache is None:
+        if self._b.has_ring and self.prefix_cache is None:
             R = int(ring_slots if ring_slots is not None else num_slots)
             if R < 1:
                 raise ValueError(f"ring_slots must be >= 1, got {R}")
@@ -836,7 +1034,7 @@ class ServingEngine:
         rng_id = (req.rng_request_id if req.rng_request_id is not None
                   else req.id)
         return derive_row_key(req.seed, rng_id, req.rng_tokens_emitted,
-                              device=self._b.dec.device).cpu().numpy() \
+                              device=self._b.device).cpu().numpy() \
             .view(np.uint32)
 
     @property
@@ -1766,7 +1964,7 @@ class ServingEngine:
                 f"shipped slab carries quant recipe "
                 f"{payload.get('quant') or 'none'!r} but this engine's "
                 f"backend serves {self._b.quant or 'none'!r}")
-        dev = self._b.dec.device
+        dev = self._b.device
 
         def put(t):
             if isinstance(t, dict):
@@ -1811,6 +2009,7 @@ class ServingEngine:
             t0 = time.monotonic()
             S = len(req.prompt)
             hit = (cache.lookup(req.prompt,
+                                allow_partial=self._b.admit_pos0,
                                 adapter=self._adapter_tag(req.adapter))
                    if cache is not None else None)
             if hit is not None and hit.kind == "full":
@@ -1830,7 +2029,8 @@ class ServingEngine:
             w = self.scheduler.bucket(len(req.prompt) - cached)
             groups.setdefault(w, []).append((slot_idx, req, hit, cached))
         for w, grp in sorted(groups.items()):
-            if self.batch_admission and len(grp) > 1:
+            if self.batch_admission and self._b.admit_batch_any \
+                    and len(grp) > 1:
                 self._admit_group(w, grp, now)
             else:
                 for item in grp:
@@ -2125,7 +2325,8 @@ class ServingEngine:
             if classify_error(e) != "transient":
                 self._harvest_before_raise(e, "serving.chunk_fatal")
                 raise
-            if not flags.resilience_auto_degrade:
+            if (not flags.resilience_auto_degrade
+                    or not self._b.has_step_rung()):
                 err = DecodeFailedError(
                     f"serving chunk dispatch failed with no per-token "
                     f"rung available: {str(e)[:300]}",

@@ -586,6 +586,9 @@ def test_port_worker_serves_jax_staged_weights(tmp_path):
            "fault_plan": [{"kind": "rpc_delay", "src": "9", "dst": "9"}]}
     host = wmod.WorkerHost(cfg)
     try:
+        # the heartbeat beats on a store connection of its own, never
+        # queued behind the RPC threads' native waits on the agent's
+        assert host.elastic.store is not host.agent.store
         # the worker's plan arrives in its config, not the environment
         assert res.fault_injector.active()
         res.fault_injector.clear()

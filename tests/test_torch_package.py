@@ -59,6 +59,8 @@ def test_import_leaves_jax_out_and_chip_smoke_refuses_without_a_card():
             "import paddle_tpu_torch.serving.cluster.store_daemon\n"
             "import paddle_tpu_torch.distributed.rpc\n"
             "import paddle_tpu_torch.distributed.elastic\n"
+            "import paddle_tpu_torch.inference.bundle\n"
+            "import paddle_tpu_torch.inference.entries\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'paddle_tpu', 'ml_dtypes')]\n"
             "assert not bad, bad\n"

@@ -1181,6 +1181,22 @@ def device_profile(prof, wall_s):
                              for t, k, n in kern[:8]])
 
 
+def eager_fused(dec):
+    """Route ``dec``'s fused ``generate()`` loop through the eager loop
+    body on every call (no graph is captured), still one counted dispatch
+    through the decoder's dispatch guard: the route the graphed loop is
+    held against. Only this script does this."""
+    dec._fused_graph = lambda key: None
+    return dec
+
+
+def fused_graphs(dec):
+    """(captured fused-loop graphs, their replays) of ``dec``."""
+    gs = [g for g in dec._fused_graphs.values()
+          if g is not None and g.graph is not None]
+    return len(gs), sum(g.replays for g in gs)
+
+
 def eager_chunks(dec):
     """Route ``dec``'s chunks through the eager chunk body
     (``_chunk_steps``, the ring's splice and the sampler included), still
@@ -2613,6 +2629,7 @@ def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
     info["decode"]["int8w_load_s"] = timed_load(pred8)
     bundles = {"none": (decs[None], pred_none),
                "int8w": (decs["int8w"], pred8)}
+    reserved0 = torch.cuda.memory_reserved()
     for n in (hi, lo):
         for recipe, (dec_, pred_) in bundles.items():
             want = np.asarray(dec_.generate(prompt, n))
@@ -2627,9 +2644,9 @@ def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
     t0 = time.perf_counter()
     for rep in range(9):               # 2 warm-up rounds, 7 timed
         for name, x in variants:
+            # the in-process fused loop: its captures in round 0, replays
+            # of one graph a (recipe, tokens) key after
             bundle = name.startswith("bundle")
-            if not bundle and rep < 6:
-                continue               # the eager loop: the last 3 rounds
             run = (lambda n: bundled(x.generate, prompt, n)) if bundle \
                 else (lambda n: x.generate(prompt, n))
             torch.cuda.synchronize()
@@ -2650,6 +2667,13 @@ def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
     info["decode"]["ab_s"] = time.perf_counter() - t0
     info["decode"]["graph_replays"] = [pred_none.graph_replays,
                                        pred8.graph_replays]
+    info["decode"]["fused_graphs"] = {
+        r: dict(zip(("graphs", "replays"), fused_graphs(d_)))
+        for r, (d_, _) in bundles.items()}
+    info["decode"]["fused_graph_reserved_bytes"] = (
+        torch.cuda.memory_reserved() - reserved0)
+    info["decode"]["fused_vs_eager"] = fused_vs_eager(model, dec, prompt,
+                                                      lo)
     # (d) a recipe asked of the wrong bundle, both ways
     for x, ask in ((pred8, "none"), (pred_none, "int8w")):
         try:
@@ -2738,6 +2762,45 @@ def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
     info["memory_reserved_bytes"] = torch.cuda.memory_reserved()
     info["phase_s"] = time.perf_counter() - t_start
     return info
+
+
+def fused_vs_eager(model, dec, prompt, n):
+    """``dec``'s graphed fused loop against the eager loop of a second
+    decoder over the same model (``eager_fused``), greedy and sampled
+    (top-k 50, top-p 0.9, temperature 0.8, seed 3): the tokens bit for
+    bit at the prompt's length (the greedy key is captured by now; the
+    sampled key's first call is its warm-up, the second its capture, the
+    third a replay) and then at 96 tokens of it, which must replay the
+    same graph (one more replay, no new graph); prefill + 1 dispatches a
+    call. Returns each key's graph count and replays."""
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    ref = eager_fused(LlamaDecoder(model, max_len=256))
+    out = {}
+    for mode, kw in (("greedy", {}),
+                     ("sampled", dict(do_sample=True, top_k=50, top_p=0.9,
+                                      temperature=0.8, seed=3))):
+        for ids, calls in ((prompt, 1 if mode == "greedy" else 3),
+                           (prompt[:, :96], 1)):
+            want = np.asarray(ref.generate(ids, n, **kw))
+            for _ in range(calls):
+                graphs0 = fused_graphs(dec)
+                d0 = dec.dispatch_count
+                got = np.asarray(dec.generate(ids, n, **kw))
+                check(dec.dispatch_count - d0 == 2, f"fused {mode}: "
+                      f"{dec.dispatch_count - d0} dispatches a generate")
+                check(np.array_equal(got, want), f"fused {mode} at prompt "
+                      f"{ids.shape[1]}: the graph's tokens != the eager "
+                      f"loop's")
+            if ids.shape[1] == 96:
+                graphs1 = fused_graphs(dec)
+                check(graphs1[0] == graphs0[0]
+                      and graphs1[1] == graphs0[1] + 1,
+                      f"fused {mode}: prompt 96 did not replay the prompt "
+                      f"{prompt.shape[1]} graph ({graphs0} -> {graphs1})")
+        out[mode] = dict(zip(("graphs", "replays"), fused_graphs(dec)),
+                         bit_equal=True)
+    del ref
+    return out
 
 
 # -- prefix cache and speculative serving --------------------------------
@@ -4442,7 +4505,7 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
     restore()
     for p in params.values():
         p.grad = None
-    loss = trainer.loss_fn(trainer.model, *dev_batch)
+    loss = trainer._loss(dev_batch)
     loss.backward()
     check(same_bits(loss.detach(), torch.tensor(l_graph, device="cuda")),
           f"{tag}: replay loss {l_graph} != eager {loss.item()}")
@@ -4692,6 +4755,215 @@ def train_phase(card):
     return info, launches, adam_rows
 
 
+class dtype_launches:
+    """Within the block, the flash and RMSNorm kernel launches by
+    direction and dtype, tallied at their wrappers (``flash_fwd`` /
+    ``flash_bwd`` / ``rms_fwd`` / ``rms_bwd``, which launch once a
+    call), e.g. ``{"flash_fwd": {"bfloat16": 12}}``."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+        from paddle_tpu_torch.ops.kernels import rms_norm as rn
+        self.counts, self.saved = {}, []
+        for mod, name in ((fa, "flash_fwd"), (fa, "flash_bwd"),
+                          (rn, "rms_fwd"), (rn, "rms_bwd")):
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(x, *a, _fn=fn, _name=name, **k):
+                d = self.counts.setdefault(_name, {})
+                dt = str(x.dtype).replace("torch.", "")
+                d[dt] = d.get(dt, 0) + 1
+                return _fn(x, *a, **k)
+            setattr(mod, name, wrapped)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def dir_bytes(d):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def train_amp(card):
+    """The JAX package's own training recipe (bench.py ``_trainer_for``)
+    on the card: bench_llama's 134M Llama with f32 parameters through
+    ``ShardedTrainer(amp_dtype="bfloat16")`` and ``AdamW(1e-4,
+    multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))`` over
+    ``LinearWarmup`` (4 steps, 1e-5 to 1e-4) of ``CosineAnnealingDecay``,
+    B 8, S 1024, the seed-0 batch, the scheduler stepped after every
+    step. Gates: an eager warm-up, the capture, then timed replays in
+    which the learning rate differs at every step while the step keeps
+    its one graph; the captured step against the eager step
+    (``graph_vs_eager``); under AMP the flash kernels launch in bf16 and
+    the RMSNorm kernels in f32 (an eager step's launches by dtype), and
+    flash, RMSNorm and Adam launch in every replay; ``save`` at step k,
+    ``load`` into a second trainer whose step graph is captured already:
+    its parameters and optimizer state bit-equal to the saved ones, its
+    next step's loss bit-equal to the uninterrupted trainer's and the one
+    after within two bf16 spacings (printed beside the uninterrupted
+    trainer loaded back and run again, and whether each is bit-equal).
+    Prints
+    step ms, MFU against the dense bf16 peak, and the save and load
+    seconds and bytes."""
+    import os
+    import shutil
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.kernels import adam as ak
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    from paddle_tpu_torch.parallel import ShardedTrainer
+
+    t_start = time.perf_counter()
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=768,
+                      intermediate_size=2048, num_hidden_layers=12,
+                      num_attention_heads=12, num_key_value_heads=12,
+                      max_position_embeddings=1024, dtype="float32")
+    B, S = 8, 1024
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                  device="cuda") for _ in range(2))
+
+    def make(seed):
+        model = LlamaForCausalLM(cfg, seed=seed)
+        sched = LinearWarmup(CosineAnnealingDecay(1e-4, T_max=50),
+                             warmup_steps=4, start_lr=1e-5, end_lr=1e-4)
+        opt = AdamW(sched, parameters=model.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        return ShardedTrainer(model, opt, llama_loss,
+                              amp_dtype="bfloat16"), sched
+
+    trainer, sched = make(0)
+    check(all(p.dtype == torch.float32 for p in trainer.params.values()),
+          "train_amp: parameters not f32")
+
+    def step(tr, sc):
+        loss = tr.train_step(*batch)
+        sc.step()
+        return loss
+
+    losses = [step(trainer, sched).item() for _ in range(2)]
+    key = next(iter(trainer._graphs))
+    graph = trainer._graphs[key]
+    check(len(trainer._graphs) == 1 and graph is not None,
+          "train_amp: no captured step after the warm-up")
+    counters = dict(flash_attention_fwd=(fa, "fwd_launches"),
+                    flash_attention_bwd=(fa, "bwd_launches"),
+                    rms_norm_fwd=(rn, "fwd_launches"),
+                    rms_norm_bwd=(rn, "bwd_launches"),
+                    adam=(ak, "launches"))
+    timed = 4
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    lrs = []
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        losses.append(step(trainer, sched))
+        lrs.append(trainer._lr[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses[2:] = [x.item() for x in losses[2:]]
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    check(len(set(lrs)) == timed, f"train_amp: the learning rate did not "
+          f"move at every step: {lrs}")
+    check(list(trainer._graphs) == [key] and trainer._graphs[key] is graph,
+          "train_amp: a learning-rate change captured a new step")
+    for k, n in launches.items():
+        check(n > 0, f"train_amp: {k} never launched in the replays")
+    check(all(math.isfinite(x) for x in losses),
+          f"train_amp: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"train_amp: first loss {losses[0]} not within 0.5 of ln V")
+    with dtype_launches() as by_dtype:
+        trainer._eager_step(*batch)
+    sched.step()
+    check(set(by_dtype.get("flash_fwd", {})) == {"bfloat16"}
+          and set(by_dtype.get("flash_bwd", {})) == {"bfloat16"}
+          and set(by_dtype.get("rms_fwd", {})) == {"float32"}
+          and set(by_dtype.get("rms_bwd", {})) == {"float32"},
+          f"train_amp: kernel dtypes under AMP {by_dtype}")
+    vs_eager = graph_vs_eager("train_amp", trainer, batch, steps=2)
+
+    # save at step k; a second trainer, its step graph captured on other
+    # weights, loads it: every tensor bit-equal to the saved trainer's,
+    # its first step's loss bit-equal to the uninterrupted trainer's, the
+    # second within two bf16 spacings (ROADMAP.md section 3, entry 43:
+    # the flash backward sums dq in arrival order), beside the
+    # uninterrupted trainer loaded back and run again as the control
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "checkpoints", "train_amp")
+    shutil.rmtree(d, ignore_errors=True)
+    other, osched = make(1)
+    for _ in range(2):
+        step(other, osched)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save(d)
+    save_s = time.perf_counter() - t0
+    saved_sched = sched.state_dict()
+    nbytes = dir_bytes(d)
+    t0 = time.perf_counter()
+    other.load(d)
+    osched.set_state_dict(saved_sched)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for n, p in trainer.params.items():
+        check(same_bits(p.detach(), other.params[n].detach()),
+              f"train_amp: loaded {n} differs from the saved one")
+        for k, v in trainer.opt_state[n].items():
+            check(same_bits(v, other.opt_state[n][k]), f"train_amp: "
+                  f"loaded optimizer state {k} of {n} differs")
+    want = [step(trainer, sched) for _ in range(2)]
+    got = [step(other, osched) for _ in range(2)]
+    trainer.load(d)
+    sched.set_state_dict(saved_sched)
+    again = [step(trainer, sched) for _ in range(2)]
+    shutil.rmtree(d, ignore_errors=True)
+    check(same_bits(got[0], want[0]) and same_bits(again[0], want[0]),
+          f"train_amp: the first resumed loss {got[0].item()} / "
+          f"{again[0].item()} != uninterrupted {want[0].item()}")
+    spacing = 2.0 ** (math.floor(math.log2(abs(want[1].item()))) - 7)
+    check(abs(got[1].item() - want[1].item()) <= 2 * spacing,
+          f"train_amp: second resumed loss {got[1].item()} vs "
+          f"uninterrupted {want[1].item()}")
+    check(len(other._graphs) == 1, "train_amp: the load captured anew")
+    step_s = wall / timed
+    flops = trainer.model.flops_per_token(S) * B * S
+    info = dict(phase="train_amp", card=card, batch=B, seq=S,
+                params=trainer.model.num_params(), losses=losses,
+                learning_rates=lrs, step_ms=1e3 * step_s,
+                tokens_per_s=B * S / step_s,
+                mfu=flops / step_s / BF16_FLOPS,
+                launches_per_step={k: v / timed
+                                   for k, v in launches.items()},
+                eager_launches_by_dtype=by_dtype,
+                graph_vs_eager=vs_eager, save_s=save_s, load_s=load_s,
+                checkpoint_bytes=nbytes,
+                resumed_losses=[x.item() for x in got],
+                uninterrupted_losses=[x.item() for x in want],
+                reloaded_losses=[x.item() for x in again],
+                resumed_bit_equal=[same_bits(a, b)
+                                   for a, b in zip(got, want)],
+                reloaded_bit_equal=[same_bits(a, b)
+                                    for a, b in zip(again, want)],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del trainer, other, graph
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
 def unet_census(cfg, B, side, ctx_len, min_seq):
     """What one forward of the UNet does, counted from the config as the
     constructor builds it: multiply-adds of the convolutions and linears,
@@ -4922,6 +5194,7 @@ def main() -> int:
      bundle) = serving_phase(card)
     t3 = time.perf_counter()
     _, launches, adam_llama = train_phase(card)
+    amp = train_amp(card)
     t4 = time.perf_counter()
     _, unet_launches, adam_unet = unet_phase(card)
     fleet_s = " / ".join(f"{x['phase_s']:.1f}" for x in fleet)
@@ -4934,7 +5207,8 @@ def main() -> int:
           f"{sum(x['phase_s'] for x in faults):.1f} s, router / http / "
           f"cluster {fleet_s} s, bundle {bundle['phase_s']:.1f} s), "
           f"llama training "
-          f"{t4 - t3:.1f} s, unet training {time.perf_counter() - t4:.1f} s",
+          f"{t4 - t3:.1f} s (train_amp {amp['phase_s']:.1f} s), unet "
+          f"training {time.perf_counter() - t4:.1f} s",
           flush=True)
     served = runs + prefix + lora + snap + faults + fleet + [bundle]
     launches.update(

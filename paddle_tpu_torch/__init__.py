@@ -3,7 +3,8 @@
 A second package beside the JAX one, with its module paths and public
 names: ``models.llama``, ``models.unet``, ``inference.generate``,
 ``serving``, ``quantization``, ``nn.functional``, ``nn.layers``,
-``incubate.nn.functional``, ``optimizer``, ``parallel.train`` and the
+``incubate.nn.functional``, ``optimizer`` (with ``lr``), ``amp``,
+``distributed.checkpoint``, ``parallel.train`` and the
 hand-written CUDA kernels under ``ops/kernels`` (sources in ``csrc/``).
 It imports ``torch`` and numpy, never ``jax`` and nothing of
 ``paddle_tpu``. Entry points run on the card (``cuda``) unless the caller
@@ -35,7 +36,7 @@ _LAZY = {
 }
 _SUBMODULES = ("models", "inference", "serving", "quantization", "ops",
                "runtime", "convert", "device", "nn", "optimizer", "parallel",
-               "incubate", "obs")
+               "incubate", "obs", "amp", "distributed")
 
 __all__ = ["flags", "__version__", *_LAZY, *_SUBMODULES]
 

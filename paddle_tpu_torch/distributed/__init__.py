@@ -1,3 +1,4 @@
-"""Distributed support of the port: the storage format of checkpoints and
-serving payloads (``checkpoint``), and the control plane's RPC (``rpc``)
+"""Distributed support of the port: checkpoints in the JAX package's
+distributed format and the storage of tensors in them and in serving
+payloads (``checkpoint``), and the control plane's RPC (``rpc``)
 and heartbeat membership (``elastic``) over the port's TCPStore."""

@@ -82,7 +82,6 @@ _META = "bundle.json"
 # pool): a bundle served by an engine uses one chunk key, the rung's, and
 # one per admission bucket; generate() one per prefill and decode bucket
 _GRAPHS = 32
-_CAPTURE_MODE = "thread_local"
 
 
 class BundleDeviceError(ValueError):
@@ -456,7 +455,8 @@ class _EntryGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph, capture_error_mode=_CAPTURE_MODE):
+        with torch.cuda.graph(self.graph,
+                              capture_error_mode=_kernels._CAPTURE_MODE):
             self.out = run(*self.args)
         self.launches = _kernels.captured_launches(before)
 

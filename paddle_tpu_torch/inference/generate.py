@@ -93,8 +93,19 @@ chunked -> fused -> per-token); ``spec_demote`` commits a speculative
 carry's pending tokens for the plain chunk, and ``_chunk_step`` is the
 serving ladder's one-step chunk.
 
-Not ported yet (ROADMAP.md queue 1): meshes, a CUDA graph of the fused
-loop.
+``generate``'s fused loop (prefill plus one ``decode.fused`` dispatch)
+is one CUDA graph replay on a card, as the JAX package's is one compiled
+program: a key (batch, steps, the sampling statics, the eos, the quant
+recipe, the LoRA stacks' addresses, every route flag) runs eagerly at its
+first call, captures at its second and replays after. The loop keeps its
+positions in a device tensor that the graph advances, and takes the
+prefill's logits, the start positions, the key of ``seed`` and the
+temperature as inputs copied in, so one graph serves every prompt length
+of a batch. The graph owns its caches: the prefill writes into them
+(zeroed first), and the tokens come back as a clone. The CPU, the
+per-token rung and ``decode_fallback`` stay eager.
+
+Not ported yet (ROADMAP.md queue 1): meshes.
 """
 
 from __future__ import annotations
@@ -577,6 +588,10 @@ class LlamaDecoder:
             collections.OrderedDict()
         self._prefill_graphs: "collections.OrderedDict[tuple, Any]" = \
             collections.OrderedDict()
+        # fused-loop key -> its _PrefillGraph (None after the warm-up);
+        # the oldest go first past _FUSED_GRAPHS
+        self._fused_graphs: "collections.OrderedDict[tuple, Any]" = \
+            collections.OrderedDict()
 
     # -- buffers -----------------------------------------------------------
     def _empty_cache(self, B: int, cfg: Optional[LlamaConfig] = None):
@@ -701,7 +716,7 @@ class LlamaDecoder:
             graphs = self._prefill_graphs
             if graphs[key] is None:
                 graphs[key] = _PrefillGraph(
-                    self, args, lambda ids, tl, p0, a, kc, vc:
+                    self, N, lambda ids, tl, p0, a, kc, vc:
                     self._admit_body(ids, tl, p0, kc, vc, a), zero=False)
             g = graphs[key]
             for c in g.caches:
@@ -763,7 +778,8 @@ class LlamaDecoder:
             return
         graphs = self._prefill_graphs
         if graphs[key] is None:
-            graphs[key] = _PrefillGraph(self, args, body, cfg=cfg)
+            graphs[key] = _PrefillGraph(self, args[0].shape[0], body,
+                                        cfg=cfg)
         graphs[key].run(*args)
 
     @torch.inference_mode()
@@ -809,16 +825,17 @@ class LlamaDecoder:
         self._staged("spec.prefill", key, (ids, idx), body, cfg=eng["cfg"],
                      weights=eng["params"])
 
-    def _fused_loop(self, logits, kc, vc, pos0: int, eos: Optional[int],
-                    steps: int, sample, temperature: float, seed: int):
-        """The whole token loop (steps forwards, steps + 1 picks); rows
-        that emitted ``eos`` stay pinned to it. ``sample`` is ``(top_k,
-        top_p)`` for a sampled loop, whose one batch key splits once a
-        pick, or None for greedy."""
+    def _fused_loop(self, logits, pos, key, temperature, kc, vc,
+                    eos: Optional[int], steps: int, sample):
+        """The whole token loop (steps forwards, steps + 1 picks) from the
+        prefill's ``logits`` and each row's start position ``pos`` (B,),
+        which the loop advances on the device; rows that emitted ``eos``
+        stay pinned to it. ``sample`` is ``(top_k, top_p)`` for a sampled
+        loop, whose one batch ``key`` splits once a pick, at the f32 0-dim
+        ``temperature``; greedy passes None for all three. No host sync:
+        on a card it is captured as one graph."""
         done = torch.zeros(logits.shape[0], dtype=torch.bool,
-                           device=self.device)
-        key = None if sample is None else rnd.PRNGKey(seed,
-                                                      device=self.device)
+                           device=logits.device)
 
         def pick(logits, key, done):
             if sample is None:
@@ -831,12 +848,37 @@ class LlamaDecoder:
             return tok, key, done
 
         toks = []
-        for i in range(steps):
+        for _ in range(steps):
             tok, key, done = pick(logits, key, done)
             toks.append(tok)
-            logits = self._fwd(tok[:, None], kc, vc, pos0 + i)
+            logits = self._fwd(tok[:, None], kc, vc, pos)
+            pos = pos + 1
         toks.append(pick(logits, key, done)[0])
         return torch.stack(toks, 1)
+
+    def _fused_graph(self, key) -> Optional["_PrefillGraph"]:
+        """The fused loop's graph holder for ``key``, or None where the
+        loop runs eagerly (the CPU; a key's first call on a card)."""
+        if self.device.type != "cuda" or _warm_up(self._fused_graphs, key,
+                                                  _FUSED_GRAPHS):
+            return None
+        graphs = self._fused_graphs
+        if graphs[key] is None:
+            B = key[1]
+            graphs[key] = _PrefillGraph(
+                self, B, lambda lg, pos, k, t, kc, vc: self._fused_loop(
+                    lg, pos, k, t, kc, vc, key[4], key[2], key[3]),
+                zero=False)
+        return graphs[key]
+
+    def _fused_run(self, g, args, kc, vc, eos, steps, sample):
+        """``decode.fused``'s dispatch: a replay of the key's graph ``g``
+        (whose caches ``kc``/``vc`` the prefill filled), or the eager
+        loop; returns the tokens (B, steps + 1)."""
+        if g is not None:
+            return g.run(*args).clone()
+        with _cost.eager_pass(self.device):
+            return self._fused_loop(*args, kc, vc, eos, steps, sample)
 
     def _chunk_steps(self, st: DecodeState, steps: int, sample=None,
                      ring: Optional["AdmissionRing"] = None):
@@ -1441,12 +1483,32 @@ class LlamaDecoder:
 
     def _generate_fused(self, ids, max_new, eos, sample, temperature,
                         seed):
+        """Prefill, then the fused loop as one counted dispatch: on a card
+        one graph replay a key (module docstring), whose own caches the
+        prefill writes into."""
         B, S = ids.shape
-        kc, vc = self._empty_cache(B)
+        steps = max_new - 1
+        key = ("fused", B, steps, sample, eos, self.quant,
+               tuple(t.data_ptr() for t in _lora_stacks(self.params)),
+               flags.route_snapshot())
+        g = self._fused_graph(key)
+        if g is None:
+            kc, vc = self._empty_cache(B)
+        else:
+            kc, vc = g.caches
+            _zero_cache(kc)
+            _zero_cache(vc)
         logits = self._prefill(ids, kc, vc)
-        return self._dispatch("decode.fused", self._fused_loop, logits, kc,
-                              vc, S, eos, max_new - 1, sample, temperature,
-                              seed).cpu().numpy()
+        pos = torch.full((B,), S, dtype=torch.long, device=self.device)
+        if sample is None:
+            rkey = temp = None
+        else:
+            rkey = rnd.PRNGKey(seed, device=self.device)
+            temp = torch.full((), float(np.float32(temperature)),
+                              dtype=torch.float32, device=self.device)
+        return self._dispatch("decode.fused", self._fused_run, g,
+                              (logits, pos, rkey, temp), kc, vc, eos, steps,
+                              sample, graphed=True).cpu().numpy()
 
     def _generate_per_token(self, ids, max_new, eos, sample, temperature,
                             seed):
@@ -1611,12 +1673,12 @@ class LlamaDecoder:
 # adaptive K's 4 keys at the default K.
 _CHUNK_GRAPHS = 8
 _PREFILL_GRAPHS = 16
-# a decoder captures in "thread_local" mode: a serving process has other
-# threads beside the one that captures (the HTTP pump and its GET
-# handlers, a cluster worker's RPC serve thread and its heartbeat), and in
-# the default "global" mode any CUDA call one of them makes during a
-# capture (a sync, a copy, an allocation) fails that capture
-_CAPTURE_MODE = "thread_local"
+# fused generate() loops: one key per (batch, new tokens, sampling, eos)
+# a caller uses; each graph owns its batch-B caches. On an H100 80GB
+# (700 W), chip_smoke.py's bundle line reserves 323 MB for its 4 fused
+# keys (B 8, max_len 256, 95 and 31 steps, unquantized and int8w), about
+# 81 MB a key
+_FUSED_GRAPHS = 4
 
 
 def _sample_spec(do_sample: bool, top_k, top_p):
@@ -1797,7 +1859,7 @@ class _ChunkGraph:
         self.replays = 0
         before = _kernels.launch_counts()
         with torch.cuda.graph(self.graph,
-                              capture_error_mode=_CAPTURE_MODE):
+                              capture_error_mode=_kernels._CAPTURE_MODE):
             self.toks, self.out = body(self.inputs)
         self.launches = _kernels.captured_launches(before)
 
@@ -1812,32 +1874,40 @@ class _ChunkGraph:
 
 
 class _PrefillGraph:
-    """A prefill ``body(*args, kc, vc)`` for one key captured as a CUDA
-    graph over static copies of its inputs ``args`` and its own batch-N
-    caches (of ``cfg``, default the target's), zeroed inside the graph
-    as a fresh prefill's are when ``zero``; else the caller prepares them
-    before ``run``. Every buffer the graph reads or writes lives on this
-    object for the graph's lifetime, the decoder's LoRA stacks included.
-    An ``args`` entry may be None (passed through). ``run`` copies the
+    """A body ``body(*args, kc, vc)`` for one key (an admission prefill,
+    a staged ring prefill, the fused decode loop) captured as a CUDA graph
+    over static copies of its inputs ``args`` and its own batch-N caches
+    (of ``cfg``, default the target's), zeroed inside the graph as a
+    fresh prefill's are when ``zero``; else the caller prepares them
+    before ``run`` (they exist from construction on). Every buffer the
+    graph reads or writes lives on this object for the graph's lifetime,
+    the decoder's LoRA stacks included. An ``args`` entry may be None
+    (passed through). ``run`` captures at its first call, then copies the
     inputs in, replays, and returns the body's output."""
 
-    def __init__(self, dec: LlamaDecoder, args, body, cfg=None,
+    def __init__(self, dec: LlamaDecoder, N: int, body, cfg=None,
                  zero: bool = True):
         self.keep = _lora_stacks(dec.params)
-        self.args = tuple(None if a is None else a.clone() for a in args)
-        self.caches = dec._empty_cache(args[0].shape[0], cfg)
-        self.graph = torch.cuda.CUDAGraph()
+        self.caches = dec._empty_cache(N, cfg)
+        self.body, self.zero = body, zero
+        self.graph = None
         self.replays = 0
+
+    def _capture(self, args) -> None:
+        self.args = tuple(None if a is None else a.clone() for a in args)
+        self.graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
         with torch.cuda.graph(self.graph,
-                              capture_error_mode=_CAPTURE_MODE):
-            if zero:
+                              capture_error_mode=_kernels._CAPTURE_MODE):
+            if self.zero:
                 for c in self.caches:
                     _zero_cache(c)
-            self.out = body(*self.args, *self.caches)
+            self.out = self.body(*self.args, *self.caches)
         self.launches = _kernels.captured_launches(before)
 
     def run(self, *args):
+        if self.graph is None:
+            self._capture(args)
         for dst, src in zip(self.args, args):
             if dst is not None:
                 dst.copy_(src)

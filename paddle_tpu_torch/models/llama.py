@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 import paddle_tpu_torch.nn.functional as F
+from paddle_tpu_torch.amp.auto_cast import amp_cast
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.ops.kernels import rope as _rope_k
@@ -98,10 +99,11 @@ class _Weight(nn.Module):
 
 
 class _Linear(_Weight):
-    """paddle's ``nn.Linear`` without bias: weight (in, out), ``x @ W``."""
+    """paddle's ``nn.Linear`` without bias: weight (in, out), ``x @ W``
+    (an AMP ``linear``)."""
 
     def forward(self, x):
-        return torch.matmul(x, self.weight)
+        return torch.matmul(*amp_cast("linear", x, self.weight))
 
 
 class _Embedding(_Weight):
@@ -239,7 +241,10 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, attn_mask=None):
         hidden = self.model(self._ids(input_ids), attn_mask)
-        return torch.matmul(hidden, self._head_weight())
+        # the JAX model's head: an nn.Linear, or paddle.matmul when tied
+        return torch.matmul(*amp_cast(
+            "linear" if self.lm_head is not None else "matmul", hidden,
+            self._head_weight()))
 
     def loss(self, input_ids, labels):
         """Mean next-token CE. Large vocabularies (V >= 4096, with

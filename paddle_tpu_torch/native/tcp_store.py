@@ -3,7 +3,14 @@ barrier built on add/wait, tcp_store.h:121).
 
 Counterpart of ``paddle_tpu/native/tcp_store.py`` over the port's own
 ``csrc/tcp_store.cpp``: the same wire protocol, so this client talks to
-the JAX package's server and the other way round."""
+the JAX package's server and the other way round.
+
+One difference (ROADMAP.md section 3, entry 42): the JAX client polls in
+``wait`` with short native waits on its one connection; this client gives
+every thread that waits a connection of its own, opened at its first
+wait, and hands the server's blocking ``WAIT`` the whole remaining
+timeout in one call. ``set``, ``get``, ``add`` and ``delete_key`` share
+the store's main connection and never queue behind a wait."""
 
 from __future__ import annotations
 
@@ -13,6 +20,20 @@ import time
 from typing import Optional
 
 __all__ = ["TCPStore"]
+
+
+class _Conn:
+    """One client connection, closed when it is dropped: a thread's wait
+    connection lives in a ``threading.local`` and goes with its thread."""
+
+    def __init__(self, lib, fd: int):
+        self.lib, self.fd = lib, fd
+
+    def __del__(self):
+        try:
+            self.lib.ts_close(self.fd)
+        except Exception:
+            pass
 
 
 class TCPStore:
@@ -39,20 +60,31 @@ class TCPStore:
             self._server = handle
             port = rc
         self.host, self.port = host, port
-        deadline = time.time() + timeout
+        self._fd = self._connect()
+        # One request/response in flight per connection: serialise the
+        # calls on the main connection so a store shared across threads
+        # (elastic heartbeats, RPC threads) cannot interleave frames on
+        # the socket. Waits go over each thread's own connection.
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _connect(self) -> int:
+        deadline = time.time() + self.timeout
         fd = -1
         while time.time() < deadline:
-            fd = self._lib.ts_client_connect(host.encode(), port)
+            fd = self._lib.ts_client_connect(self.host.encode(), self.port)
             if fd >= 0:
-                break
+                return fd
             time.sleep(0.05)
-        if fd < 0:
-            raise ConnectionError(f"TCPStore connect {host}:{port} failed")
-        self._fd = fd
-        # One request/response in flight per connection: serialise all client
-        # calls so a store shared across threads (elastic heartbeats, comm
-        # watchdog) cannot interleave frames on the socket.
-        self._lock = threading.Lock()
+        raise ConnectionError(f"TCPStore connect {self.host}:{self.port} "
+                              f"failed")
+
+    def _wait_fd(self) -> int:
+        """This thread's wait connection, opened at its first wait."""
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = _Conn(self._lib, self._connect())
+        return conn.fd
 
     # -- kv -----------------------------------------------------------------
     def set(self, key: str, value) -> None:
@@ -78,36 +110,22 @@ class TCPStore:
     def wait(self, key: str, timeout: Optional[float] = None) -> bytes:
         """Block until ``key`` exists and return its value.
 
-        Polls with short native waits rather than one long blocking wait so
-        the connection lock is never held long (other threads' set/get/add
-        stay live while we wait). Poll interval backs off 50ms -> 250ms to
-        cut steady-state chatter during long waits.
-
-        Caveat: polling leaves windows with no server-side waiter
-        registered, so a key that is set and then deleted *between polls*
-        is missed. Keys waited on must persist until every waiter has seen
-        them (the barrier's 'go' key does).
-        """
-        deadline = time.monotonic() + (timeout if timeout is not None
-                                       else self.timeout)
+        One blocking native wait for the whole timeout, over this thread's
+        own connection: the server's condition variable wakes it as soon
+        as the key is set (no polling window), and other threads'
+        set/get/add on the main connection stay live meanwhile."""
+        t = self.timeout if timeout is None else timeout
         buf = ctypes.create_string_buffer(1 << 20)
-        poll_ms = 50
-        while True:
-            remaining = deadline - time.monotonic()
-            native_ms = max(0, min(poll_ms, int(remaining * 1000)))
-            with self._lock:
-                n = self._lib.ts_wait(self._fd, key.encode(), native_ms,
-                                      buf, len(buf))
-            if n >= 0:
-                if n > len(buf):
-                    raise IOError(f"TCPStore wait({key!r}): value of {n} bytes "
-                                  f"exceeds {len(buf)}-byte client buffer")
-                return buf.raw[:n]
-            if n != -1:
-                raise IOError("TCPStore wait io error")
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"TCPStore wait({key!r}) timed out")
-            poll_ms = min(poll_ms * 2, 250)
+        n = self._lib.ts_wait(self._wait_fd(), key.encode(),
+                              max(0, int(t * 1000)), buf, len(buf))
+        if n >= 0:
+            if n > len(buf):
+                raise IOError(f"TCPStore wait({key!r}): value of {n} bytes "
+                              f"exceeds {len(buf)}-byte client buffer")
+            return buf.raw[:n]
+        if n != -1:
+            raise IOError("TCPStore wait io error")
+        raise TimeoutError(f"TCPStore wait({key!r}) timed out")
 
     def add(self, key: str, delta: int = 1) -> int:
         with self._lock:

@@ -3,9 +3,13 @@
 Counterpart of the matching parts of ``paddle_tpu/nn/functional.py``:
 ``rms_norm``, ``group_norm``, ``scaled_dot_product_attention`` (paddle's
 (batch, seq, heads, head_dim) layout) with its reference form
-``_sdpa_ref``, ``silu``, ``cross_entropy``, and ``linear`` (paddle's (in,
-out) weights), ``conv2d`` (NCHW, OIHW weights) and nearest
-``interpolate``. The routing rules are the JAX package's: RMSNorm and
+``_sdpa_ref``, ``silu``, ``softmax``, ``cross_entropy`` (with the JAX
+function's ``weight``, ``soft_label``, ``axis``, ``use_softmax`` and
+``label_smoothing``), and ``linear`` (paddle's (in, out) weights),
+``conv2d`` (NCHW, OIHW weights) and nearest ``interpolate``. Each one
+the JAX package dispatches through its op registry under a name of the
+AMP lists casts its floating inputs at its top (``amp.auto_cast.amp_cast``
+under that name). The routing rules are the JAX package's: RMSNorm and
 GroupNorm to their kernels when ``ops/fused_norm.py`` finds them eligible,
 attention to the flash-attention kernels when the flags allow and there is
 no mask and no dropout and the key length reaches
@@ -20,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as _F
 
+from paddle_tpu_torch.amp.auto_cast import _dtype, amp_cast
 from paddle_tpu_torch.flags import flags
 from paddle_tpu_torch.ops.fused_norm import (_gn_kernel_ok, _kernel_ok,
                                              group_norm_fused, rms_lax,
@@ -27,7 +32,7 @@ from paddle_tpu_torch.ops.fused_norm import (_gn_kernel_ok, _kernel_ok,
 from paddle_tpu_torch.ops.kernels import flash_attention as _fa
 
 __all__ = ["rms_norm", "group_norm", "scaled_dot_product_attention", "silu",
-           "cross_entropy", "linear", "conv2d", "interpolate"]
+           "softmax", "cross_entropy", "linear", "conv2d", "interpolate"]
 
 _LOWP = (torch.bfloat16, torch.float16)
 
@@ -42,10 +47,18 @@ def silu(x):
     return _F.silu(x)
 
 
+def softmax(x, axis=-1, dtype=None):
+    (x,) = amp_cast("softmax", x)
+    if dtype is not None:
+        x = x.to(_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)`` with paddle's (in, out) weight. Types
     promote as in JAX; a bf16 or f16 x accumulates in f32 and rounds the
     product to x's dtype before the bias add."""
+    x, weight, bias = amp_cast("linear", x, weight, bias)
     dt = torch.promote_types(x.dtype, weight.dtype)
     out = torch.matmul(x.to(dt), weight.to(dt))
     if x.dtype in _LOWP:
@@ -68,6 +81,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
             or not (isinstance(padding, int) or len(padding) == 2)):
         raise _not_ported(f"conv2d data_format={data_format!r} "
                           f"padding={padding!r}")
+    x, weight, bias = amp_cast("conv2d", x, weight, bias)
     out = _F.conv2d(x, weight, None, _pair(stride), _pair(padding),
                     _pair(dilation), groups)
     if bias is not None:
@@ -94,6 +108,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm over the last axis; through the RMSNorm kernels
     (``ops/kernels/rms_norm.py``) when eligible, else the plain
     composition."""
+    x, weight = amp_cast("rms_norm", x, weight)
     if weight is not None and _kernel_ok(x, weight, epsilon):
         return rms_norm_fused(x, weight, epsilon)
     return rms_lax(x, weight, epsilon)
@@ -165,7 +180,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "surface)")
     use_flash = (flags.use_fused_attention and attn_mask is None
                  and dropout_p == 0.0
-                 and key.shape[1] >= flags.flash_attention_min_seq
+                 and key.shape[1] >= flags.flash_attention_min_seq)
+    query, key, value, attn_mask = amp_cast(
+        "flash_attention" if use_flash else "sdpa_ref", query, key, value,
+        attn_mask)
+    use_flash = (use_flash
                  and key.shape[2] == query.shape[2]
                  and not (is_causal and query.shape[1] > key.shape[1])
                  and _fa.supported(query, key, value))
@@ -175,24 +194,64 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                      causal=is_causal)
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    """Hard-label softmax cross-entropy over the last axis, statistics in
-    f32. Labels equal to ``ignore_index`` add no loss and leave the mean's
-    denominator; other labels outside [0, C) add no loss but count in it
-    (the JAX package's one-hot semantics)."""
+def _label_index(label, ndim: int, axis: int):
+    """Hard labels as int64 indices of the class axis, a size-1 class
+    axis squeezed as the JAX function squeezes it."""
+    if label.ndim == ndim and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    return label.long()
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Softmax cross-entropy over ``axis``, statistics in f32, the JAX
+    function's options. Hard labels: those equal to ``ignore_index`` add
+    no loss and leave the mean's denominator; other labels outside [0, C)
+    add no loss but count in it (the JAX package's one-hot semantics);
+    ``weight`` (C,) scales each row's loss by its label's weight, and the
+    mean divides by the weights of the rows that count. ``soft_label``:
+    ``label`` is a distribution over the classes. ``use_softmax=False``:
+    ``input`` holds probabilities (log of max(p, 1e-30)).
+    ``label_smoothing``: the target mixes with the uniform distribution."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
-    logp = torch.log_softmax(input.float(), dim=-1)
-    C = input.shape[-1]
-    lbl = label
-    if lbl.ndim == logp.ndim and lbl.shape[-1] == 1:
-        lbl = lbl.squeeze(-1)
-    lbl = lbl.long()
+    input, label, weight = amp_cast("cross_entropy", input, label, weight)
+    axis = axis % input.ndim
+    x = input.float()
+    if use_softmax:
+        logp = torch.log_softmax(x, dim=axis)
+    else:
+        logp = torch.log(torch.clamp(x, min=1e-30))
+    C = input.shape[axis]
+    if soft_label:
+        target = label.float()
+        if label_smoothing > 0.0:
+            target = target * (1 - label_smoothing) + label_smoothing / C
+        loss = -(target * logp).sum(axis)
+        if reduction == "mean":
+            return loss.mean()
+        return loss.sum() if reduction == "sum" else loss
+    lbl = _label_index(label, logp.ndim, axis)
     in_range = (lbl >= 0) & (lbl < C)
-    gold = logp.gather(-1, lbl.clamp(0, C - 1)[..., None])[..., 0]
+    idx = lbl.clamp(0, C - 1)
+    if label_smoothing > 0.0:
+        onehot = _F.one_hot(idx, C).to(torch.float32) * in_range[..., None]
+        target = (onehot.movedim(-1, axis) * (1 - label_smoothing)
+                  + label_smoothing / C)
+        loss = -(target * logp).sum(axis)
+    else:
+        gold = logp.gather(axis, idx.unsqueeze(axis)).squeeze(axis)
+        loss = torch.where(in_range, -gold, 0.0)
     valid = lbl != ignore_index
-    loss = torch.where(in_range & valid, -gold, 0.0)
+    applied = None
+    if weight is not None:
+        applied = torch.where(valid, weight[idx], 0.0)
+        loss = loss * applied
+    loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
+        if applied is not None:
+            return loss.sum() / applied.sum().clamp_min(1e-12)
         return loss.sum() / valid.sum().clamp_min(1)
     if reduction == "sum":
         return loss.sum()

@@ -9,7 +9,8 @@ also by row count (``launches_by_rows``, a dict). A CUDA graph replays
 its launches without running Python, so the code that captures one takes
 ``launch_counts()`` before the capture, ``captured_launches(before)``
 after it (which also undoes the capture's own counts: nothing ran), and
-``add_launches(captured)`` at each replay."""
+``add_launches(captured)`` at each replay. ``_CAPTURE_MODE`` is the
+capture error mode every decoder and bundle graph is captured in."""
 
 from __future__ import annotations
 
@@ -22,6 +23,13 @@ __all__ = ["launch_counts", "captured_launches", "add_launches",
 _WRAPPERS = ("adam", "decode_attention", "flash_attention", "group_norm",
              "int8_matmul", "rms_norm", "rope", "threefry")
 _COUNTERS = ("launches", "fwd_launches", "bwd_launches", "launches_by_rows")
+
+# the port's serving graphs capture in "thread_local" mode: a serving
+# process has other threads beside the one that captures (the HTTP pump
+# and its GET handlers, a cluster worker's RPC serve thread and its
+# heartbeat), and in the default "global" mode any CUDA call one of them
+# makes during a capture (a sync, a copy, an allocation) fails that capture
+_CAPTURE_MODE = "thread_local"
 
 # (module, counter) for an integer counter, (module, counter, sub-key) for
 # an entry of a dict counter

@@ -1,4 +1,4 @@
-"""Adam and AdamW.
+"""Adam, AdamW and Lamb.
 
 Counterpart of ``paddle_tpu/optimizer/adam.py``: the update math in f32,
 then one cast to the parameter's dtype; f32 ``beta1_pow``/``beta2_pow``;
@@ -7,6 +7,9 @@ parameter with ``multi_precision=False``; an f32 ``master_weight`` for a
 low-precision parameter with ``multi_precision=True``. The arithmetic
 lives in ``ops/kernels/adam.py``: ``update`` is its ``adam_ref`` on one
 parameter, ``update_many`` its multi-tensor kernel on CUDA tensors.
+``lazy_mode`` is accepted and has no effect, as in the JAX package (the
+gradients are dense). ``Lamb`` is torch ops (no kernel), the JAX update
+with its trust ratio from f32 norms.
 """
 
 from __future__ import annotations
@@ -14,9 +17,9 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.ops.kernels import adam as _adam
-from paddle_tpu_torch.optimizer.optimizer import Optimizer, _not_ported
+from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Adam", "AdamW", "Lamb"]
 
 
 class Adam(Optimizer):
@@ -28,8 +31,6 @@ class Adam(Optimizer):
                  epsilon=1e-8, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=True,
                  name=None):
-        if lazy_mode:
-            raise _not_ported("lazy_mode=True")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
@@ -76,3 +77,38 @@ class AdamW(Adam):
     """Decoupled weight decay."""
 
     _decoupled = True
+
+
+class Lamb(Optimizer):
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def init_state(self, p):
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return {"moment1": torch.zeros_like(p, dtype=torch.float32),
+                "moment2": torch.zeros_like(p, dtype=torch.float32),
+                "beta1_pow": one, "beta2_pow": one.clone()}
+
+    def update(self, g, st, p, lr, wd):
+        g = g.float()
+        p32 = p.float()
+        b1, b2 = self._beta1, self._beta2
+        b1p = st["beta1_pow"] * b1
+        b2p = st["beta2_pow"] * b2
+        m1 = b1 * st["moment1"] + (1 - b1) * g
+        m2 = b2 * st["moment2"] + (1 - b2) * torch.square(g)
+        m1_hat = m1 / (1 - b1p)
+        m2_hat = m2 / (1 - b2p)
+        r = m1_hat / (torch.sqrt(m2_hat) + self._epsilon) + wd * p32
+        w_norm = torch.linalg.vector_norm(p32)
+        r_norm = torch.linalg.vector_norm(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        new_p = p32 - lr * trust * r
+        return new_p.to(p.dtype), {"moment1": m1, "moment2": m2,
+                                   "beta1_pow": b1p, "beta2_pow": b2p}

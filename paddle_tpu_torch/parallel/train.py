@@ -34,9 +34,16 @@ eagerly.
 
 The optimizer state lives on the trainer, keyed by parameter name, as in
 the JAX trainer; every trainable parameter takes
-``optimizer._weight_decay``. Meshes of more than one device, AMP and
-checkpoint files are not ported yet (ROADMAP.md section 1, items 13 and
-14).
+``optimizer._weight_decay``. The optimizer's ``grad_clip`` clips the
+gradients between the backward and the update, inside the captured step
+(``nn.clip.clip_grads``, the JAX trainer's ``_apply_grad_clip``).
+``amp_dtype`` runs the loss under ``amp.auto_cast`` (parameters stay as
+they are, f32 master weights with an f32 model), as the JAX trainer does.
+``save`` / ``load`` write and read the JAX package's distributed
+checkpoint format (``distributed/checkpoint.py``) under the keys of
+``state_dict``, so a JAX trainer's checkpoint resumes here and the other
+way round. Meshes of more than one device are not ported yet (ROADMAP.md
+section 1, item 13); ``compile_lowered`` waits for item 16's ``jit/``.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ import numpy as np
 import torch
 from torch.autograd.graph import increment_version
 
+from paddle_tpu_torch.amp.auto_cast import auto_cast
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.nn.clip import clip_grads
 from paddle_tpu_torch.ops import kernels as _kernels
 
 __all__ = ["ShardedTrainer"]
@@ -59,7 +68,7 @@ __all__ = ["ShardedTrainer"]
 _STEP_GRAPHS = 2
 
 
-def _not_ported(what: str, items: str = "items 13 and 14") -> \
+def _not_ported(what: str, items: str = "item 13") -> \
         NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (ROADMAP.md section "
@@ -103,9 +112,8 @@ class ShardedTrainer:
                  amp_dtype: Optional[str] = None):
         if mesh is not None and _mesh_size(mesh) > 1:
             raise _not_ported("a mesh of more than one device")
-        if amp_dtype is not None:
-            raise _not_ported("amp_dtype=")
         self.model = model
+        self.amp_dtype = amp_dtype
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.params = {n: p for n, p in model.named_parameters()
@@ -150,10 +158,18 @@ class ShardedTrainer:
             self._lr = (lr, self._lr[1])
         return self._lr[1]
 
+    def _loss(self, batch) -> torch.Tensor:
+        if self.amp_dtype:
+            with auto_cast(dtype=self.amp_dtype):
+                return self.loss_fn(self.model, *batch)
+        return self.loss_fn(self.model, *batch)
+
     def _update(self, lr: torch.Tensor) -> None:
         opt = self.optimizer
         names = list(self.params)
-        opt.update_many([self.params[n].grad for n in names],
+        grads = clip_grads(getattr(opt, "_grad_clip", None),
+                           [self.params[n].grad for n in names])
+        opt.update_many(grads,
                         [self.opt_state[n] for n in names],
                         [self.params[n] for n in names], lr,
                         getattr(opt, "_weight_decay", 0.0) or 0.0)
@@ -161,7 +177,7 @@ class ShardedTrainer:
     def _eager(self, batch, lr) -> torch.Tensor:
         for p in self.params.values():
             p.grad = None
-        loss = self.loss_fn(self.model, *batch)
+        loss = self._loss(batch)
         loss.backward()
         t0 = time.perf_counter()
         self._update(lr)
@@ -180,7 +196,7 @@ class ShardedTrainer:
     def _key(self, batch) -> tuple:
         return (tuple((tuple(b.shape), b.dtype) for b in batch),
                 getattr(self.optimizer, "_weight_decay", 0.0),
-                flags.snapshot())
+                self.amp_dtype, flags.snapshot())
 
     def _capture(self, batch, lr) -> _StepGraph:
         inputs = [b.clone() for b in batch]
@@ -189,7 +205,7 @@ class ShardedTrainer:
         graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
         with torch.cuda.graph(graph):
-            loss = self.loss_fn(self.model, *inputs)
+            loss = self._loss(inputs)
             loss.backward()
             self._update(lr)
         return _StepGraph(graph, inputs, loss.detach(),
@@ -265,13 +281,27 @@ class ShardedTrainer:
         return out
 
     def save(self, path: str) -> None:
-        raise _not_ported("ShardedTrainer.save (the distributed checkpoint "
-                          "format)", "item 14")
+        """``state_dict()`` as a distributed checkpoint at ``path`` (the
+        JAX format: one process, rank 0, each tensor whole)."""
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+        ckpt.save_state_dict(self.state_dict(), path)
 
+    @torch.no_grad()
     def load(self, path: str) -> None:
-        raise _not_ported("ShardedTrainer.load (the distributed checkpoint "
-                          "format)", "item 14")
+        """Read a checkpoint of ``state_dict()``'s keys into the model's
+        tensors and the optimizer state, in place (a captured step keeps
+        reading them where they are); each tensor keeps its dtype."""
+        from paddle_tpu_torch.distributed import checkpoint as ckpt
+        sd = self.state_dict()
+        ckpt.load_state_dict(sd, path)
+        for n, t in self.model.state_dict().items():
+            t.copy_(sd[f"model.{n}"])
+        for n, p in self.params.items():
+            increment_version(p)
+        for n, st in self.opt_state.items():
+            for k, v in st.items():
+                v.copy_(sd[f"opt.{n}.{k}"])
 
     def compile_lowered(self, *batch_shapes_dtypes):
-        raise _not_ported("ShardedTrainer.compile_lowered (AOT lowering of "
-                          "the step)", "item 14")
+        raise _not_ported("ShardedTrainer.compile_lowered (a lowered "
+                          "program of the step: jit/)", "item 16")

@@ -451,6 +451,17 @@ class ClusterRouter:
         finished: List[Tuple[int, Any]] = []
         self._sync_slab_retries()
         members = set(self.elastic.members)
+        ttl = self.elastic.ttl_s
+        for h in self.workers:
+            if (h.state not in ("dead", "restarting")
+                    and h.name not in members):
+                # the heartbeat loop's members can be a period old, older
+                # than an RPC round trip (ROADMAP.md section 3, entry 42):
+                # a worker that registered or restarted since the loop
+                # last looked is confirmed on a fresh read of its beat
+                age = self.elastic.beat_age(h.name)
+                if age is not None and age < ttl:
+                    members.add(h.name)
         for h in list(self.workers):
             if h.state in ("dead", "restarting"):
                 # restarting = intentionally down (rolling restart owns

@@ -159,6 +159,46 @@ def test_rpc_module_api():
         rpc.shutdown()
 
 
+def test_store_wait_blocks_per_thread_and_rpc_round_trip_is_short():
+    """ROADMAP.md section 3, entry 42: each waiting thread has a store
+    connection of its own and hands the server's WAIT the whole timeout,
+    so one ``rpc_sync`` on a local store takes well under the JAX
+    client's first 50 ms poll (the median of 20 must be under 25 ms), and
+    a ``get`` issued while another thread sits in a 5 s wait returns at
+    once (under 50 ms) where it used to queue behind the wait's lock."""
+    import threading
+
+    import paddle_tpu_torch.distributed.rpc as rpc
+    rpc.init_rpc("solo", rank=0, world_size=1, master_endpoint=None)
+    try:
+        assert rpc.rpc_sync("solo", _add, (1, 2)) == 3
+        trips = []
+        for i in range(20):
+            t0 = time.perf_counter()
+            assert rpc.rpc_sync("solo", _add, (i, 1)) == i + 1
+            trips.append(time.perf_counter() - t0)
+        assert float(np.median(trips)) < 0.025, trips
+    finally:
+        rpc.shutdown()
+
+    store = TCPStore(is_master=True)
+    store.set("here", b"x")
+    got = {}
+    waiter = threading.Thread(
+        target=lambda: got.update(v=store.wait("late", timeout=5.0)))
+    waiter.start()
+    time.sleep(0.1)
+    assert waiter.is_alive()
+    t0 = time.perf_counter()
+    assert store.get("here") == b"x"
+    assert time.perf_counter() - t0 < 0.05
+    t0 = time.perf_counter()
+    store.set("late", b"y")
+    waiter.join(timeout=5.0)
+    assert not waiter.is_alive() and got["v"] == b"y"
+    assert time.perf_counter() - t0 < 0.05
+
+
 def test_rpc_chunked_parts_sha_retry_and_typed_refusal(agents):
     """A payload past the store's 1 MiB client buffer rides sha256-checked
     ``{key}/part{i}`` keys both ways; a torn read heals on the one retry

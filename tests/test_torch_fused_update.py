@@ -15,6 +15,8 @@ JAX is imported inside the parity tests only, so the card's run
 has no JAX, can collect this file.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -168,12 +170,13 @@ def test_trainer_with_lr_changes_matches_jax():
                                    err_msg=n)
 
 
-def test_trainer_checkpoint_surface_matches_jax():
+def test_trainer_checkpoint_surface_matches_jax(tmp_path):
     """``state_dict`` has the JAX trainer's keys (``model.<name>``,
     ``opt.<name>.<state>``) over copies of the trainer's tensors;
-    ``save``, ``load`` and
-    ``compile_lowered``, which the JAX trainer has, raise the port's typed
-    refusal naming ROADMAP item 14."""
+    ``save`` then ``load`` into a fresh trainer gives it every tensor of
+    the state dict bit for bit (the JAX checkpoint's files), and
+    ``compile_lowered``, which the JAX trainer has, raises the port's
+    typed refusal naming ROADMAP item 16 (``jit/``)."""
     from paddle_tpu.parallel import init_mesh
     from paddle_tpu.parallel.mesh import set_mesh
 
@@ -192,11 +195,24 @@ def test_trainer_checkpoint_surface_matches_jax():
     assert torch.equal(sd[f"opt.{name}.moment1"],
                        tt.opt_state[name]["moment1"])
     assert sd[f"opt.{name}.moment1"] is not tt.opt_state[name]["moment1"]
-    for call in (lambda: tt.save("ckpt"), lambda: tt.load("ckpt"),
-                 lambda: tt.compile_lowered(((B, S), "int64"))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md section 1, item 14"):
-            call()
+    rng = np.random.default_rng(7)
+    ids, labels = (rng.integers(0, CFG["vocab_size"], (B, S))
+                   for _ in range(2))
+    tt.train_step(ids, labels)
+    tt.save(str(tmp_path / "ckpt"))
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [
+        "data_r0.npz", "meta_r0.json", "metadata.json"]
+    _, tm2 = _models()
+    t2 = ShardedTrainer(tm2, AdamW(1e-3, parameters=tm2.parameters()),
+                        lambda m, i, l: m.loss(i, l))
+    t2.load(str(tmp_path / "ckpt"))
+    want_sd, got_sd = tt.state_dict(), t2.state_dict()
+    assert set(got_sd) == set(want_sd)
+    for k, v in want_sd.items():
+        assert torch.equal(got_sd[k], v), k
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md section 1, item 16"):
+        tt.compile_lowered(((B, S), "int64"))
 
 
 def test_state_dicts_are_snapshots():

@@ -823,6 +823,44 @@ def test_graph_admission_prefill_matches_eager_on_card(quant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8w"])
+def test_graph_fused_generate_matches_eager_on_card(quant):
+    """``generate``'s fused loop as one CUDA graph a key against the
+    eager loop (a second decoder over the same model whose fused route
+    never captures), greedy and sampled (top-k 50, top-p 0.9,
+    temperature 0.8), each without and with an eos that stops a row
+    early: at prompt length 5 (the key's eager warm-up, the capture, a
+    replay) and then 9 (a replay of the same graph), the same tokens bit
+    for bit; prefill + 1 dispatches a call; one graph a key."""
+    _need_card()
+    from paddle_tpu_torch.inference.generate import LlamaDecoder
+    model = _tiny_gpu_llama()
+    dec = LlamaDecoder(model, max_len=64, quant=quant)
+    ref = LlamaDecoder(model, max_len=64, quant=quant)
+    ref._fused_graph = lambda key: None
+    rng = np.random.default_rng(3)
+    prompts = {S: rng.integers(0, 512, (4, S)) for S in (5, 9)}
+    eos = int(np.asarray(ref.generate(prompts[5], 12))[0, 5 + 4])
+    modes = [dict(), dict(eos_token_id=eos),
+             dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8,
+                  seed=11),
+             dict(do_sample=True, top_k=50, top_p=0.9, temperature=0.8,
+                  seed=11, eos_token_id=eos)]
+    for kw in modes:
+        for S, calls in ((5, 3), (9, 1)):
+            want = np.asarray(ref.generate(prompts[S], 12, **kw))
+            for _ in range(calls):
+                d0 = dec.dispatch_count
+                got = np.asarray(dec.generate(prompts[S], 12, **kw))
+                assert dec.dispatch_count - d0 == 2
+                assert np.array_equal(got, want), (kw, S)
+    graphs = [g for g in dec._fused_graphs.values() if g is not None]
+    assert len(graphs) == len(dec._fused_graphs) == len(modes)
+    assert all(g.replays == 3 for g in graphs)
+    assert not any(g is not None for g in ref._fused_graphs.values())
+
+
+@pytest.mark.gpu
 def test_beam_search_on_card():
     """Beam search through the model's no-cache forward on the card (the
     RMSNorm kernels): the JAX package's output shape, ids in the vocab,

@@ -429,7 +429,10 @@ def test_tiny_llama_trainer_with_fused_rope_matches_jax(fused_rope):
 
 def test_trainer_train_steps_and_refusals():
     """train_steps over stacked (K, ...) batches equals K train_steps;
-    a multi-device mesh, amp, grad clip and LR schedulers are refused;
+    a multi-device mesh is refused; amp, grad clip and LR schedulers are
+    taken as the JAX trainer takes them (a clip of another class is
+    refused at the step, a learning rate that is neither a number nor an
+    ``LRScheduler`` at construction, both as in the JAX package);
     use_fused_rope runs (it raised before the rope kernel was ported)."""
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import ShardedTrainer
@@ -449,12 +452,21 @@ def test_trainer_train_steps_and_refusals():
                                   torch.stack(one_by_one).numpy())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ShardedTrainer(tm1, t1.optimizer, loss_fn, mesh=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedTrainer(tm1, t1.optimizer, loss_fn, amp_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(1e-3, parameters=tm1.parameters(), grad_clip=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+    amp = ShardedTrainer(tm1, t1.optimizer, loss_fn, amp_dtype="bfloat16")
+    assert amp.amp_dtype == "bfloat16"
+    assert torch.isfinite(amp.train_step(ids, labels))
+    bad_clip = ShardedTrainer(
+        tm1, AdamW(1e-3, parameters=tm1.parameters(), grad_clip=object()),
+        loss_fn)
+    with pytest.raises(NotImplementedError, match="grad clip object"):
+        bad_clip.train_step(ids, labels)
+    with pytest.raises(TypeError):
         AdamW(lambda: 1e-3, parameters=tm1.parameters())
+    sched = AdamW(StepDecay(1e-3, 2), parameters=tm1.parameters())
+    assert sched.get_lr() == 1e-3
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        sched.set_lr(1e-4)
     # use_fused_rope routes rope through the rope kernel's autograd unit,
     # whose plain version on CPU tensors rotates exactly as the plain rope
     from paddle_tpu_torch.ops.kernels import rope as rp

@@ -281,16 +281,42 @@ smoke run is made, nothing else is built.
    step ms and images/s, MFU (the census's FLOPs), peak memory, the
    replay's host ms and the profiled routes' busy shares, kernel kinds and
    per-kernel ms.
-7. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows, the Adam
+7. Families phase (``train_families``): the JAX package's other
+   single-card benches at their full width, B and S, each through
+   ``ShardedTrainer(mesh=None)`` with AdamW(1e-4, multi_precision=False)
+   over bf16 parameters from seed 0 and the fixed batch of numpy seed 0
+   (``family_line``): ``train_gpt``, bench_ernie's GPT (vocab 30000,
+   hidden 1024, 12 layers, 16 heads, intermediate 4096, dropout 0.1; B 8,
+   S 1024), ``train_bert``, bench_bert's BERT-base MLM (B 16, S 512) and
+   ``train_moe``, bench_moe's LM (d 1024, f 4096, 8 experts, top-2,
+   ragged dispatch through ``torch._grouped_mm``, 4 blocks, V 32000,
+   the fused CE; B 8, S 1024). Each: the eager warm-up, the capture, 5
+   timed replays (finite losses that fall), ``graph_vs_eager`` (the
+   first replayed loss bit-equal to the eager step's under the same step
+   key), the flash, Adam (and GPT's threefry) kernels launched in every
+   replay, the MoE's grouped products in its eager step (2 a block) and
+   its grouped-GEMM kernels in a profiled replay; GPT's dropout
+   (``dropout_checks``): two replays from one state at key counters c
+   and c + 1 give different losses, an eager step at c the first one's
+   loss bit for bit, and a mask at the activations' shape keeps a share
+   within 4 sigma of 0.9. Each line prints step ms, tokens/s, MFU against
+   the dense bf16 peak (GPT and BERT by the bench's 6 N B S; the MoE by
+   6 N_active B S, the formula printed), peak memory and a profiled
+   replay's busy share and costliest kernels. The kernel phase holds
+   flash attention at their shapes (B 8, H 16, S 1024, D 64, causal;
+   B 16, H 12, S 512, D 64, non-causal) against its plain version.
+8. Prints ``{"kernels": [...]}`` (the nine TPU kernels' rows, the Adam
    kernel's at the Llama's and the UNet's tensors, the threefry
-   kernel's, launched by the sampled line, and two rows at the
+   kernel's, launched by the sampled line, two rows at the
    speculative shapes: decode attention at a draft's per-row lengths and
-   the int8 matmul at a verify's 40 rows; the decode-attention and int8
+   the int8 matmul at a verify's 40 rows, and flash attention's at the
+   GPT's and BERT's shapes; the decode-attention and int8
    rows count the LoRA, snapshot, fault, router, HTTP, cluster and
    bundle lines' launches too, the cluster's summed from its worker
    processes' counters, the bundle line's made inside its loaded
-   programs, and the threefry row the router's keyed sampled runs and
-   the sampled bundle's), the card line,
+   programs, the threefry row the router's keyed sampled runs, the
+   sampled bundle's and the GPT line's dropout, and the Adam row the
+   three families' updates), the card line,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -342,8 +368,9 @@ def time_ms(fn, sets, iters=200):
         for s in sets[:3]:
             fn(*s)
     torch.cuda.current_stream().wait_stream(side)
+    from paddle_tpu_torch.ops import kernels as K
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with K.capture(graph):
         for i in range(iters):
             fn(*sets[i % len(sets)])
     graph.replay()
@@ -1147,6 +1174,14 @@ def kernel_phase(parent=None):
                   else "operations"),
         **{k: sum(c[k] for c in v40) for k in (
             "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms")})]
+    # the other model families' attention, drawn after every earlier case
+    # so that those keep their inputs: bench_ernie's GPT (causal, 16 heads
+    # of 64 at S 1024, B 8) and bench_bert's BERT-base (non-causal, 12
+    # heads of 64 at S 512, B 16)
+    cases += flash_case("flash_attention bf16 B8 H16 S1024 D64 causal", 8,
+                        1024, 1024, 16, 64, True, bf, g)
+    cases += flash_case("flash_attention bf16 B16 H12 S512 D64", 16, 512,
+                        512, 12, 64, False, bf, g)
     for c in cases:
         c["bound_us"] = 1e3 * c["bound_ms"]
         c["share_of_bound"] = c["bound_ms"] / c["ms"]
@@ -2428,9 +2463,9 @@ def serve_bundle(model, reqs, plain_gens, plain_info, card):
     the decisive gate (the bit-equal count printed). (b)
     ``AotPredictor.generate`` greedy, unquantized and ``int8w``,
     bench_decode_1b_served's protocol at B 8, prompt 128, decode buckets
-    95 and 31 (interleaved hi / lo rounds, 2 warm-up and 7 timed;
+    95 and 31 (interleaved hi / lo rounds, 2 warm-up and 4 timed;
     marginal ms a token), each bit-equal to the in-process fused
-    ``generate``, whose marginal ms is timed in the last 3 rounds
+    ``generate``, whose marginal ms is timed in the same rounds
     beside. (c) A sampled bundle (top-k 50, top-p 0.9) at a runtime
     temperature and seed bit-equal to the in-process sampled
     ``generate``; a ``skip:3`` K 4 speculative bundle with its plain
@@ -2642,7 +2677,7 @@ def _bundle_drills(model, reqs, plain_gens, plain_info, card, procs,
                 for where, x in zip(("bundle", "in-process"), pair[::-1])]
     samples = {name: [] for name, _ in variants}
     t0 = time.perf_counter()
-    for rep in range(9):               # 2 warm-up rounds, 7 timed
+    for rep in range(6):               # 2 warm-up rounds, 4 timed
         for name, x in variants:
             # the in-process fused loop: its captures in round 0, replays
             # of one graph a (recipe, tokens) key after
@@ -4454,10 +4489,35 @@ def profiled_routes(trainer, batch, names):
         g_prof, e_prof, named
 
 
-def graph_vs_eager(tag, trainer, batch, steps=3):
+def saved_state(trainer):
+    """A copy of the trainer's weights, optimizer state, step count and
+    step key's counter (each route draws its dropout masks from it);
+    returns ``restore(seed=True)``, which puts them back (the counter
+    only with ``seed``)."""
+    p0 = {n: p.detach().clone() for n, p in trainer.params.items()}
+    s0 = {n: {k: v.clone() for k, v in st.items()}
+          for n, st in trainer.opt_state.items()}
+    c0, seed0 = trainer.optimizer._step_count, trainer._seed_dev.clone()
+
+    def restore(seed=True):
+        with torch.no_grad():
+            for n, p in trainer.params.items():
+                p.copy_(p0[n])
+            for n, st in trainer.opt_state.items():
+                for k, v in st.items():
+                    v.copy_(s0[n][k])
+            if seed:
+                trainer._seed_dev.copy_(seed0)
+        trainer.optimizer._step_count = c0
+
+    return restore
+
+
+def graph_vs_eager(tag, trainer, batch, steps=3, zero_grad=()):
     """The captured step against the eager step from the same weights and
     optimizer state (the graph for this batch is captured already; the
-    weights and state are put back before each route). Gates:
+    weights, the state and the step key's counter are put back before
+    each route, so both draw the same dropout masks). Gates:
 
     - one replay against one eager forward and backward: the loss bit for
       bit, every parameter's gradient at cosine >= 0.999;
@@ -4470,7 +4530,11 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
 
     Each parameter's change over the ``steps`` steps is reported at its
     cosine to the eager change, beside the same cosine between two eager
-    runs. The flash backward sums dq in arrival order (ROADMAP.md section
+    runs. The parameters named in ``zero_grad`` have a zero gradient in
+    exact arithmetic (a key projection's bias: a shift shared by every
+    key leaves the softmax as it is), so each route's gradient there is
+    rounding noise and its cosine says nothing: each must instead be at
+    most 1e-2 of the largest gradient norm of the other parameters. The flash backward sums dq in arrival order (ROADMAP.md section
     3), so the eager route does not repeat itself bit for bit, and bf16
     rounding of the small updates turns that into whole-spacing flips of
     a few per cent of the weights."""
@@ -4480,18 +4544,7 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
     check(graph is not None, f"{tag}: no captured step for this batch")
     params = trainer.params
     p0 = {n: p.detach().clone() for n, p in params.items()}
-    s0 = {n: {k: v.clone() for k, v in st.items()}
-          for n, st in trainer.opt_state.items()}
-    c0 = trainer.optimizer._step_count
-
-    def restore():
-        with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(p0[n])
-            for n, st in trainer.opt_state.items():
-                for k, v in st.items():
-                    v.copy_(s0[n][k])
-        trainer.optimizer._step_count = c0
+    restore = saved_state(trainer)
 
     def state():
         return ({n: p.detach().clone() for n, p in params.items()},
@@ -4511,13 +4564,27 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
           f"{tag}: replay loss {l_graph} != eager {loss.item()}")
     g_cos = {}
     for n, p in params.items():
-        a, b = g_graph[n].float().reshape(-1), p.grad.float().reshape(-1)
+        # a parameter the loss does not reach has no eager gradient; the
+        # trainer updates it with zeros (BERT's token types)
+        gp = p.grad if p.grad is not None else torch.zeros_like(p)
+        a, b = g_graph[n].float().reshape(-1), gp.float().reshape(-1)
         na, nb = a.norm().item(), b.norm().item()
         g_cos[n] = 1.0 if na == nb == 0 else (
             (a @ b).item() / (na * nb) if na and nb else 0.0)
+    noise = {n: (g_graph[n].float().norm().item(),
+                 (params[n].grad.float().norm().item()
+                  if params[n].grad is not None else 0.0))
+             for n in zero_grad}
+    for n in zero_grad:
+        g_cos.pop(n)
     worst_g = min(g_cos, key=g_cos.get)
     check(g_cos[worst_g] >= 0.999, f"{tag}: gradient of {worst_g} at "
           f"cosine {g_cos[worst_g]} to the eager one")
+    scale = max(g_graph[n].float().norm().item() for n in g_cos)
+    for n, (a, b) in noise.items():
+        check(max(a, b) <= 1e-2 * scale, f"{tag}: gradient of {n}, zero "
+              f"in exact arithmetic, has norms {a} / {b} against the "
+              f"largest {scale}")
     # the eager update on the replay's gradients
     with torch.no_grad():
         for n, p in params.items():
@@ -4562,7 +4629,7 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
     del g_moved
     e2_losses, e2_moved, _ = run(trainer._eager_step)
     c_eager = change_cos(e2_moved, e_moved)
-    del e_moved, e2_moved, p0, s0
+    del e_moved, e2_moved, p0
     check(same_bits(torch.tensor(g_losses[0]), torch.tensor(e_losses[0])),
           f"{tag}: first loss of the graph {g_losses[0]} != eager "
           f"{e_losses[0]}")
@@ -4575,7 +4642,7 @@ def graph_vs_eager(tag, trainer, batch, steps=3):
     return dict(losses_graph=g_losses, losses_eager=e_losses,
                 losses_eager_again=e2_losses,
                 min_grad_cosine=g_cos[worst_g], min_grad_cosine_param=worst_g,
-                update_on_replay_grads_bit_equal=True,
+                zero_grad_norms=noise, update_on_replay_grads_bit_equal=True,
                 min_change_cosine=c_graph[0],
                 min_change_cosine_param=c_graph[1],
                 min_change_cosine_eager_vs_eager=c_eager[0],
@@ -4964,6 +5031,235 @@ def train_amp(card):
     return info
 
 
+# -- the other model families: GPT, BERT, the MoE LM --------------------------
+
+def _moe_lm(V, d, f, E, n_blocks, dev):
+    """bench.py's bench_moe LM: an Embedding, ``n_blocks`` blocks of
+    ``x + MoEMLP(LayerNorm(x))`` (top-2, ragged dispatch), the head tied
+    to the embedding through the fused lm-head CE; bf16 parameters from
+    seed 0."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.incubate.nn import MoEMLP
+    from paddle_tpu_torch.ops.fused_ce import fused_lm_loss
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(device=dev, dtype=torch.bfloat16)
+
+    class Block(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.norm = tnn.LayerNorm(d, **kw)
+            self.moe = MoEMLP(d, f, n_experts=E, top_k=2, dispatch="ragged",
+                              generator=g, **kw)
+
+        def forward(self, x):
+            return x + self.moe(self.norm(x))
+
+    class MoELM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = tnn.Embedding(V, d, generator=g, **kw)
+            self.blocks = tnn.LayerList([Block() for _ in range(n_blocks)])
+
+        def loss(self, ids, labels):
+            h = self.embed(ids)
+            for b in self.blocks:
+                h = b(h)
+            return fused_lm_loss(h, self.embed.weight.t(), labels)
+
+    return MoELM()
+
+
+def model_loss(m, ids, labels):
+    return m.loss(ids, labels)
+
+
+def dropout_checks(tag, trainer, batch, p):
+    """The step key drives the masks: from one set of weights and state,
+    two replays at counters c and c + 1 give different losses, an eager
+    step at counter c gives the first replay's loss bit for bit, and a
+    mask drawn at the activations' shape keeps a share of its elements
+    within 4 sigma of 1 - p."""
+    from paddle_tpu_torch.framework import random as rng_state
+    from paddle_tpu_torch.nn import functional as F
+    seed0 = trainer._seed_dev.clone()
+    restore = saved_state(trainer)
+    a = trainer.train_step(*batch)
+    restore(seed=False)          # the counter moves on: c + 1
+    b = trainer.train_step(*batch)
+    restore()
+    e = trainer._eager_step(*batch)
+    check(not same_bits(a, b), f"{tag}: two replays at counters c and c + 1 "
+          f"drew the same masks (loss {a.item()})")
+    check(same_bits(a, e), f"{tag}: eager step at counter c {e.item()} != "
+          f"the replay's {a.item()}")
+    B, S = batch[0].shape
+    ones = torch.ones(B, S, trainer.model.config.hidden_size,
+                      device="cuda", dtype=torch.bfloat16)
+    rng_state.push_trace_key(torch.stack([torch.zeros_like(seed0), seed0]))
+    try:
+        kept = (F.dropout(ones, p=p) != 0).sum().item() / ones.numel()
+    finally:
+        rng_state.pop_trace_key()
+    sigma = math.sqrt(p * (1 - p) / ones.numel())
+    check(abs(kept - (1 - p)) <= 4 * sigma, f"{tag}: keep rate {kept} not "
+          f"within 4 sigma ({sigma}) of {1 - p}")
+    restore()
+    return dict(replay_losses=[a.item(), b.item()], eager_loss=e.item(),
+                keep_rate=kept, keep_rate_sigma=sigma)
+
+
+def family_line(tag, card, model, batch, flops_per_step, flops_formula,
+                counters, dropout=0.0, timed=5, zero_grad=()):
+    """One model family trained on the card as its bench trains it:
+    ``ShardedTrainer(mesh=None)`` with AdamW(1e-4,
+    multi_precision=False) over bf16 parameters, the fixed batch. The
+    eager warm-up, the capture, ``timed`` timed replays (finite losses
+    that fall), ``graph_vs_eager`` (the first replayed loss bit-equal to
+    the eager step's under the same key), with dropout the key checks of
+    ``dropout_checks``, every counted kernel launched in the replays,
+    the step ms, tokens/s, MFU against the dense bf16 peak
+    (``flops_per_step``, whose formula the line prints), peak memory
+    and a profiled replay's busy share and costliest kernels."""
+    from paddle_tpu_torch.incubate.nn import moe
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=False)
+    trainer = ShardedTrainer(model, opt, model_loss, mesh=None)
+    check(all(p.dtype == torch.bfloat16 for p in trainer.params.values()),
+          f"{tag}: parameters not bf16")
+    n_params = sum(p.numel() for p in model.parameters())
+    moe.grouped_mm_calls = 0
+    losses = [trainer.train_step(*batch).item()]      # the eager warm-up
+    eager_grouped = moe.grouped_mm_calls
+    losses.append(trainer.train_step(*batch).item())  # capture, replay
+    key = next(iter(trainer._graphs))
+    check(len(trainer._graphs) == 1 and trainer._graphs[key] is not None,
+          f"{tag}: no captured step after the warm-up")
+    step_losses, wall, launches = timed_steps(trainer, batch, timed,
+                                              counters)
+    losses += step_losses
+    for k, n in launches.items():
+        check(n > 0, f"{tag}: {k} never launched in {timed} replays")
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall over "
+          f"{len(losses)} steps: {losses}")
+    vs_eager = graph_vs_eager(tag, trainer, batch, steps=2,
+                              zero_grad=zero_grad)
+    drop = (dropout_checks(tag, trainer, batch, dropout) if dropout
+            else None)
+    prof, pr = profiled_step(trainer, batch)
+    step_s = wall / timed
+    B, S = batch[0].shape
+    info = dict(phase=tag, card=card, batch=B, seq=S, params=n_params,
+                losses=losses, step_ms=1e3 * step_s,
+                tokens_per_s=B * S / step_s,
+                mfu=flops_per_step / step_s / BF16_FLOPS,
+                mfu_formula=f"{flops_formula}, over the step's seconds "
+                            f"and {BF16_FLOPS:.3g} FLOP/s (dense bf16)",
+                replay_host_ms=1e3 * trainer.update_host_s,
+                launches_per_step={k: v / timed
+                                   for k, v in launches.items()},
+                adam_launches_expected=adam_launches_per_step(trainer),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                graph_vs_eager=vs_eager, dropout=drop,
+                profiled=prof,
+                kernel_ms_per_step=kernel_ms(pr, FLASH_KERNELS
+                                             + ADAM_KERNELS
+                                             + ("threefry",)))
+    if eager_grouped:
+        # torch._grouped_mm's kernels in the profiled replay: forward and
+        # the two backward products of every expert FFN projection
+        grouped = [dict(name=name[:120], ms=t / 1e3, count=c)
+                   for t, name, c in kernel_events(pr)
+                   if "GroupProblem" in name]
+        check(sum(g["count"] for g in grouped) > 0, f"{tag}: no grouped "
+              f"product kernel in a profiled replay: "
+              f"{[k for _, k, _ in kernel_events(pr)][:40]}")
+        info.update(grouped_mm_calls_eager_step=eager_grouped,
+                    grouped_mm_kernels=grouped,
+                    grouped_mm_kernel_launches_per_step=sum(
+                        g["count"] for g in grouped),
+                    grouped_mm_kernel_ms_per_step=sum(
+                        g["ms"] for g in grouped))
+    check(launches["adam"] == timed * info["adam_launches_expected"],
+          f"{tag}: adam launches {launches['adam']}")
+    del trainer, opt
+    torch.cuda.empty_cache()
+    info["phase_s"] = time.perf_counter() - t_start
+    emit(info)
+    return info, launches
+
+
+def train_families(card):
+    """The JAX package's other single-card benches on the card, each as
+    ``family_line`` trains it, at the bench's full width, B and S:
+    ``train_gpt`` (bench_ernie's GPT: vocab 30000, hidden 1024, 12
+    layers, 16 heads, intermediate 4096, 1024 positions, dropout 0.1; B 8,
+    S 1024), ``train_bert`` (bench_bert's BERT-base MLM: vocab 30522,
+    hidden 768, 12 layers, 12 heads, intermediate 3072, dropout 0.0; B 16,
+    S 512) and ``train_moe`` (bench_moe's LM: d 1024, f 4096, 8 experts,
+    top-2, ragged dispatch, 4 blocks, V 32000, the fused CE; B 8, S 1024).
+    Returns the three lines and the launches they counted."""
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         GPTConfig, GPTForCausalLM)
+    from paddle_tpu_torch.ops.kernels import adam as ak
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+
+    def batch(V, B, S):
+        rng = np.random.default_rng(0)
+        return tuple(torch.as_tensor(rng.integers(0, V, (B, S)),
+                                     device="cuda") for _ in range(2))
+
+    flash = dict(flash_attention_fwd=(fa, "fwd_launches"),
+                 flash_attention_bwd=(fa, "bwd_launches"),
+                 adam=(ak, "launches"))
+    lines, launches = {}, {}
+    cfg = GPTConfig(vocab_size=30000, hidden_size=1024, num_hidden_layers=12,
+                    num_attention_heads=16, intermediate_size=4096,
+                    max_position_embeddings=1024, dropout=0.1)
+    model = GPTForCausalLM(cfg, seed=0, dtype=torch.bfloat16)
+    n = model.num_params()
+    B, S = 8, 1024
+    lines["gpt"], launches["gpt"] = family_line(
+        "train_gpt", card, model, batch(cfg.vocab_size, B, S),
+        6 * n * B * S, f"6 N B S (bench.py bench_ernie), N = {n}",
+        dict(flash, threefry=(tf, "launches")), dropout=cfg.dropout)
+    del model
+    cfg = BertConfig(dropout=0.0)
+    model = BertForMaskedLM(cfg, seed=0, dtype=torch.bfloat16)
+    n = model.num_params()
+    B, S = 16, 512
+    lines["bert"], launches["bert"] = family_line(
+        "train_bert", card, model, batch(cfg.vocab_size, B, S),
+        6 * n * B * S, f"6 N B S (bench.py bench_bert), N = {n}", flash,
+        zero_grad=[n_ for n_, _ in model.named_parameters()
+                   if n_.endswith("k_proj.bias")])
+    del model
+    V, d, f, E, L, k = 32000, 1024, 4096, 8, 4, 2
+    model = _moe_lm(V, d, f, E, L, "cuda")
+    B, S = 8, 1024
+    # active parameters a token: the embedding (its head too), and a
+    # block's LayerNorm, gate and top-k of its E expert FFNs
+    active = V * d + L * (2 * d + d * E + k * (2 * d * f + f + d))
+    lines["moe"], launches["moe"] = family_line(
+        "train_moe", card, model, batch(V, B, S), 6 * active * B * S,
+        f"6 N_active B S, N_active = V d + L (2 d + d E + k (2 d f + f + "
+        f"d)) = {active} (V {V}, d {d}, f {f}, E {E}, k {k}, L {L})",
+        dict(adam=(ak, "launches")))
+    check(lines["moe"].get("grouped_mm_calls_eager_step") == 2 * L,
+          f"train_moe: {lines['moe'].get('grouped_mm_calls_eager_step')} "
+          f"grouped products in the eager step, not 2 x {L}")
+    del model
+    torch.cuda.empty_cache()
+    return lines, launches
+
+
 def unet_census(cfg, B, side, ctx_len, min_seq):
     """What one forward of the UNet does, counted from the config as the
     constructor builds it: multiply-adds of the convolutions and linears,
@@ -5197,7 +5493,10 @@ def main() -> int:
     amp = train_amp(card)
     t4 = time.perf_counter()
     _, unet_launches, adam_unet = unet_phase(card)
+    t5 = time.perf_counter()
+    families, fam_launches = train_families(card)
     fleet_s = " / ".join(f"{x['phase_s']:.1f}" for x in fleet)
+    fam_s = " / ".join(f"{x['phase_s']:.1f}" for x in families.values())
     print(f"phases: build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
           f"serving {t3 - t2:.1f} s (prefix "
           f"{sum(p['phase_s'] for p in prefix):.1f} s, speculative "
@@ -5208,7 +5507,7 @@ def main() -> int:
           f"cluster {fleet_s} s, bundle {bundle['phase_s']:.1f} s), "
           f"llama training "
           f"{t4 - t3:.1f} s (train_amp {amp['phase_s']:.1f} s), unet "
-          f"training {time.perf_counter() - t4:.1f} s",
+          f"training {t5 - t4:.1f} s, gpt / bert / moe training {fam_s} s",
           flush=True)
     served = runs + prefix + lora + snap + faults + fleet + [bundle]
     launches.update(
@@ -5222,12 +5521,22 @@ def main() -> int:
         group_norm_bwd=unet_launches["group_norm_bwd"],
         flash_attention_fwd_d80=unet_launches["flash_attention_fwd"],
         flash_attention_bwd_d80=unet_launches["flash_attention_bwd"],
-        adam_unet=unet_launches["adam"])
+        adam_unet=unet_launches["adam"],
+        flash_attention_fwd_gpt=fam_launches["gpt"]["flash_attention_fwd"],
+        flash_attention_bwd_gpt=fam_launches["gpt"]["flash_attention_bwd"],
+        flash_attention_fwd_bert=fam_launches["bert"]["flash_attention_fwd"],
+        flash_attention_bwd_bert=fam_launches["bert"]["flash_attention_bwd"])
+    # the same kernels on the families' paths: dropout's threefry, the
+    # Adam update of their parameters
+    launches["threefry"] += fam_launches["gpt"]["threefry"]
+    launches["adam"] += sum(x["adam"] for x in fam_launches.values())
     for k, n in launches.items():
         check(n > 0, f"{k} never launched on its path")
     cases += adam_llama + adam_unet
     flash = "flash_attention bf16 B8 H12 S1024 D64 causal"
     flash80 = "flash_attention bf16 B8 H8 S1024 D80"
+    flash_gpt = "flash_attention bf16 B8 H16 S1024 D64 causal"
+    flash_bert = "flash_attention bf16 B16 H12 S512 D64"
     rms = "rms_norm bf16 8192x768"
     gn_case_ = "group_norm bf16 8x320x64x64 G32 silu"
     rope = "rope bf16 B8 S1024 H12 D64"
@@ -5269,6 +5578,14 @@ def main() -> int:
              fa_fwd, f"{flash80} fwd"),
             ("flash_attention_bwd_d80", "flash_attention_bwd", fa_bwd_src,
              fa_bwd, f"{flash80} bwd"),
+            ("flash_attention_fwd_gpt", "flash_attention_fwd", fa_fwd_src,
+             fa_fwd, f"{flash_gpt} fwd"),
+            ("flash_attention_bwd_gpt", "flash_attention_bwd", fa_bwd_src,
+             fa_bwd, f"{flash_gpt} bwd"),
+            ("flash_attention_fwd_bert", "flash_attention_fwd", fa_fwd_src,
+             fa_fwd, f"{flash_bert} fwd"),
+            ("flash_attention_bwd_bert", "flash_attention_bwd", fa_bwd_src,
+             fa_bwd, f"{flash_bert} bwd"),
             ("rms_norm_fwd", "rms_norm_fwd",
              "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:75", f"{rms} fwd"),

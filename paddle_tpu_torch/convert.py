@@ -1,9 +1,12 @@
 """Carry a JAX model's parameters into the port's model, and back out.
 
-The JAX package's ``LlamaForCausalLM`` and ``UNet2DConditionModel``
-``state_dict()`` and the port's ``named_parameters()`` share names and
-layouts (linear weights ``(in, out)``, convolutions OIHW), so the transfer
-is a checked one-to-one copy. The caller hands
+The JAX package's models and layers (``LlamaForCausalLM``,
+``UNet2DConditionModel``, ``GPTForCausalLM``, ``BertForMaskedLM``, the
+``nn.transformer`` layers, ``MoEMLP`` and ``MoELayer``) and the port's
+share parameter names and layouts (linear weights ``(in, out)``,
+convolutions OIHW, stacked experts ``(E, in, out)``): their
+``state_dict()`` and the port's ``named_parameters()`` match name for
+name, so the transfer is a checked one-to-one copy of any of them. The caller hands
 the JAX side over as numpy arrays (``{name: np.asarray(t.value)}``); this
 module imports nothing of JAX.
 

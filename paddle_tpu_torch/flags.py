@@ -63,6 +63,9 @@ _DEFAULTS: Dict[str, Any] = {
     "fused_ce_logits_budget_mb": 1536,
     # run every fused op as its canonical unfused composition
     "decompose_fused_ops": False,
+    # generator of the training step's key (dropout & co.): the port has
+    # threefry2x32 only (the JAX package defaults to its TPU 'rbg')
+    "train_rng_impl": "threefry2x32",
     # transient-error retries per device dispatch in
     # runtime/resilience.resilient_call (UNAVAILABLE / DEADLINE_EXCEEDED /
     # ABORTED, plus RESOURCE_EXHAUSTED during setup); 0 disables retrying

@@ -1,5 +1,7 @@
-"""Fused functional ops (``incubate.nn.functional``)."""
+"""Fused functional ops (``incubate.nn.functional``) and the
+Mixture-of-Experts layers (``incubate.nn.moe``)."""
 
 from paddle_tpu_torch.incubate.nn import functional
+from paddle_tpu_torch.incubate.nn.moe import MoELayer, MoEMLP
 
-__all__ = ["functional"]
+__all__ = ["functional", "MoEMLP", "MoELayer"]

@@ -10,7 +10,6 @@ takes the rope kernel when ``use_fused_rope`` is on).
 
 from __future__ import annotations
 
-from paddle_tpu_torch.models.llama import _rope_op
 from paddle_tpu_torch.ops.fused_norm import group_norm_silu_op
 
 __all__ = ["fused_rotary_position_embedding", "fused_group_norm_silu"]
@@ -21,6 +20,8 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     use_neox_rotary_style=True):
     """Rotate q (and k) of shape (B, S, H, D) by (S, D/2) cos/sin tables;
     v passes through. Returns q alone or the tuple of those given."""
+    # imported here: models/unet.py imports this module
+    from paddle_tpu_torch.models.llama import _rope_op
     if cos is None or sin is None:
         raise ValueError("pass cos/sin tables")
     outs = [_rope_op(q, cos, sin)]

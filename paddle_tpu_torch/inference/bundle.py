@@ -455,7 +455,7 @@ class _EntryGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph,
+        with _kernels.capture(self.graph,
                               capture_error_mode=_kernels._CAPTURE_MODE):
             self.out = run(*self.args)
         self.launches = _kernels.captured_launches(before)

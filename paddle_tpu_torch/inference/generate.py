@@ -1858,7 +1858,7 @@ class _ChunkGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph,
+        with _kernels.capture(self.graph,
                               capture_error_mode=_kernels._CAPTURE_MODE):
             self.toks, self.out = body(self.inputs)
         self.launches = _kernels.captured_launches(before)
@@ -1897,7 +1897,7 @@ class _PrefillGraph:
         self.args = tuple(None if a is None else a.clone() for a in args)
         self.graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
-        with torch.cuda.graph(self.graph,
+        with _kernels.capture(self.graph,
                               capture_error_mode=_kernels._CAPTURE_MODE):
             if self.zero:
                 for c in self.caches:

@@ -24,6 +24,7 @@ import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch.amp.auto_cast import amp_cast
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.models._common import as_ids
 from paddle_tpu_torch.ops.kernels import rope as _rope_k
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "TINY_CONFIG"]
@@ -227,10 +228,7 @@ class LlamaForCausalLM(nn.Module):
         return self.model.embed_tokens.weight.device
 
     def _ids(self, ids) -> torch.Tensor:
-        if isinstance(ids, torch.Tensor):
-            return ids.to(self.device, torch.long)
-        return torch.as_tensor(np.asarray(ids), dtype=torch.long,
-                               device=self.device)
+        return as_ids(ids, self.device)
 
     def _head_weight(self):
         """The (H, V) lm-head matrix, for forward and the fused loss

@@ -1,12 +1,17 @@
-"""The functional ops the Llama and UNet training paths use.
+"""The functional ops the Llama, UNet, GPT, BERT and MoE paths use.
 
 Counterpart of the matching parts of ``paddle_tpu/nn/functional.py``:
-``rms_norm``, ``group_norm``, ``scaled_dot_product_attention`` (paddle's
-(batch, seq, heads, head_dim) layout) with its reference form
-``_sdpa_ref``, ``silu``, ``softmax``, ``cross_entropy`` (with the JAX
-function's ``weight``, ``soft_label``, ``axis``, ``use_softmax`` and
-``label_smoothing``), and ``linear`` (paddle's (in, out) weights),
-``conv2d`` (NCHW, OIHW weights) and nearest ``interpolate``. Each one
+``rms_norm``, ``group_norm``, ``layer_norm``, ``scaled_dot_product_attention``
+(paddle's (batch, seq, heads, head_dim) layout) with its reference form
+``_sdpa_ref``, ``silu``, ``gelu``, ``relu``, ``softmax``, ``one_hot``,
+``cross_entropy`` (with the JAX function's ``weight``, ``soft_label``,
+``axis``, ``use_softmax`` and ``label_smoothing``), ``embedding``,
+``dropout`` / ``dropout2d``, and ``linear`` (paddle's (in, out) weights),
+``conv2d`` (NCHW, OIHW weights) and nearest ``interpolate``. Dropout (and
+attention dropout in ``_sdpa_ref``) draws its mask from
+``framework.random.split_key``: ``uniform(key, shape) < 1 - p``, which is
+``jax.random.bernoulli``, so the masks equal the JAX package's bit for
+bit under the same seed or step key. Each one
 the JAX package dispatches through its op registry under a name of the
 AMP lists casts its floating inputs at its top (``amp.auto_cast.amp_cast``
 under that name). The routing rules are the JAX package's: RMSNorm and
@@ -21,18 +26,23 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as _F
 
+from paddle_tpu_torch import random as _rnd
 from paddle_tpu_torch.amp.auto_cast import _dtype, amp_cast
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.framework import random as _state
 from paddle_tpu_torch.ops.fused_norm import (_gn_kernel_ok, _kernel_ok,
                                              group_norm_fused, rms_lax,
                                              rms_norm_fused)
 from paddle_tpu_torch.ops.kernels import flash_attention as _fa
 
-__all__ = ["rms_norm", "group_norm", "scaled_dot_product_attention", "silu",
-           "softmax", "cross_entropy", "linear", "conv2d", "interpolate"]
+__all__ = ["rms_norm", "group_norm", "layer_norm",
+           "scaled_dot_product_attention", "silu", "gelu", "relu",
+           "softmax", "one_hot", "cross_entropy", "linear", "conv2d",
+           "interpolate", "embedding", "dropout", "dropout2d"]
 
 _LOWP = (torch.bfloat16, torch.float16)
 
@@ -45,6 +55,105 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def silu(x):
     return _F.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU: exact (erf) by default, the tanh form with
+    ``approximate=True``, as ``jax.nn.gelu``."""
+    return _F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    return _F.relu(x)
+
+
+def one_hot(x, num_classes):
+    """f32 one-hot rows of integer ``x`` (an index outside [0, C) gives a
+    row of zeros, as ``jax.nn.one_hot``)."""
+    classes = torch.arange(num_classes, device=x.device)
+    # a comparison, not torch's one_hot: no check of the values, so no
+    # host sync under a CUDA-graph capture
+    return (x.long()[..., None] == classes).to(torch.float32)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes: statistics in
+    f32 for bf16 / f16 input, the normalized value rounded to x's dtype,
+    then the weight and bias in that dtype (the JAX function's order)."""
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    xf = x.float() if x.dtype in _LOWP else x
+    out = _F.layer_norm(xf, tuple(normalized_shape), None, None,
+                        epsilon).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of ``weight`` at the indices ``x``; rows at ``padding_idx``
+    are zeros (the output masked, as the JAX function masks it, so they
+    pass no gradient)."""
+    out = _F.embedding(x.long(), weight)
+    if padding_idx is not None:
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
+    return out
+
+
+def _keep_mask(key, shape, p, device):
+    """``jax.random.bernoulli(key, 1 - p, shape)``: f32 uniforms below
+    f32(1 - p)."""
+    u = _rnd.uniform(key.to(device), shape)
+    return u < float(np.float32(1.0 - p))
+
+
+def _scaled_by_keep(x, keep, p):
+    """``where(keep, x / (1 - p), 0)`` in x's dtype, the divisor rounded
+    to x's dtype and held in a tensor (CUDA divides by a host scalar
+    through its reciprocal)."""
+    div = torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / div, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+
+
+def _dropout_op(x, key, p, mode, axis=None):
+    shape = tuple(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.ndim for a in axes]
+        shape = tuple(s if i in axes else 1 for i, s in enumerate(x.shape))
+    keep = _keep_mask(key, shape, p, x.device)
+    if mode == "upscale_in_train":
+        return _scaled_by_keep(x, keep, p)
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None):
+    """paddle's ``dropout``: in training, zero each element (or each slice
+    along ``axis``) with probability ``p`` and scale the kept ones by
+    1 / (1 - p) (``upscale_in_train``) or keep them as they are
+    (``downscale_in_infer``, which scales by 1 - p at inference)."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"unknown dropout mode {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1 - p)
+        return x
+    return _dropout_op(x, _state.split_key(device=x.device), p, mode, axis)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Whole channels dropped: the mask spans (N, C) of an NCHW map (N, C
+    of NHWC)."""
+    if not training or p == 0.0:
+        return x
+    axis = (0, 1) if data_format == "NCHW" else (0, 3)
+    return _dropout_op(x, _state.split_key(device=x.device), p,
+                       "upscale_in_train", axis)
 
 
 def softmax(x, axis=-1, dtype=None):
@@ -143,10 +252,13 @@ def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
     return out
 
 
-def _sdpa_ref(q, k, v, attn_mask=None, causal=False, scale=None):
+def _sdpa_ref(q, k, v, attn_mask=None, dropout_key=None, dropout_p=0.0,
+              causal=False, scale=None):
     """Reference attention in plain ops, (B, S, H, D) layout: f32 logits
     of the io-dtype inputs, the softmax in f32, the probabilities rounded
-    to q's dtype before the product with v."""
+    to q's dtype before the product with v; with ``dropout_key`` and
+    ``dropout_p`` > 0 the probabilities are dropped as ``dropout`` drops
+    (a (B, H, Sq, Sk) mask) before that product."""
     d = q.shape[-1]
     sq, sk = q.shape[1], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -162,6 +274,10 @@ def _sdpa_ref(q, k, v, attn_mask=None, causal=False, scale=None):
         else:
             logits = logits + attn_mask
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_key is not None and dropout_p > 0.0:
+        keep = _keep_mask(dropout_key, tuple(probs.shape), dropout_p,
+                          probs.device)
+        probs = _scaled_by_keep(probs, keep, dropout_p)
     return (probs @ vT).transpose(1, 2)
 
 
@@ -172,12 +288,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     heads, head_dim). Flash kernels when the flags allow, there is no mask
     and no dropout, the key length is at least
     ``flash_attention_min_seq`` and the kernels take the shapes (equal
-    head counts, causal with sq <= sk); else ``_sdpa_ref``."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported to paddle_tpu_torch yet "
-            "(ROADMAP.md section 1, item 14: the paddle Tensor and RNG "
-            "surface)")
+    head counts, causal with sq <= sk); else ``_sdpa_ref``, which drops
+    attention probabilities in training when ``dropout_p`` > 0 (its key
+    split off after the routing, as in the JAX function)."""
     use_flash = (flags.use_fused_attention and attn_mask is None
                  and dropout_p == 0.0
                  and key.shape[1] >= flags.flash_attention_min_seq)
@@ -190,7 +303,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                  and _fa.supported(query, key, value))
     if use_flash:
         return _fa.flash_attention_op(query, key, value, causal=is_causal)
-    return _sdpa_ref(query, key, value, attn_mask=attn_mask,
+    dk = (_state.split_key(device=query.device)
+          if (dropout_p > 0.0 and training) else None)
+    return _sdpa_ref(query, key, value, attn_mask=attn_mask, dropout_key=dk,
+                     dropout_p=dropout_p if training else 0.0,
                      causal=is_causal)
 
 

@@ -1,10 +1,12 @@
-"""Beam-search decoding and the train/eval mode snapshot.
+"""No-cache decoding and the train/eval mode snapshot.
 
-Counterpart of ``paddle_tpu/nn/generation.py`` (``beam_search``,
-``mode_snapshot``, ``mode_restore``) and of the ``gather_tree`` op
-(``paddle_tpu/ops/schema_defs.py`` ``_gather_tree``). Beam search runs the
-model's full forward with no cache at every step, as the reference does:
-it works on any causal LM whose ``forward(ids)`` returns (B, S, V) logits.
+Counterpart of ``paddle_tpu/nn/generation.py`` (``generate_tokens``,
+``beam_search``, ``mode_snapshot``, ``mode_restore``) and of the
+``gather_tree`` op (``paddle_tpu/ops/schema_defs.py`` ``_gather_tree``).
+Both decoders run the model's full forward with no cache at every step,
+as the reference does: they work on any causal LM whose ``forward(ids)``
+returns (B, S, V) logits (GPT's ``generate``; the Llama has its cached
+decoder).
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["beam_search", "gather_tree", "mode_snapshot", "mode_restore"]
+__all__ = ["generate_tokens", "beam_search", "gather_tree",
+           "mode_snapshot", "mode_restore"]
 
 
 def mode_snapshot(model):
@@ -29,6 +32,70 @@ def mode_snapshot(model):
 def mode_restore(snap) -> None:
     for m, was in snap:
         m.training = was
+
+
+def generate_tokens(model, input_ids, max_new_tokens: int = 32,
+                    eos_token_id: Optional[int] = None,
+                    do_sample: bool = False, temperature: float = 1.0,
+                    top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    seed: int = 0) -> np.ndarray:
+    """Greedy or sampled decode by re-running the full forward over the
+    growing ids for every token, which stops once every row has emitted
+    ``eos_token_id`` (a negative id means none); returns (B, S + new) int
+    ids. The JAX package compiles a module's decode into one scan over a
+    padded (B, S + N) buffer; eager, that buffer would only make every
+    forward longer, so every model takes this loop, which gives the same
+    tokens. A sampled token is drawn as the JAX function draws it: the
+    key of ``seed`` split once a token, a categorical over the whole
+    (B, V) filtered logits under the second half."""
+    from paddle_tpu_torch import random as rnd
+    from paddle_tpu_torch.inference.eos import _normalize_eos
+    from paddle_tpu_torch.inference.generate import _sample_batch
+
+    eos = _normalize_eos(eos_token_id)
+    ids = np.asarray(input_ids)
+    max_pos = getattr(getattr(model, "config", None),
+                      "max_position_embeddings", None)
+    if max_pos is not None and ids.shape[1] + max_new_tokens > max_pos:
+        raise ValueError(
+            f"prompt {ids.shape[1]} + {max_new_tokens} new tokens exceeds "
+            f"max_position_embeddings {max_pos}")
+    if max_new_tokens <= 0:
+        return ids
+    snap = mode_snapshot(model)
+    if hasattr(model, "eval"):
+        model.eval()
+    try:
+        with torch.inference_mode():
+            dev = _device_of(model)
+            cur = torch.as_tensor(ids, dtype=torch.long, device=dev)
+            key = rnd.PRNGKey(seed, device=dev)
+            done = torch.zeros((ids.shape[0],), dtype=torch.bool, device=dev)
+            for _ in range(max_new_tokens):
+                logits = torch.as_tensor(model(cur))[:, -1].float()
+                # a draw under the second half of the key's split, whose
+                # first half is the next key; a finished row emits eos
+                if do_sample:
+                    key, tok = _sample_batch(logits, key, temperature,
+                                             top_k, top_p)
+                else:
+                    tok = torch.argmax(logits, dim=-1)
+                if eos is not None:
+                    tok = torch.where(done, eos, tok)
+                    done = done | (tok == eos)
+                cur = torch.cat([cur, tok[:, None]], dim=1)
+                if eos is not None and bool(done.all()):
+                    break
+            return cur.cpu().numpy().astype(ids.dtype)
+    finally:
+        mode_restore(snap)
+
+
+def _device_of(model) -> torch.device:
+    if isinstance(model, torch.nn.Module):
+        return next(model.parameters()).device
+    return torch.device(getattr(model, "device", "cpu"))
 
 
 def gather_tree(ids: torch.Tensor, parents: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,21 @@
-"""Layer classes the UNet is built from.
+"""Layer classes the UNet, GPT, BERT and MoE models are built from.
 
-Counterparts of ``paddle_tpu/nn/layers.py``'s ``Linear``, ``Conv2D``,
-``GroupNorm``, ``Silu`` and ``Identity`` as ``torch.nn.Module``s, with the
-same parameter names, layouts and initializers: ``Linear.weight`` is (in,
-out) from XavierUniform and its bias zeros; ``Conv2D.weight`` is OIHW from
-KaimingUniform (bound 1 / sqrt(fan_in)) and its bias uniform in the same
-bound; ``GroupNorm`` has a (C,) weight of ones and bias of zeros. Their
-forwards go through ``nn.functional``, so GroupNorm reaches the GroupNorm
-kernels. ``torch.nn.Sequential`` and ``torch.nn.ModuleList`` name their
-children ``0``, ``1``, ... as paddle's ``Sequential`` and ``LayerList``
-do. Random values come from ``generator`` (a ``torch.Generator`` on the
-layer's device) and are drawn in f32, then cast to ``dtype``. ``device``
-defaults to the card (``device.resolve_device``).
+Counterparts of ``paddle_tpu/nn/layers.py``'s ``Linear``, ``Embedding``,
+``Dropout``, ``LayerList``, ``Conv2D``, ``LayerNorm``, ``GroupNorm``,
+``Silu`` and ``Identity`` as
+``torch.nn.Module``s, with the same parameter names, layouts and
+initializers: ``Linear.weight`` is (in, out) from XavierUniform and its
+bias zeros; ``Embedding.weight`` is normal(0, 1), its ``padding_idx`` row
+zeros; ``Conv2D.weight`` is OIHW from KaimingUniform (bound 1 /
+sqrt(fan_in)) and its bias uniform in the same bound; ``LayerNorm`` and
+``GroupNorm`` have weights of ones and biases of zeros. Their forwards go
+through ``nn.functional``, so GroupNorm reaches the GroupNorm kernels and
+dropout draws from ``framework.random``. ``LayerList`` is
+``torch.nn.ModuleList``: it and ``torch.nn.Sequential`` name their
+children ``0``, ``1``, ... as paddle's do. Random values come from
+``generator`` (a ``torch.Generator`` on the layer's device) and are drawn
+in f32, then cast to ``dtype``. ``device`` defaults to the card
+(``device.resolve_device``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from torch import nn
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["Linear", "Conv2D", "GroupNorm", "Silu", "Identity"]
+__all__ = ["Linear", "Embedding", "Dropout", "LayerList", "Conv2D",
+           "LayerNorm", "GroupNorm", "Silu", "Identity"]
+
+LayerList = nn.ModuleList
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -33,10 +40,13 @@ def _not_ported(what: str) -> NotImplementedError:
         f"1, item 14)")
 
 
-def _param(shape, dev, dtype, fill=None, bound=None, generator=None):
+def _param(shape, dev, dtype, fill=None, bound=None, generator=None,
+           std=None):
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     if bound is not None:
         t.uniform_(-bound, bound, generator=generator)
+    elif std is not None:
+        t.normal_(0.0, std, generator=generator)
     else:
         t.fill_(fill)
     return nn.Parameter(t.to(dtype))
@@ -68,6 +78,41 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Embedding(nn.Module):
+    """paddle's ``nn.Embedding``: weight (num_embeddings, embedding_dim)
+    from normal(0, 1), the ``padding_idx`` row zeros."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx=None, sparse=False, weight_attr=None, name=None,
+                 *, device=None, dtype=torch.float32, generator=None):
+        super().__init__()
+        if weight_attr is not None:
+            raise _not_ported("a ParamAttr weight_attr")
+        dev = resolve_device(device)
+        self.num_embeddings, self.embedding_dim = num_embeddings, \
+            embedding_dim
+        self.padding_idx = padding_idx
+        self.weight = _param((num_embeddings, embedding_dim), dev, dtype,
+                             std=1.0, generator=generator)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, training=self.training, mode=self.mode,
+                         axis=self.axis)
 
 
 class Conv2D(nn.Module):
@@ -102,6 +147,31 @@ class Conv2D(nn.Module):
         return F.conv2d(x, self.weight, self.bias, stride=self.stride,
                         padding=self.padding, dilation=self.dilation,
                         groups=self.groups)
+
+
+class LayerNorm(nn.Module):
+    """paddle's ``nn.LayerNorm``: weight ones and bias zeros of
+    ``normalized_shape``, through ``nn.functional.layer_norm``."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = (None if _absent(weight_attr, "weight_attr")
+                       else _param(self.normalized_shape, dev, dtype,
+                                   fill=1.0))
+        self.bias = (None if _absent(bias_attr, "bias_attr")
+                     else _param(self.normalized_shape, dev, dtype,
+                                 fill=0.0))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)
 
 
 class GroupNorm(nn.Module):

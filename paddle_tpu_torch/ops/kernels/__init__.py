@@ -10,15 +10,20 @@ its launches without running Python, so the code that captures one takes
 ``launch_counts()`` before the capture, ``captured_launches(before)``
 after it (which also undoes the capture's own counts: nothing ran), and
 ``add_launches(captured)`` at each replay. ``_CAPTURE_MODE`` is the
-capture error mode every decoder and bundle graph is captured in."""
+capture error mode every decoder and bundle graph is captured in;
+``capture`` is the capture every graph of the port runs under."""
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import importlib
 from typing import Dict
 
+import torch
+
 __all__ = ["launch_counts", "captured_launches", "add_launches",
-           "reset_launches"]
+           "reset_launches", "capture"]
 
 _WRAPPERS = ("adam", "decode_attention", "flash_attention", "group_norm",
              "int8_matmul", "rms_norm", "rope", "threefry")
@@ -30,6 +35,25 @@ _COUNTERS = ("launches", "fwd_launches", "bwd_launches", "launches_by_rows")
 # heartbeat), and in the default "global" mode any CUDA call one of them
 # makes during a capture (a sync, a copy, an allocation) fails that capture
 _CAPTURE_MODE = "thread_local"
+
+@contextlib.contextmanager
+def capture(graph, **kw):
+    """``torch.cuda.graph(graph, **kw)`` with Python's cyclic garbage
+    collector run once before and paused until the capture ends. torch no
+    longer collects at a capture's start, and a cycle that dies with a
+    CUDA graph in it (an earlier decoder or trainer) can be collected at
+    any allocation: its graph's pool is then freed through ``cudaFree``,
+    which is illegal during a capture and invalidates it."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kw):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
 
 # (module, counter) for an integer counter, (module, counter, sub-key) for
 # an entry of a dict counter

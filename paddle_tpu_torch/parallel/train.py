@@ -39,6 +39,12 @@ gradients between the backward and the update, inside the captured step
 (``nn.clip.clip_grads``, the JAX trainer's ``_apply_grad_clip``).
 ``amp_dtype`` runs the loss under ``amp.auto_cast`` (parameters stay as
 they are, f32 master weights with an f32 model), as the JAX trainer does.
+Each step pushes a threefry key for the model's random ops (dropout),
+``(0, seed)`` with ``seed`` an int32 counter on the device that starts at
+``optimizer._step_count`` and is bumped by every step, inside the captured
+step on a card, so every replay draws fresh masks; the JAX trainer's key
+of a device counter (``flags.train_rng_impl``, of which the port has
+``"threefry2x32"`` only: ROADMAP.md section 1, item 14.1).
 ``save`` / ``load`` write and read the JAX package's distributed
 checkpoint format (``distributed/checkpoint.py``) under the keys of
 ``state_dict``, so a JAX trainer's checkpoint resumes here and the other
@@ -59,6 +65,7 @@ from torch.autograd.graph import increment_version
 
 from paddle_tpu_torch.amp.auto_cast import auto_cast
 from paddle_tpu_torch.flags import flags
+from paddle_tpu_torch.framework import random as _rng
 from paddle_tpu_torch.nn.clip import clip_grads
 from paddle_tpu_torch.ops import kernels as _kernels
 
@@ -121,6 +128,9 @@ class ShardedTrainer:
         self.opt_state = {n: optimizer.init_state(p)
                           for n, p in self.params.items()}
         self._lr: Optional[tuple] = None     # (host value, f32 tensor)
+        # the step key's counter, int32 on the device (the bits of the
+        # JAX trainer's uint32), made at the first step
+        self._seed_dev: Optional[torch.Tensor] = None
         # step key -> its _StepGraph, or None after the key's eager
         # warm-up step; the oldest keys go first past _STEP_GRAPHS
         self._graphs: "collections.OrderedDict[tuple, Optional[_StepGraph]]" \
@@ -158,15 +168,41 @@ class ShardedTrainer:
             self._lr = (lr, self._lr[1])
         return self._lr[1]
 
+    def _seed(self) -> torch.Tensor:
+        """The step key's counter, made from ``optimizer._step_count`` at
+        its first use."""
+        if flags.train_rng_impl != "threefry2x32":
+            raise _not_ported(f"train_rng_impl={flags.train_rng_impl!r} "
+                              f"(the port's step key is threefry2x32)",
+                              "item 14.1")
+        if self._seed_dev is None:
+            c = int(self.optimizer._step_count) & 0xFFFFFFFF
+            self._seed_dev = torch.tensor(c - (c >> 31 << 32),
+                                          dtype=torch.int32,
+                                          device=self.device)
+        return self._seed_dev
+
     def _loss(self, batch) -> torch.Tensor:
-        if self.amp_dtype:
-            with auto_cast(dtype=self.amp_dtype):
-                return self.loss_fn(self.model, *batch)
-        return self.loss_fn(self.model, *batch)
+        """The loss under the step key ``(0, seed)``."""
+        seed = self._seed()
+        _rng.push_trace_key(torch.stack([torch.zeros_like(seed), seed]))
+        try:
+            if self.amp_dtype:
+                with auto_cast(dtype=self.amp_dtype):
+                    return self.loss_fn(self.model, *batch)
+            return self.loss_fn(self.model, *batch)
+        finally:
+            _rng.pop_trace_key()
 
     def _update(self, lr: torch.Tensor) -> None:
         opt = self.optimizer
         names = list(self.params)
+        for p in self.params.values():
+            if p.grad is None:
+                # a parameter the loss does not reach (BERT's token types
+                # without token_type_ids): a zero gradient, as jax.grad
+                # gives it
+                p.grad = torch.zeros_like(p)
         grads = clip_grads(getattr(opt, "_grad_clip", None),
                            [self.params[n].grad for n in names])
         opt.update_many(grads,
@@ -181,6 +217,7 @@ class ShardedTrainer:
         loss.backward()
         t0 = time.perf_counter()
         self._update(lr)
+        self._seed_dev.add_(1)
         self.update_host_s = time.perf_counter() - t0
         for p in self.params.values():
             p.grad = None
@@ -204,10 +241,11 @@ class ShardedTrainer:
             p.grad = None       # backward allocates them inside the graph
         graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
-        with torch.cuda.graph(graph):
+        with _kernels.capture(graph):
             loss = self._loss(inputs)
             loss.backward()
             self._update(lr)
+            self._seed_dev.add_(1)
         return _StepGraph(graph, inputs, loss.detach(),
                           {n: p.grad for n, p in self.params.items()},
                           _kernels.captured_launches(before))

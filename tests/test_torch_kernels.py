@@ -888,3 +888,153 @@ def test_beam_search_on_card():
                       eos_token_id=eos)[0, 6:]
     if (seq == eos).any():
         assert (seq[int(np.argmax(seq == eos)):] == eos).all()
+
+
+@pytest.mark.gpu
+def test_flash_attention_at_the_bert_shape_on_card():
+    """bench_bert's attention, non-causal B 16, H 12, S 512, D 64, bf16:
+    the kernels against their plain versions at chip_smoke's bf16
+    tolerance (with its bound for p and ds rounded at another point)."""
+    _need_card()
+    from chip_smoke import err_and_tol, flash_bounds
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, S, H, D = 16, 512, 12, 64
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .bfloat16() for _ in range(4))
+    scale = D ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, False, scale)
+    ref_out, ref_lse = fa.flash_fwd_ref(q, k, v, False, scale)
+    grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, False, scale)
+    refs = fa.flash_bwd_ref(q, k, v, ref_out, ref_lse, do, False, scale)
+    bounds = flash_bounds(q, k, v, ref_lse, do, False, scale)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (ref_out, *refs)):
+        err, ratio, _ = err_and_tol(got, want, torch.bfloat16, bounds[name])
+        assert ratio <= 1, (name, err, ratio)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def _tiny_gpu_trainer(model):
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainer
+    return ShardedTrainer(model, AdamW(learning_rate=1e-3,
+                                       parameters=model.parameters(),
+                                       multi_precision=False),
+                          lambda m, i, l: m.loss(i, l))
+
+
+@pytest.mark.gpu
+def test_gpt_dropout_replays_draw_new_masks_on_card():
+    """A GPT at dropout 0.1, bf16, its step captured: from one state, two
+    replays (step key counters c and c + 1) give different losses, and an
+    eager step at counter c gives the first replay's loss bit for bit;
+    the counter moves by one a step, inside the graph."""
+    _need_card()
+    from chip_smoke import saved_state
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    model = GPTForCausalLM(GPTConfig(
+        vocab_size=512, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=256,
+        max_position_embeddings=128, dropout=0.1), dtype=torch.bfloat16)
+    tr = _tiny_gpu_trainer(model)
+    rng = np.random.default_rng(0)
+    batch = [torch.as_tensor(rng.integers(0, 512, (4, 64)), device="cuda")
+             for _ in range(2)]
+    for _ in range(2):                      # warm-up, capture
+        tr.train_step(*batch)
+    assert tr._seed_dev.item() == 2
+    restore = saved_state(tr)
+    a = tr.train_step(*batch)
+    restore(seed=False)
+    b = tr.train_step(*batch)
+    assert tr._seed_dev.item() == 4
+    restore()
+    e = tr._eager_step(*batch)
+    torch.cuda.synchronize()
+    assert not torch.equal(a, b), a.item()
+    assert torch.equal(a, e), (a.item(), e.item())
+
+
+@pytest.mark.gpu
+def test_default_generator_draws_on_card():
+    """Dropout outside a trainer's step: the default generator's key
+    moves to the card at the first draw there and is split there by the
+    threefry kernel (no host copy), the masks bit-equal to the CPU's
+    under the same seed; a ``torch.cuda.graph`` capture of a dropout
+    advances the key at every replay, as eager draws from the same seed
+    do."""
+    _need_card()
+    from paddle_tpu_torch.framework import random as rng_state
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops.kernels import capture
+    from paddle_tpu_torch.ops.kernels import threefry as tf
+    x = torch.ones(64, 256)
+    rng_state.seed(3)
+    want = [TF.dropout(x, p=0.5) for _ in range(2)]
+    rng_state.seed(3)
+    xc = x.cuda()
+    n0 = tf.launches
+    got = [TF.dropout(xc, p=0.5) for _ in range(2)]
+    assert rng_state.get_rng_state().device.type == "cuda"
+    assert tf.launches > n0
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    rng_state.seed(5)
+    graph = torch.cuda.CUDAGraph()
+    with capture(graph):                    # torch.cuda.graph, gc paused
+        out = TF.dropout(xc, p=0.5)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    rng_state.seed(5)
+    eager = [TF.dropout(xc, p=0.5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert not torch.equal(replays[0], replays[1])
+    for r, e in zip(replays, eager):
+        assert torch.equal(r, e)
+
+
+@pytest.mark.gpu
+def test_moe_step_graph_matches_eager_on_card():
+    """The dropless MoE LM (bf16, ragged dispatch through
+    ``torch._grouped_mm``) trained through a captured step: the first
+    replay's loss bit-equal to an eager step from the same state, its
+    gradients at cosine >= 0.999 to the eager ones, the losses falling;
+    and the card's grouped product against the CPU's per-expert loop on
+    the same rows within two bf16 spacings."""
+    _need_card()
+    from chip_smoke import _moe_lm, saved_state
+    from paddle_tpu_torch.incubate.nn.moe import _ragged_dot
+    model = _moe_lm(4096, 128, 256, 4, 2, "cuda")
+    tr = _tiny_gpu_trainer(model)
+    rng = np.random.default_rng(1)
+    batch = [torch.as_tensor(rng.integers(0, 4096, (4, 64)), device="cuda")
+             for _ in range(2)]
+    losses = [tr.train_step(*batch).item() for _ in range(2)]
+    restore = saved_state(tr)
+    graph = next(iter(tr._graphs.values()))
+    a = tr.train_step(*batch)
+    g_graph = {n: g.float().clone() for n, g in graph.grads.items()}
+    restore()
+    for p in tr.params.values():
+        p.grad = None
+    loss = tr._loss(batch)
+    loss.backward()
+    assert torch.equal(a, loss.detach()), (a.item(), loss.item())
+    for n, p in tr.params.items():
+        x, y = g_graph[n].reshape(-1), p.grad.float().reshape(-1)
+        if x.norm() > 0 or y.norm() > 0:
+            cos = (x @ y / (x.norm() * y.norm())).item()
+            assert cos >= 0.999, (n, cos)
+    restore()
+    for p in tr.params.values():
+        p.grad = None
+    losses += [tr.train_step(*batch).item() for _ in range(4)]
+    assert losses[-1] < losses[0], losses
+    x = torch.randn(100, 128, device="cuda").bfloat16()
+    w = torch.randn(4, 128, 64, device="cuda").bfloat16()
+    gs = torch.tensor([30, 0, 50, 20], device="cuda")
+    got = _ragged_dot(x, w, gs)
+    want = _ragged_dot(x.cpu().float(), w.cpu().float(), gs.cpu())
+    _close(got.cpu(), want.bfloat16(), torch.bfloat16)

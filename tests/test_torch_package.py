@@ -61,6 +61,11 @@ def test_import_leaves_jax_out_and_chip_smoke_refuses_without_a_card():
             "import paddle_tpu_torch.distributed.elastic\n"
             "import paddle_tpu_torch.inference.bundle\n"
             "import paddle_tpu_torch.inference.entries\n"
+            "import paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.nn.transformer\n"
+            "import paddle_tpu_torch.incubate.nn.moe\n"
+            "import paddle_tpu_torch.framework.random\n"
+            "import paddle_tpu_torch.distributed.moe_utils\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'paddle_tpu', 'ml_dtypes')]\n"
             "assert not bad, bad\n"
